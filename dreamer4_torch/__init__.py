@@ -1,0 +1,26 @@
+"""dreamer4_torch — the PyTorch / CUDA port of dreamer4_tpu for NVIDIA Hopper.
+
+The JAX package `dreamer4_tpu` is the reference; this package mirrors its
+layout (`ops/`, `nn/`, `models/`, `data/`) module for module, so each
+counterpart is found under the same name. It imports torch only: never jax,
+flax or anything of `dreamer4_tpu`.
+
+Ported so far: the imagination rollout (`models.generate.generate`) of
+`DynamicsWorldModel`, with the flash-attention forward as a hand-written
+CUDA kernel (`csrc/flash_attn_fwd.cu`). Entry points run on CUDA unless the
+caller passes `device='cpu'`.
+"""
+
+__version__ = '0.1.0'
+
+from .data.experience import Experience
+from .models.generate import generate
+from .models.transformer import AxialSpaceTimeTransformer
+from .models.world_model import DynamicsWorldModel
+
+__all__ = [
+    'AxialSpaceTimeTransformer',
+    'DynamicsWorldModel',
+    'Experience',
+    'generate',
+]
