@@ -330,9 +330,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f'# python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}')
     card = gpu_name_and_power_limit()
     log(card)
+    log(f'# python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}')
 
     t0 = time.perf_counter()
     _, build_log = cuda_build.build('flash_attn_fwd')

@@ -18,25 +18,31 @@
 // Layout: q, o (B, Hq, N, D); k, v (B, H, M, D); lse (B, Hq, N); all
 // contiguous. D is 16, 32, 64 or 128; the element type is float32 or bf16.
 //
-// Design. One block of 256 threads per (q tile of 64 rows, q head, batch).
-// It walks the kv tiles of 64 rows in order, stages each tile in shared
-// memory as float32, and keeps the running max, sum and output accumulator
-// of its rows in registers: four threads share a query row, each holding
-// 16 of the tile's 64 scores and D/4 of the row's output columns. Tiles
-// wholly beyond kv_len or above the causal diagonal are never loaded. Ragged
+// Design. One block per (q tile of 64 rows, q head, batch) walks the kv
+// tiles of 64 rows in order, stages each in shared memory and keeps the
+// running max, sum and output accumulator of its rows in registers. Tiles
+// wholly beyond kv_len or above the causal diagonal are never loaded; ragged
 // N and M edges are masked inside the kernel. As in the TPU kernel, the
 // probabilities are rounded to the input type before the PV product and the
 // row sum uses them unrounded. The TPU kernel's blocking (128-lane LSE
 // padding, D padded to 128) is not carried over.
+//   bf16: four warps, 16 query rows each, on the tensor cores
+//     (`mma.sync.m16n8k16`, float32 accumulation). Q stays in registers as
+//     A fragments; the score accumulators are reused as the A fragments of
+//     the PV product, so P never leaves registers; V's B fragments come
+//     from the row-major tile through `ldmatrix.trans`.
+//   float32: 256 threads on the float32 cores, four threads per query row,
+//     the tiles staged as float32 (the tensor cores have no float32 mode
+//     that keeps the reference's precision).
 //
 // Bound. At the rollout's prefill shape (B=432, H=8, N=96, M=192, D=64,
 // bf16, causal, kv_len=96) the kernel must read q and the 96 valid k/v rows
 // and write o: 4 x 42.5 MB = 170 MB, 51 us at 3.35 TB/s, against 4.1 GFLOP
 // of causal score and PV work (4 us at the bf16 tensor-core peak). So it is
 // bound by bytes: the design reads each q/k/v element once per block from
-// device memory and keeps scores and probabilities out of it. The arithmetic
-// runs on the float32 cores, not the tensor cores; that is work for a later
-// change.
+// device memory and keeps scores and probabilities out of it. Loads are
+// plain 16-byte loads without a copy pipeline (cp.async or TMA); occupancy
+// alone hides their latency.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,63 +50,99 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // kv rows per tile
-constexpr int THREADS = 256;    // 4 threads per query row
-constexpr int COLS = BK / 4;    // scores per thread per tile
+constexpr int BQ = 64;             // query rows per block
+constexpr int BK = 64;             // kv rows per tile
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-// Round to the input type and back: the precision the TPU kernel's PV
-// product sees.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_float(from_float<T>(x));
-}
-
-// Load `rows` rows of D elements (row stride D) into shared memory as float32
-// with row stride LD; rows >= valid_rows are zero-filled. 16-byte loads.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          int rows, int valid_rows) {
-    constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
-    constexpr int PER_ROW = D / VEC;
-    for (int i = threadIdx.x; i < rows * PER_ROW; i += THREADS) {
-        const int r = i / PER_ROW;
-        const int c = (i % PER_ROW) * VEC;
-        float* out = dst + r * LD + c;
-        if (r < valid_rows) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-            const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) out[e] = to_float(vals[e]);
-        } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) out[e] = 0.f;
-        }
-    }
-}
+struct Params {
+    const void* q;
+    const void* k;
+    const void* v;
+    void* o;
+    float* lse;                    // null: no LSE
+    int Hq, H, N, M;
+    int offset, kv_len;
+    float scale;
+    float softclamp;               // <= 0: none
+    float tanh_k;                  // 2 log2(e) scale / softclamp
+    int causal, num_special, special_seq_len, special_only_itself;
+};
 
 __device__ __forceinline__ int pos_mod(int x, int m) {
     const int r = x % m;
     return r < 0 ? r + m : r;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, float* __restrict__ lse,
-                      int Hq, int H, int N, int M, int offset, int kv_len, float scale,
-                      float softclamp, int causal, int num_special, int special_seq_len,
-                      int special_only_itself) {
-    constexpr int LD = D + 4;        // padded float32 row stride of q/k/v tiles
+__device__ __forceinline__ bool is_special(int pos, const Params& p) {
+    return pos_mod(pos, p.special_seq_len) >= p.special_seq_len - p.num_special;
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// scale, softclamp, then the mask (the TPU kernel's order). The softclamp
+// c * tanh(x / c) is taken as c * (1 - 2 / (e^(2x/c) + 1)) with one fast
+// exponential, 2^(tanh_k * dot) (tanh_k folds the scale, 2 / c and log2 e).
+// Its absolute error in tanh stays below about 1e-6, so a score moves by at
+// most about c * 1e-6 (5e-5 at c = 50), below what the softmax or a float32
+// comparison can see; tanhf took 0.24 ms of the bf16 kernel's 0.39 ms at the
+// prompt-pass shape.
+__device__ __forceinline__ float masked_score(float dot, int qi, bool q_special, int kj,
+                                              const Params& p) {
+    float x;
+    if (p.softclamp > 0.f) {
+        // |2x/c| <= 30 keeps e finite; tanh(15) rounds to 1 in float32
+        const float e = exp2_approx(fminf(fmaxf(dot * p.tanh_k, -43.f), 43.f));
+        x = p.softclamp * (1.f - __fdividef(2.f, e + 1.f));
+    } else {
+        x = dot * p.scale;
+    }
+    bool ok = kj < p.kv_len && kj < p.M;
+    if (p.causal) ok = ok && kj <= qi + p.offset;
+    if (p.num_special > 0) {
+        const bool k_special = is_special(kj, p);
+        ok = ok && (p.special_only_itself ? !(q_special && !k_special)
+                                          : !(!q_special && k_special));
+    }
+    return ok ? x : NEG_INF;
+}
+
+// One past the last key any query of the tile starting at q_start may see.
+// Keys from here on are masked for the whole tile: they are never read, and
+// their rows of a staged tile are zeros, so a non-finite value left in an
+// unused cache row cannot reach the output through 0 * v.
+__device__ __forceinline__ int kv_end(int q_start, const Params& p) {
+    int k_end = min(p.kv_len, p.M);
+    if (p.causal) k_end = min(k_end, min(q_start + BQ, p.N) + p.offset);
+    return max(k_end, 0);
+}
+
+// ------------------------------------------------------------------ float32
+
+constexpr int F32_THREADS = 256;   // 4 threads per query row
+constexpr int F32_COLS = BK / 4;   // scores per thread per tile
+
+// `rows` rows of D floats (row stride D) into shared memory with row stride
+// LD; rows >= valid_rows are zero-filled. 16-byte loads.
+template <int D, int LD>
+__device__ __forceinline__ void load_f32_tile(float* __restrict__ dst, const float* __restrict__ src,
+                                              int rows, int valid_rows) {
+    constexpr int PER_ROW = D / 4;
+    for (int i = threadIdx.x; i < rows * PER_ROW; i += F32_THREADS) {
+        const int r = i / PER_ROW;
+        const int c = (i % PER_ROW) * 4;
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < valid_rows) val = *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
+        *reinterpret_cast<float4*>(dst + r * LD + c) = val;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
+    constexpr int LD = D + 4;        // padded row stride of q/k/v tiles
     constexpr int LDP = BK + 4;      // padded row stride of the probability tile
     constexpr int DC = D / 4;        // output columns per thread
 
@@ -110,31 +152,21 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     float* vs = ks + BK * LD;            // BK x LD
     float* ps = vs + BK * LD;            // BQ x LDP
 
-    const int q_tile = blockIdx.x;
+    const int q_start = blockIdx.x * BQ;
     const int hq = blockIdx.y;
     const int b = blockIdx.z;
-    const int groups = Hq / H;
-    const int h = hq / groups;
-    const int q_start = q_tile * BQ;
-
+    const int h = hq / (p.Hq / p.H);
     const int row = threadIdx.x >> 2;    // query row inside the tile
     const int quad = threadIdx.x & 3;    // which quarter of the row
     const int qi = q_start + row;        // absolute query index
 
-    const T* qb = q + ((size_t)b * Hq + hq) * N * D + (size_t)q_start * D;
-    const T* kb = k + ((size_t)b * H + h) * M * D;
-    const T* vb = v + ((size_t)b * H + h) * M * D;
+    const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.Hq + hq) * p.N * D
+                      + (size_t)q_start * D;
+    const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.H + h) * p.M * D;
+    const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.H + h) * p.M * D;
 
-    load_tile<T, D, LD>(qs, qb, BQ, min(BQ, N - q_start));
-
-    // the kv rows any query of this tile may see
-    int k_end = min(kv_len, M);
-    if (causal) k_end = min(k_end, q_start + BQ - 1 + offset + 1);
-    const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-
-    const int L = special_seq_len;
-    bool q_special = false;
-    if (num_special > 0) q_special = pos_mod(qi + offset, L) >= L - num_special;
+    load_f32_tile<D, LD>(qs, qb, BQ, min(BQ, p.N - q_start));
+    const bool q_special = p.num_special > 0 && is_special(qi + p.offset, p);
 
     float m_run = NEG_INF;
     float l_run = 0.f;
@@ -142,24 +174,24 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[j] = 0.f;
 
-    for (int t = 0; t < n_tiles; ++t) {
-        const int k_start = t * BK;
-        const int valid_k = min(BK, M - k_start);
+    const int k_end = kv_end(q_start, p);
+    for (int k_start = 0; k_start < k_end; k_start += BK) {
+        const int valid_k = min(BK, k_end - k_start);
         __syncthreads();   // previous tile's ks/vs/ps fully consumed
-        load_tile<T, D, LD>(ks, kb + (size_t)k_start * D, BK, valid_k);
-        load_tile<T, D, LD>(vs, vb + (size_t)k_start * D, BK, valid_k);
+        load_f32_tile<D, LD>(ks, kb + (size_t)k_start * D, BK, valid_k);
+        load_f32_tile<D, LD>(vs, vb + (size_t)k_start * D, BK, valid_k);
         __syncthreads();
 
         // scores for columns quad + 4 * j
-        float s[COLS];
+        float s[F32_COLS];
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) s[j] = 0.f;
+        for (int j = 0; j < F32_COLS; ++j) s[j] = 0.f;
         const float* qrow = qs + row * LD;
 #pragma unroll 4
         for (int d = 0; d < D; d += 4) {
             const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
 #pragma unroll
-            for (int j = 0; j < COLS; ++j) {
+            for (int j = 0; j < F32_COLS; ++j) {
                 const float4 kv4 = *reinterpret_cast<const float4*>(ks + (quad + 4 * j) * LD + d);
                 s[j] = fmaf(qv.x, kv4.x, s[j]);
                 s[j] = fmaf(qv.y, kv4.y, s[j]);
@@ -170,18 +202,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
         float tile_max = NEG_INF;
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-            const int kj = k_start + quad + 4 * j;
-            float x = s[j] * scale;
-            if (softclamp > 0.f) x = tanhf(x / softclamp) * softclamp;
-            bool ok = kj < kv_len && kj < M;
-            if (causal) ok = ok && kj <= qi + offset;
-            if (num_special > 0) {
-                const bool k_special = pos_mod(kj, L) >= L - num_special;
-                if (special_only_itself) ok = ok && !(q_special && !k_special);
-                else ok = ok && !(!q_special && k_special);
-            }
-            s[j] = ok ? x : NEG_INF;
+        for (int j = 0; j < F32_COLS; ++j) {
+            s[j] = masked_score(s[j], qi, q_special, k_start + quad + 4 * j, p);
             tile_max = fmaxf(tile_max, s[j]);
         }
         // the four threads of a row are adjacent lanes of one warp
@@ -189,14 +211,14 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
 
         const float m_new = fmaxf(m_run, tile_max);
-        const float alpha = expf(m_run - m_new);
+        const float alpha = __expf(m_run - m_new);
         float p_sum = 0.f;
         float* prow = ps + row * LDP;
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-            const float p = expf(s[j] - m_new);
-            p_sum += p;
-            prow[quad + 4 * j] = round_to<T>(p);
+        for (int j = 0; j < F32_COLS; ++j) {
+            const float pj = __expf(s[j] - m_new);
+            p_sum += pj;
+            prow[quad + 4 * j] = pj;
         }
         p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
         p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 2);
@@ -208,74 +230,265 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
         for (int j = 0; j < DC; ++j) acc[j] *= alpha;
         for (int c = 0; c < BK; ++c) {
-            const float p = prow[c];
+            const float pc = prow[c];
             const float* vrow = vs + c * LD + 4 * quad;
 #pragma unroll
             for (int j = 0; j < DC / 4; ++j) {
                 const float4 v4 = *reinterpret_cast<const float4*>(vrow + 16 * j);
-                acc[4 * j + 0] = fmaf(p, v4.x, acc[4 * j + 0]);
-                acc[4 * j + 1] = fmaf(p, v4.y, acc[4 * j + 1]);
-                acc[4 * j + 2] = fmaf(p, v4.z, acc[4 * j + 2]);
-                acc[4 * j + 3] = fmaf(p, v4.w, acc[4 * j + 3]);
+                acc[4 * j + 0] = fmaf(pc, v4.x, acc[4 * j + 0]);
+                acc[4 * j + 1] = fmaf(pc, v4.y, acc[4 * j + 1]);
+                acc[4 * j + 2] = fmaf(pc, v4.z, acc[4 * j + 2]);
+                acc[4 * j + 3] = fmaf(pc, v4.w, acc[4 * j + 3]);
             }
         }
     }
 
-    if (qi < N) {
+    if (qi < p.N) {
         const float l = fmaxf(l_run, 1e-30f);
-        T* orow = o + (((size_t)b * Hq + hq) * N + qi) * D;
+        float* orow = static_cast<float*>(p.o) + (((size_t)b * p.Hq + hq) * p.N + qi) * D;
 #pragma unroll
         for (int j = 0; j < DC / 4; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                orow[4 * quad + 16 * j + e] = from_float<T>(acc[4 * j + e] / l);
-            }
+            const float4 out = make_float4(acc[4 * j] / l, acc[4 * j + 1] / l,
+                                           acc[4 * j + 2] / l, acc[4 * j + 3] / l);
+            *reinterpret_cast<float4*>(orow + 4 * quad + 16 * j) = out;
         }
-        if (lse != nullptr && quad == 0) {
-            lse[((size_t)b * Hq + hq) * N + qi] = m_run + logf(l);
+        if (p.lse != nullptr && quad == 0) {
+            p.lse[((size_t)b * p.Hq + hq) * p.N + qi] = m_run + logf(l);
         }
     }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int Hq, int H, int N, int M, int offset, int kv_len, float scale,
-                   float softclamp, int causal, int num_special, int special_seq_len,
-                   int special_only_itself, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
     constexpr int LD = D + 4;
     constexpr int LDP = BK + 4;
     const size_t smem = sizeof(float) * ((size_t)BQ * LD + 2 * (size_t)BK * LD + (size_t)BQ * LDP);
-    auto kernel = flash_attn_fwd_kernel<T, D>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((N + BQ - 1) / BQ, Hq, B);
-    kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), lse, Hq, H, N, M, offset, kv_len, scale, softclamp, causal,
-        num_special, special_seq_len, special_only_itself);
+    const dim3 grid((p.N + BQ - 1) / BQ, p.Hq, B);
+    flash_fwd_f32<D><<<grid, F32_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int Hq, int H, int N, int M, int offset, int kv_len, float scale,
-                       float softclamp, int causal, int num_special, int special_seq_len,
-                       int special_only_itself, cudaStream_t stream) {
-#define FA_CASE(DD)                                                                      \
-    case DD:                                                                             \
-        return launch<T, DD>(q, k, v, o, lse, B, Hq, H, N, M, offset, kv_len, scale,     \
-                             softclamp, causal, num_special, special_seq_len,            \
-                             special_only_itself, stream);
-    switch (D) {
-        FA_CASE(16)
-        FA_CASE(32)
-        FA_CASE(64)
-        FA_CASE(128)
-        default:
-            return cudaErrorInvalidValue;
+// --------------------------------------------------------------------- bf16
+
+constexpr int BF16_THREADS = 128;  // 4 warps x 16 query rows
+
+using bf16 = __nv_bfloat16;
+
+// `rows` rows of D bf16 (row stride D) into shared memory with row stride
+// LD, as they are; rows >= valid_rows are zero-filled. 16-byte loads.
+template <int D, int LD>
+__device__ __forceinline__ void load_bf16_tile(bf16* __restrict__ dst, const bf16* __restrict__ src,
+                                               int rows, int valid_rows) {
+    constexpr int PER_ROW = D / 8;
+    for (int i = threadIdx.x; i < rows * PER_ROW; i += BF16_THREADS) {
+        const int r = i / PER_ROW;
+        const int c = (i % PER_ROW) * 8;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (r < valid_rows) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+        *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
     }
-#undef FA_CASE
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* ptr) {
+    return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a . b for one 16x8x16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col), c float32
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// B fragment of a 16x8 slice of a row-major [key][dim] tile: lanes 0-15 give
+// the addresses of its 16 key rows; the transposing load hands each lane
+// the (key, dim) pairs the mma expects.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* ptr) {
+    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(addr));
+}
+
+template <int D>
+__global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16(const Params p) {
+    constexpr int LD = D + 8;        // bf16 row stride of the tiles (16-byte pad: no bank conflicts)
+    constexpr int KSTEPS = D / 16;   // mma k-steps over the head dim
+    constexpr int NB_S = BK / 8;     // 8-key column blocks of a score tile
+    constexpr int NB_O = D / 8;      // 8-column blocks of the output
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // BQ x LD
+    bf16* ks = qs + BQ * LD;                        // BK x LD
+    bf16* vs = ks + BK * LD;                        // BK x LD
+
+    const int q_start = blockIdx.x * BQ;
+    const int hq = blockIdx.y;
+    const int b = blockIdx.z;
+    const int h = hq / (p.Hq / p.H);
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;                          // fragment row group
+    const int t = lane & 3;                           // fragment column pair
+    const int r_tile = (threadIdx.x >> 5) * 16 + g;   // this lane's rows: r_tile, r_tile + 8
+    const int qi[2] = {q_start + r_tile, q_start + r_tile + 8};
+
+    const bf16* qb = static_cast<const bf16*>(p.q) + ((size_t)b * p.Hq + hq) * p.N * D
+                     + (size_t)q_start * D;
+    const bf16* kb = static_cast<const bf16*>(p.k) + ((size_t)b * p.H + h) * p.M * D;
+    const bf16* vb = static_cast<const bf16*>(p.v) + ((size_t)b * p.H + h) * p.M * D;
+
+    load_bf16_tile<D, LD>(qs, qb, BQ, min(BQ, p.N - q_start));
+    __syncthreads();
+    uint32_t qf[KSTEPS][4];          // Q as A fragments, for the whole kv walk
+#pragma unroll
+    for (int st = 0; st < KSTEPS; ++st) {
+        const bf16* base = qs + r_tile * LD + st * 16 + 2 * t;
+        qf[st][0] = ld_pair(base);
+        qf[st][1] = ld_pair(base + 8 * LD);
+        qf[st][2] = ld_pair(base + 8);
+        qf[st][3] = ld_pair(base + 8 * LD + 8);
+    }
+    bool q_special[2] = {false, false};
+    if (p.num_special > 0) {
+        q_special[0] = is_special(qi[0] + p.offset, p);
+        q_special[1] = is_special(qi[1] + p.offset, p);
+    }
+
+    float m_run[2] = {NEG_INF, NEG_INF};
+    float l_run[2] = {0.f, 0.f};
+    float acc[NB_O][4];              // acc[nb][2r + e]: row r_tile + 8r, column 8nb + 2t + e
+#pragma unroll
+    for (int nb = 0; nb < NB_O; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+    }
+
+    const int k_end = kv_end(q_start, p);
+    for (int k_start = 0; k_start < k_end; k_start += BK) {
+        const int valid_k = min(BK, k_end - k_start);
+        __syncthreads();   // previous tile's ks/vs fully consumed
+        load_bf16_tile<D, LD>(ks, kb + (size_t)k_start * D, BK, valid_k);
+        load_bf16_tile<D, LD>(vs, vb + (size_t)k_start * D, BK, valid_k);
+        __syncthreads();
+
+        // s[nb][2r + e]: row r_tile + 8r, key k_start + 8nb + 2t + e
+        float s[NB_S][4];
+#pragma unroll
+        for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+            for (int st = 0; st < KSTEPS; ++st) {
+                const bf16* krow = ks + (nb * 8 + g) * LD + st * 16 + 2 * t;
+                const uint32_t kf[2] = {ld_pair(krow), ld_pair(krow + 8)};
+                mma_16816(s[nb], qf[st], kf);
+            }
+        }
+
+        float tile_max[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                s[nb][e] = masked_score(s[nb][e], qi[r], q_special[r],
+                                        k_start + nb * 8 + 2 * t + (e & 1), p);
+                tile_max[r] = fmaxf(tile_max[r], s[nb][e]);
+            }
+        }
+        float alpha[2], m_new[2], p_sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            // the four lanes of a row group hold its 64 scores
+            tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+            tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+            m_new[r] = fmaxf(m_run[r], tile_max[r]);
+            alpha[r] = __expf(m_run[r] - m_new[r]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[nb][e] = __expf(s[nb][e] - m_new[e >> 1]);
+                p_sum[e >> 1] += s[nb][e];
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            p_sum[r] += __shfl_xor_sync(0xffffffffu, p_sum[r], 1);
+            p_sum[r] += __shfl_xor_sync(0xffffffffu, p_sum[r], 2);
+            l_run[r] = l_run[r] * alpha[r] + p_sum[r];
+            m_run[r] = m_new[r];
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB_O; ++nb) {
+            acc[nb][0] *= alpha[0];
+            acc[nb][1] *= alpha[0];
+            acc[nb][2] *= alpha[1];
+            acc[nb][3] *= alpha[1];
+        }
+
+        // O += P . V: the score accumulators of key blocks 2kk, 2kk + 1 are
+        // exactly the A fragment of keys 16kk .. 16kk + 15, rounded to bf16
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint32_t pf[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                                    pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                                    pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                    pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int nb = 0; nb < NB_O; ++nb) {
+                uint32_t vf[2];
+                ldmatrix_x2_trans(vf, vs + (kk * 16 + (lane & 15)) * LD + nb * 8);
+                mma_16816(acc[nb], pf, vf);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        if (qi[r] >= p.N) continue;
+        const float l = fmaxf(l_run[r], 1e-30f);
+        bf16* orow = static_cast<bf16*>(p.o) + (((size_t)b * p.Hq + hq) * p.N + qi[r]) * D;
+#pragma unroll
+        for (int nb = 0; nb < NB_O; ++nb) {
+            *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * t) =
+                pack_bf16x2(acc[nb][2 * r] / l, acc[nb][2 * r + 1] / l);
+        }
+        if (p.lse != nullptr && t == 0) {
+            p.lse[((size_t)b * p.Hq + hq) * p.N + qi[r]] = m_run[r] + logf(l);
+        }
+    }
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
+    constexpr int LD = D + 8;
+    const size_t smem = sizeof(bf16) * (size_t)(BQ + 2 * BK) * LD;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.N + BQ - 1) / BQ, p.Hq, B);
+    flash_fwd_bf16<D><<<grid, BF16_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
+    if (dtype == 0) return launch_f32<D>(p, B, stream);
+    if (dtype == 1) return launch_bf16<D>(p, B, stream);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -291,19 +504,17 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     if (B <= 0 || Hq <= 0 || H <= 0 || N <= 0 || M <= 0 || Hq % H != 0) {
         return (int)cudaErrorInvalidValue;
     }
+    if (B > 65535 || Hq > 65535) return (int)cudaErrorInvalidValue;   // grid y, z limits
     if (num_special > 0 && special_seq_len <= 0) return (int)cudaErrorInvalidValue;
+    const float tanh_k = softclamp > 0.f ? 2.f * 1.4426950408889634f * scale / softclamp : 0.f;
+    const Params p{q, k, v, o, lse, Hq, H, N, M, offset, kv_len, scale, softclamp, tanh_k,
+                   causal, num_special, special_seq_len, special_only_itself};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (dtype == 0) {
-        err = dispatch_d<float>(D, q, k, v, o, lse, B, Hq, H, N, M, offset, kv_len, scale,
-                                softclamp, causal, num_special, special_seq_len,
-                                special_only_itself, s);
-    } else if (dtype == 1) {
-        err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, Hq, H, N, M, offset, kv_len,
-                                        scale, softclamp, causal, num_special, special_seq_len,
-                                        special_only_itself, s);
-    } else {
-        err = cudaErrorInvalidValue;
+    switch (D) {
+        case 16: return (int)launch<16>(p, B, dtype, s);
+        case 32: return (int)launch<32>(p, B, dtype, s);
+        case 64: return (int)launch<64>(p, B, dtype, s);
+        case 128: return (int)launch<128>(p, B, dtype, s);
+        default: return (int)cudaErrorInvalidValue;
     }
-    return (int)err;
 }

@@ -17,6 +17,8 @@ import torch
 from torch import nn
 
 from ..ops.attention import naive_attend
+from ..ops.flash_attention import flash_attend
+from ..ops.rotary import apply_rotations
 from ..ops.utils import l2norm, softclamp
 from .activations import get_activation
 from .dense import Dense
@@ -148,7 +150,6 @@ class Attention(nn.Module):
             k = self.k_norm(k)
 
         if rotary is not None:
-            from ..ops.rotary import apply_rotations
             q = apply_rotations(rotary, q)
             k = apply_rotations(rotary, k)
 
@@ -161,7 +162,6 @@ class Attention(nn.Module):
             k, v, kv_len = new_cache.k, new_cache.v, new_cache.length
 
         if flash_spec is not None:
-            from ..ops.flash_attention import flash_attend
             out = flash_attend(
                 q.contiguous(), k.contiguous(), v.contiguous(), int(flash_offset), int(kv_len),
                 softclamp_value=self.softclamp_value, causal=flash_spec.causal,

@@ -20,9 +20,9 @@ def symexp(x: torch.Tensor) -> torch.Tensor:
 
 def cast_params_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast the float32 parameters of `module` to `dtype` for serving, in
-    place (the counterpart casts a variables pytree). Decode is bound by
-    the bytes of the weights at small batch, so bf16 weights halve the read
-    of every forward. Non-float32 parameters pass through unchanged."""
+    place (the counterpart casts a variables pytree); every forward then
+    reads half the weight bytes. Non-float32 parameters pass through
+    unchanged."""
     with torch.no_grad():
         for p in module.parameters():
             if p.dtype == torch.float32:

@@ -70,6 +70,24 @@ def test_kernel_rollout_masks(gen, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n, kv_len, causal', [(96, 96, True), (7, 80, False)])
+def test_rows_beyond_kv_len_do_not_reach_the_output(gen, dtype, n, kv_len, causal):
+    """Cache rows at and beyond kv_len may hold anything, even non-finite
+    values; the output is that of the same cache with those rows zeroed."""
+    q, k, v = qkv(gen, 2, 4, 4, n, 192, 64, dtype)
+    k_zero, v_zero = k.clone(), v.clone()
+    k_zero[:, :, kv_len:] = 0
+    v_zero[:, :, kv_len:] = 0
+    k[:, :, kv_len:] = float('nan')
+    v[:, :, kv_len:] = float('inf')
+    out = fa.flash_attend(q, k, v, 0, kv_len, causal=causal)
+    ref = fa.flash_attend_reference(q, k_zero, v_zero, 0, kv_len, causal=causal)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     q, k, v = qkv(gen, 1, 2, 2, 8, 8, 16, torch.float32)
     with pytest.raises(NotImplementedError):

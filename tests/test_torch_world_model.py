@@ -107,7 +107,7 @@ def test_heads_match():
         close(ap(lambda m, x: m.to_state_terminal_pred(x), pooled),
               tm.to_state_terminal_pred(T(pooled)))
         jl = ap(lambda m, x: m.action_embedder.unembed(x, pred_head_index=1), pe)[0][0]
-        close(jl, tm.action_embedder.unembed(T(np.asarray(pe)), pred_head_index=1)[0][0])
+        close(jl, tm.action_embedder.unembed(T(np.array(pe)), pred_head_index=1)[0][0])
 
 
 def test_training_forward_and_unported_options_raise():
