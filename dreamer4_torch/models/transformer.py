@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..nn.attention import (Attention, AttentionPool, FeedForward, FlashSpec, KVCache,
                             rms_normalize)
 from ..nn.dense import Dense
@@ -80,6 +81,7 @@ class AxialSpaceTimeTransformer(nn.Module):
                 raise TypeError(f'unexpected argument {name}')
             if value:
                 raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
+        device = resolve_device(device)
         self.dim, self.depth = dim, depth
         self.attn_heads, self.attn_dim_head = attn_heads, attn_dim_head
         self.time_block_every = time_block_every
@@ -117,6 +119,10 @@ class AxialSpaceTimeTransformer(nn.Module):
         self.final_norm = RMSNorm(dim, device=device) if final_norm else None
 
     @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @property
     def is_time_layer(self) -> tuple[bool, ...]:
         return tuple((i + 1) % self.time_block_every == 0 for i in range(self.depth))
 
@@ -131,9 +137,11 @@ class AxialSpaceTimeTransformer(nn.Module):
 
     def init_cache(self, batch: int, space_len: int, max_time: int, dtype=torch.float32,
                    device=None) -> TransformerCache:
-        """Preallocated decode cache buffers (no parameters needed)."""
+        """Preallocated decode cache buffers, on the trunk's device unless
+        `device` is given."""
         kv = tuple(KVCache.create(batch * space_len, self.attn_heads, max_time,
-                                  self.attn_dim_head, dtype=dtype, device=device)
+                                  self.attn_dim_head, dtype=dtype,
+                                  device=self.device if device is None else device)
                    for _ in range(self.num_time_layers))
         return TransformerCache(kv=kv, token_count=0)
 

@@ -2,13 +2,15 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 `sm_90a` into `dreamer4_torch/build/<name>-<hash>.so`, at first use, from the
-sources in the checkout only; the hash of the source names the library, so an
-edited source builds anew and an unchanged one is loaded as it is. Nothing
-here runs when the module is imported.
+sources in the checkout only. A hash of the source, the nvcc flags and the
+nvcc version names the library, so an edited source, other flags or another
+compiler build anew and an unchanged build is loaded as it is. Nothing here
+runs when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,6 +29,7 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+@functools.cache
 def find_nvcc() -> str:
     for candidate in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
         if candidate:
@@ -39,10 +42,18 @@ def find_nvcc() -> str:
     return nvcc
 
 
+@functools.cache
+def nvcc_version() -> str:
+    proc = subprocess.run([find_nvcc(), '--version'], capture_output=True, text=True,
+                          check=True)
+    return proc.stdout
+
+
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f'{name}-{digest}.so'
+    h = hashlib.sha256((CSRC_DIR / f'{name}.cu').read_bytes())
+    h.update('\0'.join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
+    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
 def build(name: str) -> tuple[Path, str]:

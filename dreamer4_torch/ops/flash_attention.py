@@ -15,6 +15,7 @@ wrapper refuses inputs that require grad.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -119,6 +120,17 @@ def flash_attend(q: torch.Tensor,   # (B, Hq, N, D)
     return _flash_attend_cuda(q, k, v, offset, kv_len, return_lse=return_lse, **cfg)
 
 
+@functools.cache
+def _kernel_entry():
+    """`flash_attn_fwd` of the built library, its C signature declared once."""
+    from .cuda_build import load
+    fn = load('flash_attn_fwd').flash_attn_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return fn
+
+
 def _flash_attend_cuda(q, k, v, offset, kv_len, *, softclamp_value, causal, num_special,
                        special_seq_len, special_attend_only_itself, return_lse, scale):
     global LAUNCHES
@@ -143,13 +155,7 @@ def _flash_attend_cuda(q, k, v, offset, kv_len, *, softclamp_value, causal, num_
         scale = D ** -0.5
     L = special_seq_len if special_seq_len > 0 else M
 
-    from .cuda_build import load
-    lib = load('flash_attn_fwd')
-    fn = lib.flash_attn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-
+    fn = _kernel_entry()
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, N), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream

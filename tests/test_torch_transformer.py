@@ -37,7 +37,7 @@ def jax_and_port(**kw):
     rng = np.random.default_rng(2)
     params = jax.tree.map(
         lambda p: np.asarray(p) + 0.1 * rng.standard_normal(p.shape).astype(np.float32), params)
-    tm = AxialSpaceTimeTransformer(**cfg)
+    tm = AxialSpaceTimeTransformer(**cfg, device='cpu')
     tm.load_state_dict(flax_params_to_torch(params, tm))
     return jm, params, tm
 
@@ -87,7 +87,7 @@ def test_cached_frames_match_parallel_pass(time_block_every, query_heads, use_at
     model = AxialSpaceTimeTransformer(
         dim=32, depth=2, attn_heads=4, attn_dim_head=8, query_heads=query_heads,
         time_block_every=time_block_every, num_special_tokens=2,
-        use_attn_pool=use_attn_pool)
+        use_attn_pool=use_attn_pool, device='cpu')
     tokens = build(model)
     b, t, s, d = tokens.shape
     with torch.no_grad():
@@ -103,7 +103,7 @@ def test_cached_frames_match_parallel_pass(time_block_every, query_heads, use_at
 def test_prefill_cache_continues_like_parallel_pass():
     torch.manual_seed(1)
     model = AxialSpaceTimeTransformer(dim=32, depth=2, attn_heads=4, attn_dim_head=8,
-                                      time_block_every=2, num_special_tokens=1)
+                                      time_block_every=2, num_special_tokens=1, device='cpu')
     tokens = build(model, t=6)
     with torch.no_grad():
         parallel_out, _ = model(tokens)
@@ -118,7 +118,7 @@ def test_prefill_cache_continues_like_parallel_pass():
 def test_cached_forward_with_history_processes_last_frame():
     torch.manual_seed(1)
     model = AxialSpaceTimeTransformer(dim=32, depth=2, attn_heads=4, attn_dim_head=8,
-                                      time_block_every=1, num_special_tokens=1)
+                                      time_block_every=1, num_special_tokens=1, device='cpu')
     tokens = build(model, t=3)
     with torch.no_grad():
         _, cache = model(tokens[:, :2], max_time=3)
@@ -133,4 +133,19 @@ def test_cached_forward_with_history_processes_last_frame():
                                     'use_fused_small'])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
-        AxialSpaceTimeTransformer(dim=32, depth=2, **{option: 1})
+        AxialSpaceTimeTransformer(dim=32, depth=2, device='cpu', **{option: 1})
+
+
+def test_default_device_is_cuda():
+    """The trunk is an entry point: with no device it runs on the card, and
+    without a card it raises rather than fall back to the CPU."""
+    kw = dict(dim=32, depth=2, attn_heads=4, attn_dim_head=8, time_block_every=2)
+    if torch.cuda.is_available():
+        model = AxialSpaceTimeTransformer(**kw)
+        assert model.device.type == 'cuda'
+        assert model.init_cache(1, 3, max_time=4).kv[0].k.device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError):
+            AxialSpaceTimeTransformer(**kw)
+    assert AxialSpaceTimeTransformer(**kw, device='cpu').init_cache(
+        1, 3, max_time=4).kv[0].k.device.type == 'cpu'
