@@ -4,24 +4,36 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. build   — compiles every CUDA kernel of the port from the sources in
-               this checkout (`dreamer4_torch/csrc` into `dreamer4_torch/build`).
+               this checkout (`dreamer4_torch/csrc` into `dreamer4_torch/build`),
+               one nvcc per source, all at once.
   2. kernels — holds each kernel against its plain PyTorch version on the
-               card at the shapes the rollout gives it, with stated
-               tolerances, and times the kernel, the plain version and the
-               one PyTorch call that computes the same function (SDPA
-               without a softclamp, compiled `flex_attention` with one).
+               card at the shapes the rollout and the train step give it,
+               with stated tolerances, and times the kernel, the plain
+               version, its bound and the PyTorch call that computes the
+               same function (SDPA without a softclamp, compiled
+               `flex_attention` with one; for the backward pair K2 + K3,
+               flex_attention's backward).
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
                b16 x T192 rollout with a 96-frame prompt, whose prompt pass
-               runs K1 on both time layers. Launch counts are set to 0 just
-               before each rollout and read just after. Then the same prompt
-               pass runs in bf16 with the kernel and with the plain
-               attention, each held against the pass in float32.
+               runs K1 on both time layers. Then the same prompt pass runs
+               in bf16 with the kernel and with the plain attention, each
+               held against the pass in float32.
+  4. train   — builds the bench world model with float32 master weights and
+               bf16 compute, and trains it at b1 x T1024 (the bench's
+               long-sequence step) through `BehaviorCloneTrainer`: one plain
+               and one shortcut step through the train-step function, then
+               one `train_on_batch`. Both time layers run K1 with its LSE
+               and K2 and K3 on every step. The plain step's loss and
+               time-layer gradients through the kernels are held against
+               float32, and both variants are timed.
+Launch counts are set to 0 just before each rollout and each train step
+and read just after.
 
 The last three lines of standard output are a JSON line with one entry per
 kernel, the card's name and power limit, and the result line
-`{"ok": true, "device": {...}}`. Imports torch and the port only.
+`{"ok": true, "device": {...}}`. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12
@@ -39,6 +52,13 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core peak
 # rounding of the output (1 ulp at |o| < 4 is 1.6e-2) and of p before PV
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-3
+# K2 / K3 vs their plain versions, as a fraction of the largest gradient
+# entry: float32 2e-4 (the kernels' one-exponential softclamp moves a score
+# by up to c * 1e-6, so p by that relative amount, plus summation order);
+# bf16 1e-2 (one rounding of each output, 2^-9 of it, plus ds and p rounded
+# to bf16 at the TPU kernel's points, where the two may round values that
+# differ in their last float32 bits to neighbouring bf16 values)
+GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 
 # bench.py:174-193 on the accelerator: flash on, bf16, no terminal head
 BENCH_MODEL = dict(dim=512, dim_latent=32, num_latent_tokens=16, num_spatial_tokens=16,
@@ -54,6 +74,14 @@ K1_PER_PROMPTED_ROLLOUT = 2    # 2 time layers x 1 prompt pass
 # Both round differently (K1 rounds p before PV and normalizes last), so
 # either may come out ahead by a little.
 PREFILL_TOL_FACTOR = 2.0
+
+# bench.py:166, :437-442, :655-674: the long-sequence train step, b1 x T1024,
+# latents N(0, 1) * 0.5, zero rewards, zero discrete actions
+TRAIN = dict(batch_size=1, time_steps=1024)
+# (K1, K2, K3) launches per train step: two time layers; a shortcut step
+# adds the two no-grad half-step passes, K1 without its LSE
+LAUNCHES_PER_STEP = {False: (2, 2, 2), True: (6, 2, 2)}
+TIME_LAYERS = (3, 7)   # (i + 1) % time_block_every == 0 at depth 8
 
 
 def log(msg: str) -> None:
@@ -268,6 +296,154 @@ def run_kernel_phase():
     return results
 
 
+# ------------------------------------------------------- backward kernels
+
+def bwd_kernel_cases():
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the train step's time attention: b*s = 27 rows, T = 1024, causal
+    t1024 = dict(B=27, Hq=8, H=8, N=1024, M=1024, D=64, causal=True, offset=0, kv_len=1024,
+                 softclamp=50.0)
+    cases = [('t1024', dt, t1024) for dt in (bf16, f32)]
+    cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
+                                    kv_len=128, softclamp=50.0)))
+    for only_itself in (False, True):
+        for dt in (bf16, f32):
+            cases.append((f'space_special_only_itself={only_itself}', dt,
+                          dict(B=256, Hq=8, H=8, N=144, M=144, D=64, causal=False, offset=0,
+                               kv_len=144, softclamp=50.0, num_special=1, special_seq_len=144,
+                               special_attend_only_itself=only_itself)))
+    cases.append(('ragged_offset', bf16, dict(B=16, Hq=8, H=4, N=130, M=192, D=64, causal=True,
+                                              offset=20, kv_len=150, softclamp=50.0,
+                                              num_special=2, special_seq_len=9)))
+    cases.append(('negative_offset', bf16, dict(B=16, Hq=8, H=8, N=100, M=96, D=64, causal=True,
+                                                offset=-7, kv_len=96, softclamp=50.0)))
+    for d in (16, 32, 128):
+        for dt in (bf16, f32):
+            cases.append((f'head_dim_{d}', dt,
+                          dict(B=4, Hq=4, H=2, N=77, M=130, D=d, causal=True, offset=3,
+                               kv_len=101, softclamp=30.0)))
+    return cases
+
+
+def backward_bound_ms(q, k, mask, which):
+    """Least time for the work of K2 (`which='dq'`) or K3 ('dkv') on these
+    inputs: the q and dO rows that see some key, the k and v rows that some
+    query sees, and those rows' lse and delta read once, the gradients
+    written once; 6*D operations per unmasked pair for K2 (s, dp, dq), 8*D
+    for K3 (s, dp, dv, dk), at the peak rate of the input type."""
+    B, Hq, N, D = q.shape
+    H, M = k.shape[1], k.shape[2]
+    elem = q.element_size()
+    q_rows, kv_rows = int(mask.any(dim=1).sum()), int(mask.any(dim=0).sum())
+    reads = 2 * B * Hq * q_rows * D * elem + 2 * B * H * kv_rows * D * elem + 2 * B * Hq * q_rows * 4
+    pairs = int(mask.sum()) * B * Hq
+    if which == 'dq':
+        bytes_moved, ops = reads + B * Hq * N * D * elem, 6 * D * pairs
+    else:
+        bytes_moved, ops = reads + 2 * B * H * M * D * elem, 8 * D * pairs
+    t_bytes = bytes_moved / H100_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[q.dtype]
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def rel_err(out, ref):
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
+    """(ms, relative error) of the backward of compiled `flex_attention`
+    (fwd+bwd less fwd, both with inputs that require grad): the PyTorch
+    call that computes dq, dk and dv together, the work of K2 + K3 and the
+    delta reduction. A yardstick only; the port never calls it. ms is None
+    where it does not compile or disagrees with the plain backward."""
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    try:
+        fwd = flex_call(qg, kg, vg, offset, kv_len, cfg, FLEX_OPTIONS[q.dtype][0])
+        grads = lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do)
+        err = max(rel_err(g, r) for g, r in zip(grads(), refs))
+    except Exception as e:   # the compiler refuses this setting at this shape
+        log(f'#   flex backward: does not compile here ({type(e).__name__}: {e})'[:300])
+        return None, None
+    if err > tol:
+        log(f'#   flex backward: rel err {err:.3e} above {tol:.0e}, not a yardstick')
+        return None, err
+    return cuda_time_ms(grads) - cuda_time_ms(fwd), err
+
+
+def run_backward_kernel_phase():
+    """K2 and K3 against `bwd_dq_reference` / `bwd_dkv_reference` on every
+    case, from the same q, k, v, dO, LSE and delta; returns the
+    measurements of each case by (name, dtype)."""
+    from dreamer4_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    results, failures = {}, []
+    for name, dtype, c in bwd_kernel_cases():
+        B, Hq, H, N, M, D = (c[x] for x in ('B', 'Hq', 'H', 'N', 'M', 'D'))
+        q, k, v, do = (torch.randn(shape, generator=gen, device='cuda').to(dtype)
+                       for shape in ((B, Hq, N, D), (B, H, M, D), (B, H, M, D), (B, Hq, N, D)))
+        cfg = dict(softclamp_value=c['softclamp'], causal=c['causal'],
+                   num_special=c.get('num_special', 0),
+                   special_seq_len=c.get('special_seq_len', 0),
+                   special_attend_only_itself=c.get('special_attend_only_itself', False))
+        off, kvl = c['offset'], c['kv_len']
+        o, lse = fa.flash_attend_reference(q, k, v, off, kvl, return_lse=True, **cfg)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, off, kvl)
+        dq = fa.bwd_dq(*args, **cfg)
+        dk, dv = fa.bwd_dkv(*args, **cfg)
+        ref_dq = fa.bwd_dq_reference(*args, **cfg)
+        ref_dk, ref_dv = fa.bwd_dkv_reference(*args, **cfg)
+        torch.cuda.synchronize()
+        tol = GRAD_TOL[dtype]
+        errs = {n: rel_err(out, ref) for n, out, ref in
+                (('dq', dq, ref_dq), ('dk', dk, ref_dk), ('dv', dv, ref_dv))}
+        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+        ok = finite and max(errs.values()) <= tol
+        abs_err = {'dq': (dq.float() - ref_dq.float()).abs().max().item(),
+                   'dkv': max((dk.float() - ref_dk.float()).abs().max().item(),
+                              (dv.float() - ref_dv.float()).abs().max().item())}
+        mask = fa.attend_mask(N, M, off, kvl, device='cuda', **{
+            x: cfg[x] for x in ('causal', 'num_special', 'special_seq_len',
+                                'special_attend_only_itself')})
+        plain_iters = 5
+        row = {}
+        for which, kernel, plain in (
+                ('dq', lambda: fa.bwd_dq(*args, **cfg), lambda: fa.bwd_dq_reference(*args, **cfg)),
+                ('dkv', lambda: fa.bwd_dkv(*args, **cfg),
+                 lambda: fa.bwd_dkv_reference(*args, **cfg))):
+            bound_ms, bound_by = backward_bound_ms(q, k, mask, which)
+            row[which] = dict(max_abs_err=abs_err[which], ms=cuda_time_ms(kernel),
+                              plain_ms=cuda_time_ms(plain, iters=plain_iters),
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        delta_ms = cuda_time_ms(lambda: fa.attention_delta(o, do))
+        lib = ''
+        if name == 't1024':
+            lib_ms, lib_err = time_library_backward(q, k, v, do, off, kvl, cfg,
+                                                    (ref_dq, ref_dk, ref_dv), tol)
+            for which in ('dq', 'dkv'):
+                row[which]['library_ms'] = lib_ms
+            pair = row['dq']['ms'] + row['dkv']['ms'] + delta_ms
+            lib = ('library -' if lib_ms is None else
+                   f'library (flex backward, dq+dk+dv) {lib_ms:.4f} ms vs K2+K3+delta '
+                   f'{pair:.4f} ms, its rel err {lib_err:.1e}')
+        dt = str(dtype).split('.')[-1]
+        log(f'K2/K3 {name:<32} {dt:<8} rel err dq {errs["dq"]:.2e} dk {errs["dk"]:.2e} '
+            f'dv {errs["dv"]:.2e} (tol {tol:.0e})' + ('' if ok else '  FAIL'))
+        for which, label in (('dq', 'K2'), ('dkv', 'K3')):
+            r = row[which]
+            log(f'   {label} kernel {r["ms"]:.4f} ms plain {r["plain_ms"]:.4f} ms '
+                f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+        log(f'   delta {delta_ms:.4f} ms {lib}')
+        if not ok:
+            failures.append(f'{name}/{dt}')
+        results[(name, dtype)] = row
+    if failures:
+        raise SystemExit(f'backward kernel phase failed: {failures}')
+    return results
+
+
 # -------------------------------------------------------------------- model
 
 def check_experience(exp, b, T, P, dim, latent_shape, prompt=None):
@@ -330,9 +506,9 @@ def compare_prefill(model, prompt, max_time):
             ms_kernel, ms_plain)
 
 
-def run_model_phase(seed: int = 0) -> int:
-    """Builds the bench model and drives both rollouts; returns K1's launches
-    in the prompted rollout."""
+def run_model_phase(seed: int = 0) -> dict:
+    """Builds the bench model and drives both rollouts; returns the (K1, K2,
+    K3) launches of each rollout."""
     from dreamer4_torch import DynamicsWorldModel, generate
     from dreamer4_torch.ops import flash_attention as fa
     from dreamer4_torch.ops.utils import cast_params_for_inference
@@ -356,25 +532,25 @@ def run_model_phase(seed: int = 0) -> int:
 
     gen = torch.Generator(device=dev)
     launches = {}
-    for name, kw, extra, want, reps in (('headline', HEADLINE, {}, 0, 5),
+    for name, kw, extra, want, reps in (('headline', HEADLINE, {}, (0, 0, 0), 5),
                                         ('prompted', PROMPTED, prompt,
-                                         K1_PER_PROMPTED_ROLLOUT, 2)):
+                                         (K1_PER_PROMPTED_ROLLOUT, 0, 0), 2)):
         gen.manual_seed(seed)
-        fa.LAUNCHES = 0
+        zero_counts()
         exp = generate(model, gen, **kw, **extra)
         torch.cuda.synchronize()
-        launches[name] = fa.LAUNCHES
+        launches[name] = read_counts()
         p_len = P if extra else 0
         check_experience(exp, kw['batch_size'], kw['time_steps'], p_len, model.dim,
                          model.latent_shape, prompt=extra or None)
         if launches[name] != want:
-            raise SystemExit(f'{name} rollout launched K1 {launches[name]} times, '
+            raise SystemExit(f'{name} rollout launched (K1, K2, K3) {launches[name]} times, '
                              f'expected {want}')
         sec = host_time_s(lambda: generate(model, gen, **kw, **extra), reps)
         env_steps = kw['batch_size'] * (kw['time_steps'] - p_len)
         log(f'rollout {name:<9} b{kw["batch_size"]} T{kw["time_steps"]} P{p_len} '
-            f'steps {kw["num_steps"]}: K1 launches {launches[name]} (expected {want}), '
-            f'{sec * 1e3:.1f} ms/rollout, {env_steps / sec:.1f} env-steps/s '
+            f'steps {kw["num_steps"]}: (K1, K2, K3) launches {launches[name]} (expected '
+            f'{want}), {sec * 1e3:.1f} ms/rollout, {env_steps / sec:.1f} env-steps/s '
             f'(mean of {reps} after a first run)')
 
     errors, ms_k, ms_p = compare_prefill(model, prompt, PROMPTED['time_steps'])
@@ -389,7 +565,164 @@ def run_model_phase(seed: int = 0) -> int:
         f'{ms_p:.2f} ms with the plain attention')
     if not ok:
         raise SystemExit('prompt pass: K1 is further from float32 than the plain attention')
-    return launches['prompted']
+    return launches
+
+
+def zero_counts():
+    from dreamer4_torch.ops import flash_attention as fa
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+
+
+def read_counts() -> tuple[int, int, int]:
+    """(K1, K2, K3) launches since the last `zero_counts`."""
+    from dreamer4_torch.ops import flash_attention as fa
+    return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+
+
+# -------------------------------------------------------------------- train
+
+def train_batch(device, seed):
+    """bench.py:437-442 at b1 x T1024."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, t = TRAIN['batch_size'], TRAIN['time_steps']
+    return dict(latents=torch.randn((b, t, 16, 32), generator=g, device=device) * 0.5,
+                rewards=torch.zeros((b, t), device=device),
+                discrete_actions=torch.zeros((b, t, 1), dtype=torch.long, device=device))
+
+
+def plain_step_grads(model, batch, seed):
+    """The plain train step's loss and the gradients of the time layers'
+    to_q / to_k / to_v weights, with the forward's draws from `seed`; the
+    weights are left as they are."""
+    names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
+             for w in ('to_q', 'to_k', 'to_v')]
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    loss = model(**batch, shortcut_train=False, generator=gen)
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.float().clone() for n in names}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_train_grads(model, batch, seed):
+    """The plain step in bf16 through K1/K2/K3 and through the plain
+    attention, each held against the same step in float32 with the plain
+    attention: loss as |difference|, gradients as the relative L2 distance.
+    Returns {output: (kernel distance, plain distance)}."""
+    from dreamer4_torch import DynamicsWorldModel
+
+    kernel = plain_step_grads(model, batch, seed)
+    model.transformer.use_flash_attention = False
+    try:
+        plain = plain_step_grads(model, batch, seed)
+    finally:
+        model.transformer.use_flash_attention = True
+    ref_model = DynamicsWorldModel(**{**BENCH_MODEL, 'use_flash_attention': False})
+    ref_model.load_state_dict(model.state_dict())
+    ref = plain_step_grads(ref_model, batch, seed)
+    del ref_model
+    out = {'loss': (abs(kernel[0] - ref[0]), abs(plain[0] - ref[0]))}
+    dist = lambda g, r: ((g - r).norm() / r.norm()).item()
+    for name, r in ref[1].items():
+        out[name.removeprefix('transformer.')] = (dist(kernel[1][name], r),
+                                                  dist(plain[1][name], r))
+    return out
+
+
+def check_train_step(model, ts_before, ts, loss, losses, before, ema_before):
+    """Loss and every gradient finite; every parameter with a nonzero
+    gradient moved, its EMA too; the step counted."""
+    if not (torch.isfinite(loss) and all(bool(torch.isfinite(l).all()) for l in losses)):
+        raise SystemExit(f'train step: loss not finite ({loss.item()})')
+    n_grad = n_moved = 0
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        if not bool(torch.isfinite(p.grad).all()):
+            raise SystemExit(f'train step: gradient of {name} not finite')
+        if bool(p.grad.any()):
+            n_grad += 1
+            moved = not torch.equal(p.detach(), before[name])
+            ema_moved = not torch.equal(ts.ema_params[name], ema_before[name])
+            n_moved += moved and ema_moved
+    if n_grad == 0 or n_moved != n_grad or ts.step != ts_before.step + 1:
+        raise SystemExit(f'train step: {n_moved} of {n_grad} parameters with a gradient moved '
+                         f'with their EMA; step {ts_before.step} -> {ts.step}')
+    return n_grad
+
+
+def run_train_phase(seed: int = 0) -> dict:
+    """Trains the bench model at b1 x T1024 through `BehaviorCloneTrainer`;
+    returns the (K1, K2, K3) launches of each step it drove."""
+    from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel
+    from dreamer4_torch.train.trainers import make_world_model_train_step
+
+    torch.manual_seed(seed)
+    # float32 master weights, bf16 compute (no cast_params_for_inference)
+    model = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    batch = train_batch(model.device, seed + 2)
+    frames = TRAIN['batch_size'] * TRAIN['time_steps']
+
+    ok = True
+    for name, (e_kernel, e_plain) in compare_train_grads(model, batch, seed + 3).items():
+        good = e_kernel <= PREFILL_TOL_FACTOR * e_plain
+        ok = ok and good
+        log(f'train grads {name:<16}: |bf16 K1/K2/K3 - f32| {e_kernel:.3e} (tol '
+            f'{PREFILL_TOL_FACTOR} x {e_plain:.3e}, |bf16 plain - f32|)' + ('' if good else '  FAIL'))
+    if not ok:
+        raise SystemExit('train step: the kernels are further from float32 than the plain '
+                         'attention')
+
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=True, seed=seed)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+    launches = {}
+    for shortcut in (False, True):
+        name = 'train_shortcut' if shortcut else 'train_plain'
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+        ts_before = trainer.ts
+        zero_counts()
+        trainer.ts, loss, losses = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                           generator=trainer.generator)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        n_grad = check_train_step(model, ts_before, trainer.ts, loss, losses, before,
+                                  ema_before)
+        want = LAUNCHES_PER_STEP[shortcut]
+        log(f'{name}: loss {loss.item():.5f} (flow {losses.flow.item():.5f}, shortcut '
+            f'{losses.shortcut.item():.5f}); {n_grad} parameters with a gradient, all moved '
+            f'with their EMA; (K1, K2, K3) launches {launches[name]} (expected {want})')
+        if launches[name] != want:
+            raise SystemExit(f'{name} launched (K1, K2, K3) {launches[name]}, expected {want}')
+        del before, ema_before
+
+    # the trainer's own branch draw: numpy default_rng(seed), untouched so far
+    shortcut = bool(np.random.default_rng(seed).random() < model.prob_shortcut_train)
+    zero_counts()
+    loss, losses = trainer.train_on_batch(batch)
+    torch.cuda.synchronize()
+    launches['train_on_batch'] = read_counts()
+    want = LAUNCHES_PER_STEP[shortcut]
+    log(f'train_on_batch (shortcut {shortcut}): loss {loss.item():.5f}, step {trainer.ts.step}, '
+        f'(K1, K2, K3) launches {launches["train_on_batch"]} (expected {want})')
+    if launches['train_on_batch'] != want or not torch.isfinite(loss) or trainer.ts.step != 3:
+        raise SystemExit('train_on_batch: wrong launches, loss or step')
+
+    for shortcut in (False, True):
+        def one_step():
+            trainer.ts = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                 generator=trainer.generator)[0]
+        one_step()
+        sec = host_time_s(one_step, reps=3)
+        log(f'train step {"shortcut" if shortcut else "plain":<8} b{TRAIN["batch_size"]} '
+            f'T{TRAIN["time_steps"]}: {sec * 1e3:.1f} ms/step, {frames / sec:.1f} frames/s '
+            f'(mean of 3 after a warm step)')
+    return launches
 
 
 # ------------------------------------------------------------------- main
@@ -411,22 +744,40 @@ def main() -> int:
     log(f'# python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}')
 
     t0 = time.perf_counter()
-    _, build_log = cuda_build.build('flash_attn_fwd')
-    log(f'# build flash_attn_fwd.cu: {time.perf_counter() - t0:.1f} s')
-    for line in build_log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            log(f'#   {line.strip()}')
+    builds = cuda_build.build_all()
+    log(f'# build {", ".join(f"{n}.cu" for n in builds)}: {time.perf_counter() - t0:.1f} s '
+        '(one nvcc each, in parallel)')
+    for name, (_, build_log) in builds.items():
+        for line in build_log.splitlines():
+            if 'registers' in line or 'spill' in line:
+                log(f'#   {name}: {line.strip()}')
 
     kernel_results = run_kernel_phase()
     main_shape = kernel_results[('prefill', torch.bfloat16)]
     if main_shape['library_ms'] is None:
         raise SystemExit('no library yardstick at the prefill shape')
-    launches = run_model_phase()
+    bwd_results = run_backward_kernel_phase()
+    train_shape = bwd_results[('t1024', torch.bfloat16)]
+    if train_shape['dq']['library_ms'] is None:
+        raise SystemExit('no library yardstick for the backward at the train shape')
+    launches = {**run_model_phase(), **run_train_phase()}
+    totals = [sum(c[i] for c in launches.values()) for i in range(3)]
+    by_path = lambda i: {path: c[i] for path, c in launches.items()}
 
     kernels = [dict(name='K1 flash_attn_fwd', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:86',
-                    launches=launches, **main_shape)]
+                    launches=totals[0], launches_by_path=by_path(0), **main_shape),
+               dict(name='K2 flash_attn_bwd_dq', route='cuda',
+                    source='dreamer4_torch/csrc/flash_attn_bwd_dq.cu',
+                    replaces='dreamer4_tpu/ops/flash_attention.py:269',
+                    launches=totals[1], launches_by_path=by_path(1), **train_shape['dq'],
+                    library_covers='flex_attention backward: dq, dk and dv together'),
+               dict(name='K3 flash_attn_bwd_dkv', route='cuda',
+                    source='dreamer4_torch/csrc/flash_attn_bwd_dkv.cu',
+                    replaces='dreamer4_tpu/ops/flash_attention.py:309',
+                    launches=totals[2], launches_by_path=by_path(2), **train_shape['dkv'],
+                    library_covers='flex_attention backward: dq, dk and dv together')]
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

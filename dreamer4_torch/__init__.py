@@ -6,9 +6,11 @@ counterpart is found under the same name. It imports torch only: never jax,
 flax or anything of `dreamer4_tpu`.
 
 Ported so far: the imagination rollout (`models.generate.generate`) of
-`DynamicsWorldModel`, with the flash-attention forward as a hand-written
-CUDA kernel (`csrc/flash_attn_fwd.cu`). Entry points run on CUDA unless the
-caller passes `device='cpu'`.
+`DynamicsWorldModel` and its training (`train.trainers.BehaviorCloneTrainer`
+over latents), with the flash-attention forward and backward as hand-written
+CUDA kernels (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
+`csrc/flash_attn_bwd_dkv.cu`). Entry points run on CUDA unless the caller
+passes `device='cpu'`.
 """
 
 __version__ = '0.1.0'
@@ -17,9 +19,11 @@ from .data.experience import Experience
 from .models.generate import generate
 from .models.transformer import AxialSpaceTimeTransformer
 from .models.world_model import DynamicsWorldModel
+from .train.trainers import BehaviorCloneTrainer
 
 __all__ = [
     'AxialSpaceTimeTransformer',
+    'BehaviorCloneTrainer',
     'DynamicsWorldModel',
     'Experience',
     'generate',

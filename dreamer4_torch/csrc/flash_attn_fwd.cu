@@ -44,101 +44,28 @@
 // plain 16-byte loads without a copy pipeline (cp.async or TMA); occupancy
 // alone hides their latency.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_attn_common.cuh"
 
 namespace {
 
+using namespace fa;
+
 constexpr int BQ = 64;             // query rows per block
 constexpr int BK = 64;             // kv rows per tile
-constexpr float NEG_INF = -1e30f;
 
-struct Params {
+struct Params : MaskParams {
     const void* q;
     const void* k;
     const void* v;
     void* o;
     float* lse;                    // null: no LSE
-    int Hq, H, N, M;
-    int offset, kv_len;
-    float scale;
-    float softclamp;               // <= 0: none
-    float tanh_k;                  // 2 log2(e) scale / softclamp
-    int causal, num_special, special_seq_len, special_only_itself;
+    int Hq, H;
 };
-
-__device__ __forceinline__ int pos_mod(int x, int m) {
-    const int r = x % m;
-    return r < 0 ? r + m : r;
-}
-
-__device__ __forceinline__ bool is_special(int pos, const Params& p) {
-    return pos_mod(pos, p.special_seq_len) >= p.special_seq_len - p.num_special;
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// scale, softclamp, then the mask (the TPU kernel's order). The softclamp
-// c * tanh(x / c) is taken as c * (1 - 2 / (e^(2x/c) + 1)) with one fast
-// exponential, 2^(tanh_k * dot) (tanh_k folds the scale, 2 / c and log2 e).
-// Its absolute error in tanh stays below about 1e-6, so a score moves by at
-// most about c * 1e-6 (5e-5 at c = 50), below what the softmax or a float32
-// comparison can see; tanhf took 0.24 ms of the bf16 kernel's 0.39 ms at the
-// prompt-pass shape.
-__device__ __forceinline__ float masked_score(float dot, int qi, bool q_special, int kj,
-                                              const Params& p) {
-    float x;
-    if (p.softclamp > 0.f) {
-        // |2x/c| <= 30 keeps e finite; tanh(15) rounds to 1 in float32
-        const float e = exp2_approx(fminf(fmaxf(dot * p.tanh_k, -43.f), 43.f));
-        x = p.softclamp * (1.f - __fdividef(2.f, e + 1.f));
-    } else {
-        x = dot * p.scale;
-    }
-    bool ok = kj < p.kv_len && kj < p.M;
-    if (p.causal) ok = ok && kj <= qi + p.offset;
-    if (p.num_special > 0) {
-        const bool k_special = is_special(kj, p);
-        ok = ok && (p.special_only_itself ? !(q_special && !k_special)
-                                          : !(!q_special && k_special));
-    }
-    return ok ? x : NEG_INF;
-}
-
-// One past the last key any query of the tile starting at q_start may see.
-// Keys from here on are masked for the whole tile: they are never read, and
-// their rows of a staged tile are zeros, so a non-finite value left in an
-// unused cache row cannot reach the output through 0 * v.
-__device__ __forceinline__ int kv_end(int q_start, const Params& p) {
-    int k_end = min(p.kv_len, p.M);
-    if (p.causal) k_end = min(k_end, min(q_start + BQ, p.N) + p.offset);
-    return max(k_end, 0);
-}
 
 // ------------------------------------------------------------------ float32
 
 constexpr int F32_THREADS = 256;   // 4 threads per query row
 constexpr int F32_COLS = BK / 4;   // scores per thread per tile
-
-// `rows` rows of D floats (row stride D) into shared memory with row stride
-// LD; rows >= valid_rows are zero-filled. 16-byte loads.
-template <int D, int LD>
-__device__ __forceinline__ void load_f32_tile(float* __restrict__ dst, const float* __restrict__ src,
-                                              int rows, int valid_rows) {
-    constexpr int PER_ROW = D / 4;
-    for (int i = threadIdx.x; i < rows * PER_ROW; i += F32_THREADS) {
-        const int r = i / PER_ROW;
-        const int c = (i % PER_ROW) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < valid_rows) val = *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
-        *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-    }
-}
 
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
@@ -165,7 +92,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
     const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.H + h) * p.M * D;
     const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.H + h) * p.M * D;
 
-    load_f32_tile<D, LD>(qs, qb, BQ, min(BQ, p.N - q_start));
+    load_f32_tile<D, LD, F32_THREADS>(qs, qb, BQ, min(BQ, p.N - q_start));
     const bool q_special = p.num_special > 0 && is_special(qi + p.offset, p);
 
     float m_run = NEG_INF;
@@ -174,12 +101,12 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[j] = 0.f;
 
-    const int k_end = kv_end(q_start, p);
+    const int k_end = kv_end(q_start, BQ, p);
     for (int k_start = 0; k_start < k_end; k_start += BK) {
         const int valid_k = min(BK, k_end - k_start);
         __syncthreads();   // previous tile's ks/vs/ps fully consumed
-        load_f32_tile<D, LD>(ks, kb + (size_t)k_start * D, BK, valid_k);
-        load_f32_tile<D, LD>(vs, vb + (size_t)k_start * D, BK, valid_k);
+        load_f32_tile<D, LD, F32_THREADS>(ks, kb + (size_t)k_start * D, BK, valid_k);
+        load_f32_tile<D, LD, F32_THREADS>(vs, vb + (size_t)k_start * D, BK, valid_k);
         __syncthreads();
 
         // scores for columns quad + 4 * j
@@ -275,52 +202,6 @@ cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
 
 constexpr int BF16_THREADS = 128;  // 4 warps x 16 query rows
 
-using bf16 = __nv_bfloat16;
-
-// `rows` rows of D bf16 (row stride D) into shared memory with row stride
-// LD, as they are; rows >= valid_rows are zero-filled. 16-byte loads.
-template <int D, int LD>
-__device__ __forceinline__ void load_bf16_tile(bf16* __restrict__ dst, const bf16* __restrict__ src,
-                                               int rows, int valid_rows) {
-    constexpr int PER_ROW = D / 8;
-    for (int i = threadIdx.x; i < rows * PER_ROW; i += BF16_THREADS) {
-        const int r = i / PER_ROW;
-        const int c = (i % PER_ROW) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < valid_rows) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-        *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* ptr) {
-    return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a . b for one 16x8x16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col), c float32
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// B fragment of a 16x8 slice of a row-major [key][dim] tile: lanes 0-15 give
-// the addresses of its 16 key rows; the transposing load hands each lane
-// the (key, dim) pairs the mma expects.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* ptr) {
-    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(addr));
-}
-
 template <int D>
 __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16(const Params p) {
     constexpr int LD = D + 8;        // bf16 row stride of the tiles (16-byte pad: no bank conflicts)
@@ -348,7 +229,7 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16(const Params p) {
     const bf16* kb = static_cast<const bf16*>(p.k) + ((size_t)b * p.H + h) * p.M * D;
     const bf16* vb = static_cast<const bf16*>(p.v) + ((size_t)b * p.H + h) * p.M * D;
 
-    load_bf16_tile<D, LD>(qs, qb, BQ, min(BQ, p.N - q_start));
+    load_bf16_tile<D, LD, BF16_THREADS>(qs, qb, BQ, min(BQ, p.N - q_start));
     __syncthreads();
     uint32_t qf[KSTEPS][4];          // Q as A fragments, for the whole kv walk
 #pragma unroll
@@ -374,12 +255,12 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16(const Params p) {
         for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
     }
 
-    const int k_end = kv_end(q_start, p);
+    const int k_end = kv_end(q_start, BQ, p);
     for (int k_start = 0; k_start < k_end; k_start += BK) {
         const int valid_k = min(BK, k_end - k_start);
         __syncthreads();   // previous tile's ks/vs fully consumed
-        load_bf16_tile<D, LD>(ks, kb + (size_t)k_start * D, BK, valid_k);
-        load_bf16_tile<D, LD>(vs, vb + (size_t)k_start * D, BK, valid_k);
+        load_bf16_tile<D, LD, BF16_THREADS>(ks, kb + (size_t)k_start * D, BK, valid_k);
+        load_bf16_tile<D, LD, BF16_THREADS>(vs, vb + (size_t)k_start * D, BK, valid_k);
         __syncthreads();
 
         // s[nb][2r + e]: row r_tile + 8r, key k_start + 8nb + 2t + e
@@ -506,9 +387,17 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     }
     if (B > 65535 || Hq > 65535) return (int)cudaErrorInvalidValue;   // grid y, z limits
     if (num_special > 0 && special_seq_len <= 0) return (int)cudaErrorInvalidValue;
-    const float tanh_k = softclamp > 0.f ? 2.f * 1.4426950408889634f * scale / softclamp : 0.f;
-    const Params p{q, k, v, o, lse, Hq, H, N, M, offset, kv_len, scale, softclamp, tanh_k,
-                   causal, num_special, special_seq_len, special_only_itself};
+    Params p;
+    static_cast<MaskParams&>(p) = make_mask_params(N, M, offset, kv_len, scale, softclamp, causal,
+                                                   num_special, special_seq_len,
+                                                   special_only_itself);
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.o = o;
+    p.lse = lse;
+    p.Hq = Hq;
+    p.H = H;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
         case 16: return (int)launch<16>(p, B, dtype, s);

@@ -201,26 +201,34 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         new_kv_caches = []
         normed_time_inputs, normed_space_inputs = [], []
-        layer_hiddens = [tokens]
+        layer_hiddens = []
 
-        # every pool reads a static prefix of ONE preallocated buffer of the
-        # (unscaled) normalized hiddens; hidden i is written into it once,
-        # in place
+        # every pool reads the stack of the (unscaled) normalized hiddens so
+        # far. Without grad they are written once each, in place, into ONE
+        # preallocated buffer whose prefix each pool reads. Under grad an
+        # in-place write would bump the version of a prefix an earlier pool
+        # saved for its backward, so each pool stacks the list instead (the
+        # counterpart's functional `.at[].set` has no such conflict).
+        in_place = not torch.is_grad_enabled()
+        normed = []
         normed_stack = None
-        n_stacked = 0
-        if self.use_attn_pool:
-            n_appends = 1 + 2 * self.depth
-            normed_stack = torch.empty((n_appends, b * t * s, d), dtype=tokens.dtype,
+        if self.use_attn_pool and in_place:
+            normed_stack = torch.empty((1 + 2 * self.depth, b * t * s, d), dtype=tokens.dtype,
                                        device=device)
-            normed_stack[0].copy_(rms_normalize(tokens).reshape(-1, d))
-            n_stacked = 1
 
         def append_hidden(tok):
-            nonlocal n_stacked
             layer_hiddens.append(tok)
-            if self.use_attn_pool:
-                normed_stack[n_stacked].copy_(rms_normalize(tok).reshape(-1, d))
-                n_stacked += 1
+            if not self.use_attn_pool:
+                return
+            n = rms_normalize(tok).reshape(-1, d)
+            if in_place:
+                normed_stack[len(normed)].copy_(n)
+            normed.append(n)
+
+        def pool_inputs():
+            return normed_stack[:len(normed)] if in_place else torch.stack(normed)
+
+        append_hidden(tokens)
 
         time_layer_idx = 0
         for i, layer_is_time in enumerate(self.is_time_layer):
@@ -253,7 +261,7 @@ class AxialSpaceTimeTransformer(nn.Module):
 
             if self.use_attn_pool and i < self.depth - 1:
                 tokens = tokens + getattr(self, f'attn_pool_{i}')(
-                    tokens, layer_hiddens, normed_hiddens=normed_stack[:n_stacked])
+                    tokens, layer_hiddens, normed_hiddens=pool_inputs())
 
         # final cross-attend: special tokens read the spatial tokens once
         if self.should_special_cross_attend:
@@ -268,7 +276,7 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         if self.use_attn_pool:
             tokens = tokens + self.final_attn_pool(tokens, layer_hiddens,
-                                                   normed_hiddens=normed_stack[:n_stacked])
+                                                   normed_hiddens=pool_inputs())
         if self.final_norm is not None:
             tokens = self.final_norm(tokens)
 

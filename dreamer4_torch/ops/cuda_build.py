@@ -2,10 +2,12 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 `sm_90a` into `dreamer4_torch/build/<name>-<hash>.so`, at first use, from the
-sources in the checkout only. A hash of the source, the nvcc flags and the
-nvcc version names the library, so an edited source, other flags or another
-compiler build anew and an unchanged build is loaded as it is. Nothing here
-runs when the module is imported.
+sources in the checkout only. A hash of the source, of every local header it
+includes (`#include "..."`, followed transitively), of the nvcc flags and of
+the nvcc version names the library, so an edited source or header, other
+flags or another compiler build anew and an unchanged build is loaded as it
+is. `build_all` starts one nvcc per source at once. Nothing here runs when
+the module is imported.
 """
 from __future__ import annotations
 
@@ -13,10 +15,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -49,8 +53,32 @@ def nvcc_version() -> str:
     return proc.stdout
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def kernel_names() -> list[str]:
+    """Every kernel source of the package, by name (`csrc/<name>.cu`)."""
+    return sorted(p.stem for p in CSRC_DIR.glob('*.cu'))
+
+
+def source_files(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and the local headers it includes, transitively, in
+    the order they are first met."""
+    files, todo = [], [CSRC_DIR / f'{name}.cu']
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return files
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC_DIR / f'{name}.cu').read_bytes())
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b'\0' + path.read_bytes())
     h.update('\0'.join(NVCC_FLAGS).encode())
     h.update(nvcc_version().encode())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
@@ -78,6 +106,15 @@ def build(name: str) -> tuple[Path, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def build_all() -> dict[str, tuple[Path, str]]:
+    """Build every kernel source at once, one nvcc each. Returns what
+    `build` returns, by name; raises on the first failure."""
+    names = kernel_names()
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,16 +1,17 @@
-"""Fused attention forward, K1 of the port (counterpart of
-`dreamer4_tpu/ops/flash_attention.py`).
+"""Fused attention, forward and backward: K1, K2 and K3 of the port
+(counterpart of `dreamer4_tpu/ops/flash_attention.py`).
 
-`flash_attend` launches the hand-written CUDA kernel `csrc/flash_attn_fwd.cu`
-for tensors on a CUDA device and computes `flash_attend_reference`, the plain
-PyTorch version in this module, for tensors on the CPU. A CUDA tensor never
-reaches the plain version: the wrapper launches the kernel or raises. The
-mask family is that of the TPU kernel: kv-length validity, causal order
-under an offset, and special tokens at the right of every
-`special_seq_len` block in either direction.
-
-The backward kernels (K2, K3) belong to the training slice; on CUDA the
-wrapper refuses inputs that require grad.
+`flash_attend` is differentiable. Its forward launches the hand-written
+CUDA kernel `csrc/flash_attn_fwd.cu` (K1), with the log-sum-exp when a
+gradient is needed; its backward (`flash_attend_bwd`) computes delta =
+rowsum(dO * O) and launches `csrc/flash_attn_bwd_dq.cu` (K2) and
+`csrc/flash_attn_bwd_dkv.cu` (K3). Each kernel has its plain PyTorch version
+here (`flash_attend_reference`, `bwd_dq_reference`, `bwd_dkv_reference`),
+which a wrapper computes only for tensors on the CPU: on a CUDA tensor it
+launches the kernel or raises. The mask family is that of the TPU kernels:
+kv-length validity, causal order under an offset (which may be negative),
+and special tokens at the right of every `special_seq_len` block in either
+direction, the query's period counted from its offset position.
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ import torch
 
 from .attention import naive_attend
 
-# kernel launches since the last reset; one per launch of the CUDA kernel
-LAUNCHES = 0
+# kernel launches since the last reset; one per launch of each CUDA kernel
+LAUNCHES = 0            # K1, the forward
+BWD_DQ_LAUNCHES = 0     # K2
+BWD_DKV_LAUNCHES = 0    # K3
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attend_mask(N: int, M: int, offset: int, kv_len: int, *, causal=False, num_special=0,
@@ -74,6 +76,70 @@ def flash_attend_reference(q, k, v, offset: int, kv_len: int, *, softclamp_value
     return out, torch.logsumexp(sim, dim=-1)
 
 
+def _p_ds_reference(q, k, v, do, lse, delta, offset, kv_len, *, softclamp_value, causal,
+                    num_special, special_seq_len, special_attend_only_itself, scale):
+    """The TPU kernels' `_recompute_p_ds` over whole matrices, in float32:
+    p from the saved LSE, zeroed by the mask predicate; ds = p * (dp - delta)
+    * (1 - tanh^2), the gradient of the scaled score before the softclamp.
+    k and v come expanded to the query heads. Returns (p, ds)."""
+    N, M = q.shape[-2], k.shape[-2]
+    mask = attend_mask(N, M, offset, kv_len, causal=causal, num_special=num_special,
+                       special_seq_len=special_seq_len,
+                       special_attend_only_itself=special_attend_only_itself, device=q.device)
+    s = torch.einsum('...id,...jd->...ij', q.float(), k.float()) * scale
+    if softclamp_value is not None:
+        t = torch.tanh(s / softclamp_value)
+        s = t * softclamp_value
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum('...id,...jd->...ij', do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    if softclamp_value is not None:
+        ds = ds * (1.0 - t * t)
+    return p, ds
+
+
+def _scale_and_groups(q, k, scale):
+    return (q.shape[-1] ** -0.5 if scale is None else scale), q.shape[-3] // k.shape[-3]
+
+
+def bwd_dq_reference(q, k, v, do, lse, delta, offset: int, kv_len: int, *, softclamp_value=50.0,
+                     causal=False, num_special=0, special_seq_len=0,
+                     special_attend_only_itself=False, scale=None):
+    """Plain PyTorch version of K2: dq = scale * ds . k, ds rounded to k's
+    dtype and the product summed in float32, as the TPU kernel does."""
+    scale, groups = _scale_and_groups(q, k, scale)
+    kx, vx = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
+    _, ds = _p_ds_reference(q, kx, vx, do, lse, delta, offset, kv_len,
+                            softclamp_value=softclamp_value, causal=causal,
+                            num_special=num_special, special_seq_len=special_seq_len,
+                            special_attend_only_itself=special_attend_only_itself, scale=scale)
+    dq = torch.einsum('...ij,...jd->...id', ds.to(k.dtype).float(), kx.float())
+    return (dq * scale).to(q.dtype)
+
+
+def bwd_dkv_reference(q, k, v, do, lse, delta, offset: int, kv_len: int, *, softclamp_value=50.0,
+                      causal=False, num_special=0, special_seq_len=0,
+                      special_attend_only_itself=False, scale=None):
+    """Plain PyTorch version of K3: dv = p^T . dO (p rounded to dO's dtype),
+    dk = scale * ds^T . q (ds rounded to q's dtype), each summed over the
+    GQA group of query heads in float32."""
+    scale, groups = _scale_and_groups(q, k, scale)
+    kx, vx = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
+    p, ds = _p_ds_reference(q, kx, vx, do, lse, delta, offset, kv_len,
+                            softclamp_value=softclamp_value, causal=causal,
+                            num_special=num_special, special_seq_len=special_seq_len,
+                            special_attend_only_itself=special_attend_only_itself, scale=scale)
+    dv = torch.einsum('...ij,...id->...jd', p.to(do.dtype).float(), do.float())
+    dk = torch.einsum('...ij,...id->...jd', ds.to(q.dtype).float(), q.float()) * scale
+    group_sum = lambda t: t.reshape(*k.shape[:-3], k.shape[-3], groups, *t.shape[-2:]).sum(-3)
+    return group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in float32, (B, Hq, N)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
 def _check_inputs(q, k, v, offset, kv_len, softclamp_value):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError('flash_attend takes q (B, Hq, N, D) and k, v (B, H, M, D)')
@@ -109,32 +175,84 @@ def flash_attend(q: torch.Tensor,   # (B, Hq, N, D)
                  special_attend_only_itself: bool = False,
                  return_lse: bool = False,
                  scale: float | None = None):
-    """Fused attention forward. Returns o (B, Hq, N, D) in the input dtype,
-    and the float32 log-sum-exp (B, Hq, N) with `return_lse`."""
+    """Fused attention. Returns o (B, Hq, N, D) in the input dtype, and the
+    float32 log-sum-exp (B, Hq, N) with `return_lse`. Differentiable in q,
+    k and v (the counterpart's custom VJP): under grad the forward keeps its
+    LSE for the backward; the LSE itself carries no gradient."""
     _check_inputs(q, k, v, offset, kv_len, softclamp_value)
     cfg = dict(softclamp_value=softclamp_value, causal=causal, num_special=num_special,
                special_seq_len=special_seq_len,
                special_attend_only_itself=special_attend_only_itself, scale=scale)
-    if q.device.type == 'cpu' and k.device.type == 'cpu' and v.device.type == 'cpu':
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out, lse = _FlashAttend.apply(q, k, v, offset, kv_len, cfg)
+        return (out, lse) if return_lse else out
+    return _forward(q, k, v, offset, kv_len, return_lse=return_lse, **cfg)
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == 'cpu' for t in tensors)
+
+
+def _forward(q, k, v, offset, kv_len, *, return_lse, **cfg):
+    if _on_cpu(q, k, v):
         return flash_attend_reference(q, k, v, offset, kv_len, return_lse=return_lse, **cfg)
     return _flash_attend_cuda(q, k, v, offset, kv_len, return_lse=return_lse, **cfg)
 
 
+def flash_attend_bwd(q, k, v, o, lse, do, offset: int, kv_len: int, **cfg):
+    """The backward of `flash_attend` from its saved output and LSE:
+    delta = rowsum(dO * O), then K2 (dq) and K3 (dk, dv). The LSE is an
+    input, so a caller may pass one it reduced itself (a ring's global
+    LSE). Returns (dq, dk, dv) in the input dtypes."""
+    do = do.contiguous()   # autograd may hand over a strided view
+    delta = attention_delta(o, do)
+    return (bwd_dq(q, k, v, do, lse, delta, offset, kv_len, **cfg),
+            *bwd_dkv(q, k, v, do, lse, delta, offset, kv_len, **cfg))
+
+
+class _FlashAttend(torch.autograd.Function):
+    """`flash_attend` under autograd: K1 with its LSE forward, K2 and K3
+    backward (the counterpart's `flash_attend.defvjp(_fwd, _bwd)`; the port
+    takes the fused backward at every shape)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offset, kv_len, cfg):
+        out, lse = _forward(q, k, v, offset, kv_len, return_lse=True, **cfg)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (offset, kv_len, cfg)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        offset, kv_len, cfg = ctx.args
+        dq, dk, dv = flash_attend_bwd(q, k, v, out, lse, do, offset, kv_len, **cfg)
+        return dq, dk, dv, None, None, None
+
+
+# ------------------------------------------------------------------ CUDA
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 @functools.cache
-def _kernel_entry():
-    """`flash_attn_fwd` of the built library, its C signature declared once."""
+def _kernel_entry(name: str):
+    """The entry point `name` of the built `csrc/<name>.cu`, its C signature
+    declared once: n_ptr pointers, then B, Hq, H, N, M, D, dtype, offset,
+    kv_len, scale, softclamp, causal, num_special, special_seq_len,
+    special_only_itself and the stream."""
     from .cuda_build import load
-    fn = load('flash_attn_fwd').flash_attn_fwd
+    n_ptr = {'flash_attn_fwd': 5, 'flash_attn_bwd_dq': 7, 'flash_attn_bwd_dkv': 8}[name]
+    fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return fn
 
 
-def _flash_attend_cuda(q, k, v, offset, kv_len, *, softclamp_value, causal, num_special,
-                       special_seq_len, special_attend_only_itself, return_lse, scale):
-    global LAUNCHES
-    for name, t in (('q', q), ('k', k), ('v', v)):
+def _check_cuda(q, named: dict):
+    for name, t in named.items():
         if t.device.type != 'cuda' or t.device != q.device:
             raise ValueError(f'{name} on {t.device}; the kernel takes all inputs on one '
                              'CUDA device')
@@ -142,29 +260,82 @@ def _flash_attend_cuda(q, k, v, offset, kv_len, *, softclamp_value, causal, num_
             raise ValueError(f'{name} must be contiguous')
         if t.data_ptr() % 16 != 0:
             raise ValueError(f'{name} must be 16-byte aligned')
-        if t.requires_grad:
-            raise NotImplementedError('the flash-attention backward (K2/K3) is not ported; '
-                                      'call under torch.no_grad()')
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f'the kernel takes float32 or bfloat16, not {q.dtype}')
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f'head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}')
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check_cuda(q, dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta))
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError('do must match q in shape and dtype')
+    for name, t in (('lse', lse), ('delta', delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(q.shape[:-1]):
+            raise ValueError(f'{name} must be float32 of shape {tuple(q.shape[:-1])}')
+
+
+def _launch(name, pointers, q, k, offset, kv_len, *, softclamp_value=50.0, causal=False,
+            num_special=0, special_seq_len=0, special_attend_only_itself=False, scale=None):
     B, Hq, N, D = q.shape
     H, M = k.shape[1], k.shape[2]
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f'head dim {D} not in {SUPPORTED_HEAD_DIMS}')
-    if scale is None:
-        scale = D ** -0.5
     L = special_seq_len if special_seq_len > 0 else M
-
-    fn = _kernel_entry()
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, N), dtype=torch.float32, device=q.device) if return_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if lse is not None else None,
-             B, Hq, H, N, M, D, _DTYPE_CODES[q.dtype], offset, kv_len,
-             float(scale), float(softclamp_value) if softclamp_value is not None else 0.0,
-             int(causal), int(num_special), int(L), int(special_attend_only_itself), stream)
+    err = _kernel_entry(name)(
+        *pointers, B, Hq, H, N, M, D, _DTYPE_CODES[q.dtype], offset, kv_len,
+        float(D ** -0.5 if scale is None else scale),
+        float(softclamp_value) if softclamp_value is not None else 0.0,
+        int(causal), int(num_special), int(L), int(special_attend_only_itself),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f'flash_attn_fwd launch failed with CUDA error {err}')
+        raise RuntimeError(f'{name} launch failed with CUDA error {err}')
+
+
+def _flash_attend_cuda(q, k, v, offset, kv_len, *, return_lse, **cfg):
+    global LAUNCHES
+    _check_cuda(q, dict(q=q, k=k, v=v))
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if return_lse else None
+    _launch('flash_attn_fwd', (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr() if lse is not None else None),
+            q, k, offset, kv_len, **cfg)
     LAUNCHES += 1
     return (out, lse) if return_lse else out
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg):
+    global BWD_DQ_LAUNCHES
+    _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _launch('flash_attn_bwd_dq', (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+            q, k, offset, kv_len, **cfg)
+    BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg):
+    global BWD_DKV_LAUNCHES
+    _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch('flash_attn_bwd_dkv', (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr()),
+            q, k, offset, kv_len, **cfg)
+    BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def bwd_dq(q, k, v, do, lse, delta, offset: int, kv_len: int, **cfg):
+    """K2's wrapper: the kernel on CUDA tensors, `bwd_dq_reference` on CPU
+    tensors."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return bwd_dq_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    return _bwd_dq_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+
+
+def bwd_dkv(q, k, v, do, lse, delta, offset: int, kv_len: int, **cfg):
+    """K3's wrapper: the kernel on CUDA tensors, `bwd_dkv_reference` on CPU
+    tensors."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return bwd_dkv_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    return _bwd_dkv_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg)

@@ -18,6 +18,27 @@ def symexp(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * (torch.exp(x.abs()) - 1.0)
 
 
+def lens_to_mask(lens: torch.Tensor, total_len: int) -> torch.Tensor:
+    """(b,) lengths -> (b, total_len) bool mask, True inside the length."""
+    return torch.arange(total_len, device=lens.device)[None, :] < lens[..., None]
+
+
+def masked_mean(t: torch.Tensor, mask: torch.Tensor | None = None, dim=None) -> torch.Tensor:
+    """Mean over `dim` (or all) counting only positions where `mask`
+    (broadcast against t) is True; an all-False mask gives 0."""
+    if mask is None:
+        return t.mean() if dim is None else t.mean(dim=dim)
+    maskf = mask.broadcast_to(t.shape).to(t.dtype)
+    if dim is None:
+        return (t * maskf).sum() / maskf.sum().clamp_min(1.0)
+    return (t * maskf).sum(dim=dim) / maskf.sum(dim=dim).clamp_min(1.0)
+
+
+def ramp_weight(times: torch.Tensor, slope: float = 0.9, intercept: float = 0.1) -> torch.Tensor:
+    """Ramp loss weighting, eq (8) of the paper."""
+    return slope * times + intercept
+
+
 def cast_params_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast the float32 parameters of `module` to `dtype` for serving, in
     place (the counterpart casts a variables pytree); every forward then

@@ -1,0 +1,127 @@
+"""Where the time of the PyTorch port's world-model train step goes, on one CUDA card.
+
+    python3 scripts/profile_torch_train.py
+
+Builds the bench world model as chip_smoke.py's train phase does (dim 512,
+depth 8, float32 master weights, bf16 compute, flash attention on) with a
+`BehaviorCloneTrainer`, and the b1 x T1024 batch. Warms up with one plain
+and one shortcut step, then prints, for each variant:
+  - the wall time of each part of the step (forward, backward, optimizer,
+    EMA), each between two `torch.cuda.synchronize()`, mean of 3;
+  - under torch.profiler, one whole step: its wall time, the device's busy
+    time (the sum of the CUDA kernels' times) and idle share, the CUDA
+    kernels launched, the launches and device time of K1, K2 and K3, and
+    the CUDA kernels and host-side PyTorch ops that take the most time.
+Imports torch, numpy and the port only.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from chip_smoke import BENCH_MODEL, TRAIN, gpu_name_and_power_limit, train_batch  # noqa: E402
+from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel  # noqa: E402
+from dreamer4_torch.train.ema import update_ema  # noqa: E402
+from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E402
+
+# name stems of the port's CUDA kernels (dreamer4_torch/csrc)
+FLASH_KERNELS = {'K1': 'flash_fwd_', 'K2': 'bwd_dq_', 'K3': 'bwd_dkv_'}
+
+
+def is_device_event(event) -> bool:
+    """A CUDA kernel or copy; not a user annotation's range on the device
+    (`Optimizer.step` records one, spanning the kernels it launches)."""
+    return (getattr(event, 'device_type', None) == torch.autograd.DeviceType.CUDA
+            and not getattr(event, 'is_user_annotation', False))
+
+
+def part_times_ms(model, trainer, batch, shortcut, reps=3):
+    """Mean wall ms of forward, backward, optimizer step and EMA update."""
+    parts = {'forward': 0.0, 'backward': 0.0, 'optimizer': 0.0, 'ema': 0.0}
+    params = dict(model.named_parameters())
+    for _ in range(reps):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(**batch, shortcut_train=shortcut, generator=trainer.generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        update_ema(trainer.ts.ema_params, params)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[name] += dt * 1e3 / reps
+    return parts
+
+
+def profile_step(step, label):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if is_device_event(e)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f'{label} under the profiler: {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms '
+          f'({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%; '
+          f'{len(kernels)} CUDA kernels')
+    for kid, prefix in FLASH_KERNELS.items():
+        mine = [e for e in kernels if prefix in e.name]
+        print(f'  {kid}: {len(mine)} launches, '
+              f'{sum(e.time_range.elapsed_us() for e in mine) / 1e3:.3f} ms device')
+    averages = prof.key_averages()
+    device_rows = sorted((a for a in averages if is_device_event(a)),
+                         key=lambda a: -a.self_device_time_total)[:12]
+    print('  top CUDA kernels by device time: ms total, launches, name')
+    for a in device_rows:
+        print(f'    {a.self_device_time_total / 1e3:9.2f} {a.count:7d}  {a.key[:90]}')
+    host_rows = sorted((a for a in averages if a.self_cpu_time_total > 0
+                        and a.key.startswith('aten::')),
+                       key=lambda a: -a.self_cpu_time_total)[:12]
+    print('  top host ops by self CPU time: ms total, calls, name')
+    for a in host_rows:
+        print(f'    {a.self_cpu_time_total / 1e3:9.2f} {a.count:7d}  {a.key}')
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('profile_torch_train: no CUDA device', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(gpu_name_and_power_limit(), flush=True)
+    torch.manual_seed(0)
+    model = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=True, seed=0)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+    batch = train_batch(model.device, 2)
+    label = f'b{TRAIN["batch_size"]} x T{TRAIN["time_steps"]}'
+
+    for shortcut in (False, True):
+        def step():
+            trainer.ts = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                 generator=trainer.generator)[0]
+        step()
+        parts = part_times_ms(model, trainer, batch, shortcut)
+        variant = 'shortcut' if shortcut else 'plain'
+        print(f'{variant} step {label}: ' + ', '.join(f'{k} {v:.1f} ms' for k, v in parts.items())
+              + f' (sum {sum(parts.values()):.1f} ms; wall, mean of 3)', flush=True)
+        profile_step(step, f'{variant} step {label}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,13 +1,21 @@
-"""The port's CUDA kernel K1 (`csrc/flash_attn_fwd.cu`) on a card, against
-its plain PyTorch version `flash_attend_reference`. Every test here needs a
-CUDA device and skips without one: a hand-written kernel has no CPU or
-interpret mode. This file imports torch and the port only, so it runs on a
-machine without JAX:
+"""The port's CUDA kernels on a card, each against its plain PyTorch
+version: K1 (`csrc/flash_attn_fwd.cu`) against `flash_attend_reference`, K2
+(`csrc/flash_attn_bwd_dq.cu`) against `bwd_dq_reference` and K3
+(`csrc/flash_attn_bwd_dkv.cu`) against `bwd_dkv_reference`. Every test here
+needs a CUDA device and skips without one: a hand-written kernel has no CPU
+or interpret mode. This file imports torch and the port only, so it runs on
+a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: float32 1e-4 (the two differ in summation order only); bf16
-2e-2 (one rounding of the output, 1.6e-2 at |o| < 4, and of p before PV).
+Tolerances. K1: float32 1e-4 (the two differ in summation order only);
+bf16 2e-2 (one rounding of the output, 1.6e-2 at |o| < 4, and of p before
+PV). K2/K3, as a fraction of the largest gradient entry: float32 2e-4 (the
+kernels' one-exponential softclamp moves a score by up to about c * 1e-6,
+hence p by that relative amount, plus summation order); bf16 1e-2 (one
+rounding of each output, 2^-9 of it, plus ds and p rounded to bf16 at the
+TPU kernel's points, where the kernel and the plain version may round a
+value that differs in its last float32 bits to neighbouring bf16 values).
 """
 import pytest
 import torch
@@ -16,6 +24,7 @@ from dreamer4_torch.models.transformer import AxialSpaceTimeTransformer
 from dreamer4_torch.ops import flash_attention as fa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -90,8 +99,9 @@ def test_rows_beyond_kv_len_do_not_reach_the_output(gen, dtype, n, kv_len, causa
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     q, k, v = qkv(gen, 1, 2, 2, 8, 8, 16, torch.float32)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attend(q.requires_grad_(), k, v, 0, 8)
+    with pytest.raises(ValueError):   # the LSE of the backward is float32
+        fa.bwd_dq(q, k, v, q, torch.zeros(1, 2, 8, device='cuda').double(),
+                  torch.zeros(1, 2, 8, device='cuda'), 0, 8)
     with pytest.raises(ValueError):
         fa.flash_attend(q.detach().half(), k.half(), v.half(), 0, 8)
     with pytest.raises(ValueError):
@@ -121,3 +131,96 @@ def test_trunk_flash_branch_matches_plain_branch(gen):
         ref_step, _ = trunk(x[:, :1], cache=ref_cache)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(step, ref_step, atol=1e-4, rtol=1e-4)
+
+
+# K2 / K3: (B, Hq, H, N, M, D, offset, kv_len, mask config) of the kernel
+# phase of chip_smoke.py, cut in batch
+BWD_CASES = {
+    't1024': ((2, 8, 8, 1024, 1024, 64, 0, 1024), dict(causal=True)),
+    'gqa': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True)),
+    'space_special': ((8, 8, 8, 144, 144, 64, 0, 144),
+                      dict(num_special=1, special_seq_len=144)),
+    'space_special_only_itself': ((8, 8, 8, 144, 144, 64, 0, 144),
+                                  dict(num_special=1, special_seq_len=144,
+                                       special_attend_only_itself=True)),
+    'ragged_offset': ((3, 4, 2, 130, 192, 64, 20, 150),
+                      dict(causal=True, num_special=2, special_seq_len=9)),
+    'negative_offset': ((2, 4, 4, 100, 96, 64, -7, 96), dict(causal=True)),
+    'no_softclamp': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True, softclamp_value=None)),
+    'head_dim_16': ((3, 4, 2, 77, 130, 16, 3, 101), dict(causal=True, softclamp_value=30.0)),
+    'head_dim_32': ((3, 4, 2, 77, 130, 32, 3, 101), dict(causal=True, softclamp_value=30.0)),
+    'head_dim_128': ((3, 4, 2, 77, 130, 128, 3, 101), dict(causal=True, softclamp_value=30.0)),
+}
+
+
+def bwd_inputs(gen, shape, dtype, cfg):
+    """q, k, v, dO and the forward's o, lse (from the plain version, so that
+    kernel and plain version see the same inputs) and delta."""
+    B, Hq, H, N, M, D, offset, kv_len = shape
+    q, k, v = qkv(gen, B, Hq, H, N, M, D, dtype)
+    do = torch.randn((B, Hq, N, D), generator=gen, device='cuda').to(dtype)
+    o, lse = fa.flash_attend_reference(q, k, v, offset, kv_len, return_lse=True, **cfg)
+    return q, k, v, do, o, lse, fa.attention_delta(o, do)
+
+
+def rel_err(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', list(BWD_CASES))
+def test_backward_kernels_match_plain_versions(gen, case, dtype):
+    shape, cfg = BWD_CASES[case]
+    offset, kv_len = shape[6], shape[7]
+    q, k, v, do, o, lse, delta = bwd_inputs(gen, shape, dtype, cfg)
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    dq = fa.bwd_dq(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    dk, dv = fa.bwd_dkv(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    ref_dk, ref_dv = fa.bwd_dkv_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    for out, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert bool(torch.isfinite(out).all())
+        assert rel_err(out, ref) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rows_beyond_kv_len_do_not_reach_the_gradients(gen, dtype):
+    """Non-finite values in cache rows at and beyond kv_len reach none of
+    dq, dk, dv; those rows get zero gradients."""
+    shape, cfg = (2, 4, 4, 96, 192, 64, 0, 96), dict(causal=True)
+    q, k, v, do, o, lse, delta = bwd_inputs(gen, shape, dtype, cfg)
+    ref_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, 0, 96, **cfg)
+    ref_dk, ref_dv = fa.bwd_dkv_reference(q, k, v, do, lse, delta, 0, 96, **cfg)
+    k[:, :, 96:] = float('nan')
+    v[:, :, 96:] = float('inf')
+    dq = fa.bwd_dq(q, k, v, do, lse, delta, 0, 96, **cfg)
+    dk, dv = fa.bwd_dkv(q, k, v, do, lse, delta, 0, 96, **cfg)
+    for out, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert bool(torch.isfinite(out).all())
+        assert rel_err(out, ref) <= GRAD_TOL[dtype]
+    assert not bool(dk[:, :, 96:].any()) and not bool(dv[:, :, 96:].any())
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_kernels(gen):
+    """Under grad `flash_attend` launches K1 once with its LSE, and the
+    backward K2 and K3 once each; its gradients are those of the plain
+    attention under autograd (float32)."""
+    q, k, v = (t.requires_grad_() for t in qkv(gen, 2, 4, 2, 200, 200, 64, torch.float32))
+    do = torch.randn((2, 4, 200, 64), generator=gen, device='cuda')
+    cfg = dict(causal=True, num_special=1, special_seq_len=25)
+    counts = lambda: (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    before = counts()
+    grads = torch.autograd.grad(fa.flash_attend(q, k, v, 0, 200, **cfg), (q, k, v), do)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = torch.autograd.grad(fa.flash_attend_reference(q, k, v, 0, 200, **cfg), (q, k, v), do)
+    for out, r in zip(grads, ref):
+        assert rel_err(out, r) <= GRAD_TOL[torch.float32]
+    with torch.no_grad():
+        fa.flash_attend(q, k, v, 0, 200, **cfg)
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 1)

@@ -155,6 +155,16 @@ def test_activations_match(name):
           atol=1e-5)
 
 
+def test_sugar_bsilu_refuses_grad():
+    """Its SUGAR backward is not ported: under autograd it raises instead of
+    training with ReLU's gradient."""
+    x = torch.randn(8, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        get_activation('sugar_bsilu')(x)
+    with torch.no_grad():
+        assert torch.equal(get_activation('sugar_bsilu')(x), torch.relu(x))
+
+
 def test_import_leaves_jax_out():
     code = ('import sys, dreamer4_torch, dreamer4_torch.convert, '
             'dreamer4_torch.ops.flash_attention, dreamer4_torch.ops.cuda_build; '
@@ -164,3 +174,27 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """Every kernel source is found, with the local header it includes; an
+    edit of that header changes the library name of every source that
+    includes it, so a stale build is never loaded. Needs no nvcc."""
+    import shutil
+
+    from dreamer4_torch.ops import cuda_build
+
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, 'CSRC_DIR', csrc)
+    monkeypatch.setattr(cuda_build, 'nvcc_version', lambda: 'nvcc, a fixed version')
+    names = cuda_build.kernel_names()
+    assert names == ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd']
+    for name in names:
+        assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu',
+                                                                  'flash_attn_common.cuh']
+    before = {name: cuda_build.library_path(name) for name in names}
+    assert before == {name: cuda_build.library_path(name) for name in names}
+    header = csrc / 'flash_attn_common.cuh'
+    header.write_text(header.read_text() + '\n// edited\n')
+    assert all(cuda_build.library_path(name) != before[name] for name in names)

@@ -111,8 +111,10 @@ def test_heads_match():
 
 
 def test_training_forward_and_unported_options_raise():
+    """The training forward needs the trainer's shortcut choice, as in the
+    counterpart; options not ported yet raise."""
     tm = DynamicsWorldModel(**SMALL, device='cpu')
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tm(latents=torch.zeros(1, 2, 4, 8))
     with pytest.raises(NotImplementedError):
         DynamicsWorldModel(**SMALL, device='cpu', num_continuous_actions=2)
