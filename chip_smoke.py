@@ -28,8 +28,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
                and K2 and K3 on every step. The plain step's loss and
                time-layer gradients through the kernels are held against
                float32, and both variants are timed.
-Launch counts are set to 0 just before each rollout and each train step
-and read just after.
+  5. tokenizer — builds the bench tokenizer (dim 512, 64 x 64, patch 8, 16
+               latents, depth 4 + 4, 4 flow steps, bf16, `use_fused_small`)
+               from a seed and drives `encode`, `decode` and two train
+               steps through `TokenizerTrainer` on b8 x T16 video; each
+               time layer runs K4, and K5 in the backward. The step's loss
+               and time-layer gradients through K4/K5 are held against
+               float32.
+  6. wm-fused — the bench world model with `use_fused_small` at b8 x T32:
+               a plain and a shortcut step through `BehaviorCloneTrainer`,
+               every space and time layer on K4/K5, the gradients held
+               against float32 as in phase 4.
+  7. small   — K4 and K5 (the small-attention forward and backward) against
+               their plain versions at the tokenizer's time layer and the
+               world model's b8 x T32 space and time layers, in bf16 and
+               float32, without the softclamp, and at ragged shapes; timed
+               beside their bounds, their plain versions and the PyTorch
+               call for the same function (SDPA, compiled
+               `flex_attention`, flex's backward). K4 and K5 run for tens
+               of microseconds, so their times (and the library's) are
+               device times under torch.profiler. The profiler can leave a
+               cost on every later launch of the process, so this phase
+               runs last, after every timed model phase.
+Launch counts (K1 to K5) are set to 0 just before each rollout, encode,
+decode and train step and read just after.
 
 The last three lines of standard output are a JSON line with one entry per
 kernel, the card's name and power limit, and the result line
@@ -37,6 +59,7 @@ kernel, the card's name and power limit, and the result line
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -78,10 +101,30 @@ PREFILL_TOL_FACTOR = 2.0
 # bench.py:166, :437-442, :655-674: the long-sequence train step, b1 x T1024,
 # latents N(0, 1) * 0.5, zero rewards, zero discrete actions
 TRAIN = dict(batch_size=1, time_steps=1024)
-# (K1, K2, K3) launches per train step: two time layers; a shortcut step
-# adds the two no-grad half-step passes, K1 without its LSE
-LAUNCHES_PER_STEP = {False: (2, 2, 2), True: (6, 2, 2)}
+# (K1, K2, K3, K4, K5) launches per train step: two time layers; a shortcut
+# step adds the two no-grad half-step passes, K1 without its LSE
+LAUNCHES_PER_STEP = {False: (2, 2, 2, 0, 0), True: (6, 2, 2, 0, 0)}
 TIME_LAYERS = (3, 7)   # (i + 1) % time_block_every == 0 at depth 8
+
+# bench.py:516-521: the bench tokenizer, here with the small-attention path
+# on. 80 tokens per frame: space attention (n*h = 640 > 512) stays on the
+# generic path; each trunk's one time layer (T = 16, n*h = 128) runs K4/K5
+BENCH_TOKENIZER = dict(dim=512, dim_latent=32, patch_size=8, image_height=64, image_width=64,
+                       num_latent_tokens=16, encoder_depth=4, decoder_depth=4,
+                       time_block_every=4, decoder_flow_steps=4, use_flash_attention=True,
+                       use_fused_small=True)
+TOK_VIDEO = dict(batch_size=8, time_steps=16)    # bench.py:524
+TOK_TIME_LAYERS = ('encoder_transformer.attn_3', 'decoder.transformer.attn_3')
+# (K1..K5) launches: encode one K4 (its time layer); decode 4 flow steps of
+# one K4 each; a train step one K4 and one K5 in each trunk
+TOK_LAUNCHES = {'tok_encode': (0, 0, 0, 1, 0), 'tok_decode': (0, 0, 0, 4, 0),
+                'tok_train_step': (0, 0, 0, 2, 2), 'tok_train_on_batch': (0, 0, 0, 2, 2)}
+
+# bench.py:165: the world model's b8 x T32 train step, with the small path:
+# 6 space layers (n = 27, n*h = 216) and 2 time layers (n = 32, 256) on
+# K4/K5; a shortcut step adds two no-grad passes of K4 only
+WM_FUSED = dict(batch_size=8, time_steps=32)
+WM_FUSED_LAUNCHES = {False: (0, 0, 0, 8, 8), True: (0, 0, 0, 24, 8)}
 
 
 def log(msg: str) -> None:
@@ -108,6 +151,41 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def is_device_event(event) -> bool:
+    """A CUDA kernel or copy of a torch.profiler trace; not a user
+    annotation's range on the device (`Optimizer.step` records one,
+    spanning the kernels it launches)."""
+    return (getattr(event, 'device_type', None) == torch.autograd.DeviceType.CUDA
+            and not getattr(event, 'is_user_annotation', False))
+
+
+def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time per call of `fn`: the summed times of the CUDA
+    kernels it launches (only those whose name contains `match`, if given)
+    under torch.profiler, over `iters` calls. Unlike `cuda_time_ms` it does
+    not count the device's idle time while the host prepares a launch, which
+    is most of a call that runs for tens of microseconds. A trace that holds
+    none of those kernels (the profiler has been seen to drop a trace's
+    device events) is taken again, up to three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if is_device_event(e)
+                   and (match is None or match in e.name)]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
+        print(f'# a profiler trace held no device time{f" of {match}" if match else ""}; '
+              'taking it again', flush=True)
+    raise SystemExit(f'the profiler saw no device time{f" of {match}" if match else ""}')
 
 
 def host_time_s(fn, reps: int) -> float:
@@ -217,11 +295,11 @@ def flex_call(q, k, v, offset, kv_len, cfg, options):
                         enable_gqa=q.shape[1] != k.shape[1], kernel_options=options)
 
 
-def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol):
+def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_ms):
     """(name, ms, max abs error against the plain version) of the one PyTorch
-    call that computes K1's function here; ms is None where no setting of
-    it compiles or agrees with the plain version within the kernel's
-    tolerance."""
+    call that computes K1's function here, timed by `timer`; ms is None
+    where no setting of it compiles or agrees with the plain version within
+    the kernel's tolerance."""
     if cfg['softclamp_value'] is None:
         candidates = [('sdpa', sdpa_call(q, k, v, mask))]
     else:
@@ -237,7 +315,7 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol):
         if err > tol:
             log(f'#   {name}: max_abs_err {err:.3e} above {tol:.0e}, not a yardstick')
             continue
-        ms = cuda_time_ms(fn)
+        ms = timer(fn)
         if best[1] is None or ms < best[1]:
             best = (name, ms, err)
     return best
@@ -507,8 +585,8 @@ def compare_prefill(model, prompt, max_time):
 
 
 def run_model_phase(seed: int = 0) -> dict:
-    """Builds the bench model and drives both rollouts; returns the (K1, K2,
-    K3) launches of each rollout."""
+    """Builds the bench model and drives both rollouts; returns the (K1..K5)
+    launches of each rollout."""
     from dreamer4_torch import DynamicsWorldModel, generate
     from dreamer4_torch.ops import flash_attention as fa
     from dreamer4_torch.ops.utils import cast_params_for_inference
@@ -532,9 +610,9 @@ def run_model_phase(seed: int = 0) -> dict:
 
     gen = torch.Generator(device=dev)
     launches = {}
-    for name, kw, extra, want, reps in (('headline', HEADLINE, {}, (0, 0, 0), 5),
+    for name, kw, extra, want, reps in (('headline', HEADLINE, {}, (0, 0, 0, 0, 0), 5),
                                         ('prompted', PROMPTED, prompt,
-                                         (K1_PER_PROMPTED_ROLLOUT, 0, 0), 2)):
+                                         (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0), 2)):
         gen.manual_seed(seed)
         zero_counts()
         exp = generate(model, gen, **kw, **extra)
@@ -544,12 +622,12 @@ def run_model_phase(seed: int = 0) -> dict:
         check_experience(exp, kw['batch_size'], kw['time_steps'], p_len, model.dim,
                          model.latent_shape, prompt=extra or None)
         if launches[name] != want:
-            raise SystemExit(f'{name} rollout launched (K1, K2, K3) {launches[name]} times, '
+            raise SystemExit(f'{name} rollout launched (K1..K5) {launches[name]} times, '
                              f'expected {want}')
         sec = host_time_s(lambda: generate(model, gen, **kw, **extra), reps)
         env_steps = kw['batch_size'] * (kw['time_steps'] - p_len)
         log(f'rollout {name:<9} b{kw["batch_size"]} T{kw["time_steps"]} P{p_len} '
-            f'steps {kw["num_steps"]}: (K1, K2, K3) launches {launches[name]} (expected '
+            f'steps {kw["num_steps"]}: (K1..K5) launches {launches[name]} (expected '
             f'{want}), {sec * 1e3:.1f} ms/rollout, {env_steps / sec:.1f} env-steps/s '
             f'(mean of {reps} after a first run)')
 
@@ -570,13 +648,17 @@ def run_model_phase(seed: int = 0) -> dict:
 
 def zero_counts():
     from dreamer4_torch.ops import flash_attention as fa
+    from dreamer4_torch.ops import small_attention as sa
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    sa.FWD_LAUNCHES = sa.BWD_LAUNCHES = 0
 
 
-def read_counts() -> tuple[int, int, int]:
-    """(K1, K2, K3) launches since the last `zero_counts`."""
+def read_counts() -> tuple[int, int, int, int, int]:
+    """(K1, K2, K3, K4, K5) launches since the last `zero_counts`."""
     from dreamer4_torch.ops import flash_attention as fa
-    return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    from dreamer4_torch.ops import small_attention as sa
+    return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES, sa.FWD_LAUNCHES,
+            sa.BWD_LAUNCHES)
 
 
 # -------------------------------------------------------------------- train
@@ -590,15 +672,11 @@ def train_batch(device, seed):
                 discrete_actions=torch.zeros((b, t, 1), dtype=torch.long, device=device))
 
 
-def plain_step_grads(model, batch, seed):
-    """The plain train step's loss and the gradients of the time layers'
-    to_q / to_k / to_v weights, with the forward's draws from `seed`; the
-    weights are left as they are."""
-    names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
-             for w in ('to_q', 'to_k', 'to_v')]
+def step_grads(model, loss_fn, names):
+    """`loss_fn(model)`'s value and the gradients of the parameters `names`;
+    the weights are left as they are."""
     model.zero_grad(set_to_none=True)
-    gen = torch.Generator(device=model.device).manual_seed(seed)
-    loss = model(**batch, shortcut_train=False, generator=gen)
+    loss = loss_fn(model)
     loss.backward()
     params = dict(model.named_parameters())
     grads = {n: params[n].grad.float().clone() for n in names}
@@ -606,56 +684,56 @@ def plain_step_grads(model, batch, seed):
     return loss.item(), grads
 
 
-def compare_train_grads(model, batch, seed):
-    """The plain step in bf16 through K1/K2/K3 and through the plain
-    attention, each held against the same step in float32 with the plain
-    attention: loss as |difference|, gradients as the relative L2 distance.
-    Returns {output: (kernel distance, plain distance)}."""
-    from dreamer4_torch import DynamicsWorldModel
+def set_attention(model, cls_name: str, flag: str, value: bool):
+    """Sets `flag` on every submodule of class `cls_name`: the trunks'
+    `use_flash_attention` or the attentions' `use_fused_small`."""
+    for m in model.modules():
+        if type(m).__name__ == cls_name:
+            setattr(m, flag, value)
 
-    kernel = plain_step_grads(model, batch, seed)
-    model.transformer.use_flash_attention = False
+
+def compare_grads(model, ref_model, loss_fn, names, cls_name, flag):
+    """The loss and gradients in bf16 through the kernels and through the
+    plain attention (`flag` off on every `cls_name`), each held against
+    `ref_model` (the same weights in float32, plain attention): loss as
+    |difference|, gradients as the relative L2 distance. Returns {output:
+    (kernel distance, plain distance)}."""
+    kernel = step_grads(model, loss_fn, names)
+    set_attention(model, cls_name, flag, False)
     try:
-        plain = plain_step_grads(model, batch, seed)
+        plain = step_grads(model, loss_fn, names)
     finally:
-        model.transformer.use_flash_attention = True
-    ref_model = DynamicsWorldModel(**{**BENCH_MODEL, 'use_flash_attention': False})
-    ref_model.load_state_dict(model.state_dict())
-    ref = plain_step_grads(ref_model, batch, seed)
-    del ref_model
+        set_attention(model, cls_name, flag, True)
+    ref = step_grads(ref_model, loss_fn, names)
     out = {'loss': (abs(kernel[0] - ref[0]), abs(plain[0] - ref[0]))}
     dist = lambda g, r: ((g - r).norm() / r.norm()).item()
     for name, r in ref[1].items():
-        out[name.removeprefix('transformer.')] = (dist(kernel[1][name], r),
-                                                  dist(plain[1][name], r))
+        out[name] = (dist(kernel[1][name], r), dist(plain[1][name], r))
     return out
 
 
-def check_train_step(model, ts_before, ts, loss, losses, before, ema_before):
-    """Loss and every gradient finite; every parameter with a nonzero
-    gradient moved, its EMA too; the step counted."""
-    if not (torch.isfinite(loss) and all(bool(torch.isfinite(l).all()) for l in losses)):
-        raise SystemExit(f'train step: loss not finite ({loss.item()})')
-    n_grad = n_moved = 0
-    for name, p in model.named_parameters():
-        if p.grad is None:
-            continue
-        if not bool(torch.isfinite(p.grad).all()):
-            raise SystemExit(f'train step: gradient of {name} not finite')
-        if bool(p.grad.any()):
-            n_grad += 1
-            moved = not torch.equal(p.detach(), before[name])
-            ema_moved = not torch.equal(ts.ema_params[name], ema_before[name])
-            n_moved += moved and ema_moved
-    if n_grad == 0 or n_moved != n_grad or ts.step != ts_before.step + 1:
-        raise SystemExit(f'train step: {n_moved} of {n_grad} parameters with a gradient moved '
-                         f'with their EMA; step {ts_before.step} -> {ts.step}')
-    return n_grad
+def check_grad_distances(label, distances):
+    ok = True
+    for name, (e_kernel, e_plain) in distances.items():
+        good = e_kernel <= PREFILL_TOL_FACTOR * e_plain
+        ok = ok and good
+        log(f'{label} {name:<36}: |bf16 kernels - f32| {e_kernel:.3e} (tol '
+            f'{PREFILL_TOL_FACTOR} x {e_plain:.3e}, |bf16 plain - f32|)' + ('' if good else '  FAIL'))
+    if not ok:
+        raise SystemExit(f'{label}: the kernels are further from float32 than the plain attention')
+
+
+def wm_plain_step_loss(batch, seed):
+    """The world model's plain training forward with its draws from `seed`."""
+    def loss_fn(model):
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        return model(**batch, shortcut_train=False, generator=gen)
+    return loss_fn
 
 
 def run_train_phase(seed: int = 0) -> dict:
     """Trains the bench model at b1 x T1024 through `BehaviorCloneTrainer`;
-    returns the (K1, K2, K3) launches of each step it drove."""
+    returns the (K1..K5) launches of each step it drove."""
     from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel
     from dreamer4_torch.train.trainers import make_world_model_train_step
 
@@ -667,15 +745,14 @@ def run_train_phase(seed: int = 0) -> dict:
     batch = train_batch(model.device, seed + 2)
     frames = TRAIN['batch_size'] * TRAIN['time_steps']
 
-    ok = True
-    for name, (e_kernel, e_plain) in compare_train_grads(model, batch, seed + 3).items():
-        good = e_kernel <= PREFILL_TOL_FACTOR * e_plain
-        ok = ok and good
-        log(f'train grads {name:<16}: |bf16 K1/K2/K3 - f32| {e_kernel:.3e} (tol '
-            f'{PREFILL_TOL_FACTOR} x {e_plain:.3e}, |bf16 plain - f32|)' + ('' if good else '  FAIL'))
-    if not ok:
-        raise SystemExit('train step: the kernels are further from float32 than the plain '
-                         'attention')
+    ref_model = DynamicsWorldModel(**{**BENCH_MODEL, 'use_flash_attention': False})
+    ref_model.load_state_dict(model.state_dict())
+    names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
+             for w in ('to_q', 'to_k', 'to_v')]
+    check_grad_distances('train grads', compare_grads(
+        model, ref_model, wm_plain_step_loss(batch, seed + 3), names,
+        'AxialSpaceTimeTransformer', 'use_flash_attention'))
+    del ref_model
 
     trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
                                    with_ema=True, seed=seed)
@@ -691,14 +768,14 @@ def run_train_phase(seed: int = 0) -> dict:
                                            generator=trainer.generator)
         torch.cuda.synchronize()
         launches[name] = read_counts()
-        n_grad = check_train_step(model, ts_before, trainer.ts, loss, losses, before,
-                                  ema_before)
+        n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before,
+                            name)
         want = LAUNCHES_PER_STEP[shortcut]
         log(f'{name}: loss {loss.item():.5f} (flow {losses.flow.item():.5f}, shortcut '
             f'{losses.shortcut.item():.5f}); {n_grad} parameters with a gradient, all moved '
-            f'with their EMA; (K1, K2, K3) launches {launches[name]} (expected {want})')
+            f'with their EMA; (K1..K5) launches {launches[name]} (expected {want})')
         if launches[name] != want:
-            raise SystemExit(f'{name} launched (K1, K2, K3) {launches[name]}, expected {want}')
+            raise SystemExit(f'{name} launched (K1..K5) {launches[name]}, expected {want}')
         del before, ema_before
 
     # the trainer's own branch draw: numpy default_rng(seed), untouched so far
@@ -709,7 +786,7 @@ def run_train_phase(seed: int = 0) -> dict:
     launches['train_on_batch'] = read_counts()
     want = LAUNCHES_PER_STEP[shortcut]
     log(f'train_on_batch (shortcut {shortcut}): loss {loss.item():.5f}, step {trainer.ts.step}, '
-        f'(K1, K2, K3) launches {launches["train_on_batch"]} (expected {want})')
+        f'(K1..K5) launches {launches["train_on_batch"]} (expected {want})')
     if launches['train_on_batch'] != want or not torch.isfinite(loss) or trainer.ts.step != 3:
         raise SystemExit('train_on_batch: wrong launches, loss or step')
 
@@ -722,6 +799,340 @@ def run_train_phase(seed: int = 0) -> dict:
         log(f'train step {"shortcut" if shortcut else "plain":<8} b{TRAIN["batch_size"]} '
             f'T{TRAIN["time_steps"]}: {sec * 1e3:.1f} ms/step, {frames / sec:.1f} frames/s '
             f'(mean of 3 after a warm step)')
+    return launches
+
+
+# ---------------------------------------------------------- small kernels
+
+def small_kernel_cases():
+    """(name, dtype, B, n, h, dh, mask kind, softclamp, time the library)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = [('tok_time', 640, 16, 8, 64, 'causal'),     # b8 x 80 tokens, T = 16
+            ('wm_space', 256, 27, 8, 64, 'special'),    # b8 x T32, 27 tokens
+            ('wm_time', 216, 32, 8, 64, 'causal')]      # b8 x 27 tokens, T = 32
+    cases = [(name, dt, *shape, 50.0, dt == bf16) for name, *shape in main for dt in (bf16, f32)]
+    cases.append(('tok_time_noclamp', bf16, 640, 16, 8, 64, 'causal', None, True))
+    for dh in (16, 32, 128):
+        for dt in (bf16, f32):
+            cases.append((f'ragged_dh{dh}', dt, 96, 13, 4, dh, 'causal', 30.0, False))
+    return cases
+
+
+def small_flex_cfg(kind, n, softclamp):
+    return dict(softclamp_value=softclamp, causal=kind == 'causal',
+                num_special=1 if kind == 'special' else 0,
+                special_seq_len=n if kind == 'special' else 0,
+                special_attend_only_itself=False)
+
+
+def small_bound_ms(q, n, h, mask, which):
+    """Least time for K4 (`which='fwd'`: q, k, v read, o written) or K5
+    ('bwd': q, k, v, dO read, dq, dk, dv written), the (n, n) mask read
+    once; 4 dh operations per allowed (query, key) pair of each head for K4
+    (scores, PV), 10 dh for K5 (s, dp, dq, dk, dv), counted per head
+    without the TPU kernel's h-fold redundant scores."""
+    B, NH, D = q.shape
+    elem = q.element_size()
+    tensors, per_pair = (4, 4) if which == 'fwd' else (7, 10)
+    bytes_moved = tensors * B * NH * D * elem + n * n
+    ops = per_pair * D * int(mask.sum()) * B * h
+    t_bytes = bytes_moved / H100_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[q.dtype]
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def to_heads(x, h):
+    """(B, n*h, dh) -> a (B, h, n, dh) view, the layout of SDPA and flex."""
+    B, NH, D = x.shape
+    return x.view(B, NH // h, h, D).transpose(1, 2)
+
+
+def from_heads(x):
+    B, h, n, D = x.shape
+    return x.transpose(1, 2).reshape(B, n * h, D)
+
+
+def time_small_library(q, k, v, do, h, mask, cfg, ref, grad_refs, tol, grad_tol):
+    """(forward ms, backward ms, names) of the PyTorch calls that compute
+    K4's and K5's function on the same inputs, in the (B, h, n, dh) views
+    of the flat tensors: SDPA with the boolean mask without a softclamp,
+    compiled `flex_attention` with it; for K5 flex's backward (fwd+bwd less
+    fwd). Device time per call, as the kernels are timed. A yardstick only;
+    the port never calls them. None where no setting compiles or agrees
+    with the plain version."""
+    n = mask.shape[0]
+    qh, kh, vh = (to_heads(t, h) for t in (q, k, v))
+    ref_h = to_heads(ref, h)
+    lib_name, fwd_ms, _ = time_library(qh, kh, vh, 0, n, cfg, mask, ref_h, tol, timer=device_ms)
+    bwd_ms = None
+    if cfg['softclamp_value'] is not None:
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        try:
+            fwd = flex_call(*(to_heads(t, h) for t in leaves), 0, n, cfg,
+                            FLEX_OPTIONS[q.dtype][0])
+            grads = lambda: torch.autograd.grad(fwd(), leaves, to_heads(do, h))
+            err = max(rel_err(g, r) for g, r in zip(grads(), grad_refs))
+            if err <= grad_tol:
+                bwd_ms = device_ms(grads) - device_ms(fwd)
+            else:
+                log(f'#   flex backward: rel err {err:.3e} above {grad_tol:.0e}, not a yardstick')
+        except Exception as e:   # the compiler refuses this setting at this shape
+            log(f'#   flex backward: does not compile here ({type(e).__name__}: {e})'[:300])
+    return fwd_ms, bwd_ms, lib_name
+
+
+def run_small_kernel_phase():
+    """K4 against `small_attend_flat_reference` and K5 against
+    `small_attend_flat_bwd_reference` on every case, from the same q, k, v
+    and dO; returns the measurements of each case by (name, dtype). The
+    checks and the CUDA-event times come first; the device times under
+    torch.profiler after them, as the profiler can leave a cost on every
+    later launch of the process (this phase runs last for the same
+    reason)."""
+    from dreamer4_torch.ops import small_attention as sa
+    from dreamer4_torch.ops.masks import build_attend_mask
+
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    results, failures, timed = {}, [], []
+    for name, dtype, B, n, h, dh, kind, softclamp, with_library in small_kernel_cases():
+        q, k, v, do = (torch.randn((B, n * h, dh), generator=gen, device='cuda').to(dtype)
+                       for _ in range(4))
+        mask = (build_attend_mask(n, n, causal=True, device='cuda') if kind == 'causal' else
+                build_attend_mask(n, n, num_special=1, block_size_per_special=n, device='cuda'))
+        bias = sa.build_interleaved_bias(n, h, mask, device='cuda')
+        fwd = functools.partial(sa.small_attend_flat, q, k, v, mask, h, softclamp_value=softclamp)
+        bwd = functools.partial(sa.small_attend_flat_bwd, q, k, v, do, mask, h,
+                                softclamp_value=softclamp)
+        plain_fwd = functools.partial(sa.small_attend_flat_reference, q, k, v, bias, softclamp)
+        plain_bwd = functools.partial(sa.small_attend_flat_bwd_reference, q, k, v, do, bias,
+                                      softclamp)
+        out, grads = fwd(), bwd()
+        ref, grad_refs = plain_fwd(), plain_bwd()
+        torch.cuda.synchronize()
+        tol, grad_tol = KERNEL_TOL[dtype], GRAD_TOL[dtype]
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = {g: rel_err(x, r) for g, x, r in zip(('dq', 'dk', 'dv'), grads, grad_refs)}
+        abs_bwd = max((x.float() - r.float()).abs().max().item() for x, r in zip(grads, grad_refs))
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        ok = finite and err <= tol and max(rel.values()) <= grad_tol
+        dt = str(dtype).split('.')[-1]
+        log(f'K4/K5 {name:<18} {dt:<8} B{B} n{n} h{h} dh{dh} {kind}: K4 max_abs_err {err:.3e} '
+            f'(tol {tol:.0e}); K5 rel err dq {rel["dq"]:.2e} dk {rel["dk"]:.2e} dv '
+            f'{rel["dv"]:.2e} (tol {grad_tol:.0e})' + ('' if ok else '  FAIL'))
+        if not ok:
+            failures.append(f'{name}/{dt}')
+        row = {}
+        for which, kernel, plain, e in (('fwd', fwd, plain_fwd, err), ('bwd', bwd, plain_bwd, abs_bwd)):
+            bound_ms, bound_by = small_bound_ms(q, n, h, mask, which)
+            # call_ms: wrapper calls as the host issues them back to back,
+            # their launch overhead included; `ms` (below) is device time
+            row[which] = dict(max_abs_err=e, call_ms=cuda_time_ms(kernel),
+                              plain_ms=cuda_time_ms(plain, iters=5), bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=None)
+        results[(name, dtype)] = row
+        timed.append((name, dtype, row, fwd, bwd, with_library,
+                      (q, k, v, do, h, mask, small_flex_cfg(kind, n, softclamp), ref, grad_refs,
+                       tol, grad_tol)))
+    if failures:
+        raise SystemExit(f'small kernel phase failed: {failures}')
+
+    for name, dtype, row, fwd, bwd, with_library, lib_args in timed:
+        row['fwd']['ms'] = device_ms(fwd, 'small_fwd_')
+        row['bwd']['ms'] = device_ms(bwd, 'small_bwd_')
+        lib = ''
+        if with_library:
+            fwd_lib, bwd_lib, lib_name = time_small_library(*lib_args)
+            row['fwd']['library_ms'], row['bwd']['library_ms'] = fwd_lib, bwd_lib
+            fmt = lambda ms: '-' if ms is None else f'{ms:.4f} ms'
+            lib = (f'   library (device time) fwd {fmt(fwd_lib)} ({lib_name}), bwd '
+                   f'{fmt(bwd_lib)} (flex backward)')
+        log(f'K4/K5 {name:<18} {str(dtype).split(".")[-1]}:')
+        for which, label in (('fwd', 'K4'), ('bwd', 'K5')):
+            r = row[which]
+            log(f'   {label} kernel {r["ms"]:.4f} ms (a wrapper call {r["call_ms"]:.4f} ms) plain '
+                f'{r["plain_ms"]:.4f} ms bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+        if lib:
+            log(lib)
+    return results
+
+
+# ---------------------------------------------------------------- tokenizer
+
+def check_step(model, ts_before, ts, loss, losses, before, ema_before, label):
+    """Loss and every gradient finite; every parameter with a nonzero
+    gradient moved, its EMA too; the step counted."""
+    if not (torch.isfinite(loss) and all(bool(torch.isfinite(l).all()) for l in losses)):
+        raise SystemExit(f'{label}: loss not finite ({loss.item()})')
+    n_grad = n_moved = 0
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        if not bool(torch.isfinite(p.grad).all()):
+            raise SystemExit(f'{label}: gradient of {name} not finite')
+        if bool(p.grad.any()):
+            n_grad += 1
+            moved = not torch.equal(p.detach(), before[name])
+            ema_moved = not torch.equal(ts.ema_params[name], ema_before[name])
+            n_moved += moved and ema_moved
+    if n_grad == 0 or n_moved != n_grad or ts.step != ts_before.step + 1:
+        raise SystemExit(f'{label}: {n_moved} of {n_grad} parameters with a gradient moved '
+                         f'with their EMA; step {ts_before.step} -> {ts.step}')
+    return n_grad
+
+
+def expect_launches(label, got, want):
+    if got != want:
+        raise SystemExit(f'{label} launched (K1..K5) {got}, expected {want}')
+
+
+def run_tokenizer_phase(seed: int = 0) -> dict:
+    """Drives the bench tokenizer's encode, decode and training; returns the
+    (K1..K5) launches of each run."""
+    from dreamer4_torch import TokenizerTrainer, VideoTokenizer
+    from dreamer4_torch.train.trainers import make_tokenizer_train_step
+
+    torch.manual_seed(seed)
+    # float32 master weights, bf16 compute in the trunks
+    tok = VideoTokenizer(**BENCH_TOKENIZER, dtype=torch.bfloat16)
+    if tok.device.type != 'cuda':
+        raise SystemExit(f'tokenizer built on {tok.device}, not on the card')
+    dev = tok.device
+    b, t = TOK_VIDEO['batch_size'], TOK_VIDEO['time_steps']
+    frames = b * t
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    video = torch.rand((b, 3, t, 64, 64), generator=gen, device=dev)
+    n_params = sum(p.numel() for p in tok.parameters())
+    log(f'# tokenizer: {n_params / 1e6:.2f}M params, {(64 // 8) ** 2 + 16} tokens/frame, '
+        f'b{b} x T{t} video, {dev}')
+    launches = {}
+
+    with torch.no_grad():
+        zero_counts()
+        latents = tok.encode(video)
+        torch.cuda.synchronize()
+        launches['tok_encode'] = read_counts()
+        if (tuple(latents.shape) != (b, t, 16, 32) or not bool(torch.isfinite(latents).all())
+                or float(latents.abs().max()) > 1.0):
+            raise SystemExit(f'encode: latents of shape {tuple(latents.shape)}, not finite or '
+                             'outside [-1, 1]')
+        enc_s = host_time_s(lambda: tok.encode(video), reps=3)
+        zero_counts()
+        recon = tok.decode(latents, generator=gen)
+        torch.cuda.synchronize()
+        launches['tok_decode'] = read_counts()
+        if tuple(recon.shape) != tuple(video.shape) or not bool(torch.isfinite(recon).all()):
+            raise SystemExit(f'decode: video of shape {tuple(recon.shape)} or not finite')
+        dec_s = host_time_s(lambda: tok.decode(latents, generator=gen), reps=3)
+    for name in ('tok_encode', 'tok_decode'):
+        expect_launches(name, launches[name], TOK_LAUNCHES[name])
+    log(f'encode b{b} T{t}: {enc_s * 1e3:.1f} ms, {frames / enc_s:.1f} frames/s; decode '
+        f'(4 flow steps): {dec_s * 1e3:.1f} ms, {frames / dec_s:.1f} frames/s (means of 3 after '
+        f'a first run); (K1..K5) launches encode {launches["tok_encode"]}, decode '
+        f'{launches["tok_decode"]}')
+
+    ref = VideoTokenizer(**{**BENCH_TOKENIZER, 'use_fused_small': False})
+    ref.load_state_dict(tok.state_dict())
+
+    def loss_fn(model):
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        return model(video, update_loss_ema=False, generator=g)
+
+    names = [f'{layer}.{w}.weight' for layer in TOK_TIME_LAYERS for w in ('to_q', 'to_k', 'to_v')]
+    check_grad_distances('tokenizer grads', compare_grads(tok, ref, loss_fn, names, 'Attention',
+                                                          'use_fused_small'))
+    del ref
+
+    trainer = TokenizerTrainer(tok, learning_rate=3e-4, clip_grad_norm=1.0, with_ema=True,
+                               seed=seed)
+    step_fn = make_tokenizer_train_step(tok, trainer.optimizer, ema_decay=0.999)
+    before = {n: p.detach().clone() for n, p in tok.named_parameters()}
+    ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+    ts_before = trainer.ts
+    zero_counts()
+    trainer.ts, loss, losses = step_fn(trainer.ts, video, generator=trainer.generator)
+    torch.cuda.synchronize()
+    launches['tok_train_step'] = read_counts()
+    n_grad = check_step(tok, ts_before, trainer.ts, loss, losses, before, ema_before,
+                        'tokenizer train step')
+    del before, ema_before
+    zero_counts()
+    loss2, _ = trainer.train_on_batch(video)
+    torch.cuda.synchronize()
+    launches['tok_train_on_batch'] = read_counts()
+    if not torch.isfinite(loss2) or trainer.ts.step != 2:
+        raise SystemExit('tokenizer train_on_batch: loss not finite or step not counted')
+    for name in ('tok_train_step', 'tok_train_on_batch'):
+        expect_launches(name, launches[name], TOK_LAUNCHES[name])
+    log(f'tokenizer train step: loss {loss.item():.5f}, then {loss2.item():.5f}; {n_grad} '
+        f'parameters with a gradient, all moved with their EMA; (K1..K5) launches '
+        f'{launches["tok_train_step"]} and {launches["tok_train_on_batch"]}')
+
+    def one_step():
+        trainer.ts = step_fn(trainer.ts, video, generator=trainer.generator)[0]
+    for fused in (True, False, True):
+        set_attention(tok, 'Attention', 'use_fused_small', fused)
+        one_step()
+        sec = host_time_s(one_step, reps=3)
+        log(f'tokenizer train step b{b} T{t}, {"K4/K5" if fused else "plain attention"}: '
+            f'{sec * 1e3:.1f} ms/step, {frames / sec:.1f} frames/s (mean of 3 after a warm step)')
+    return launches
+
+
+# --------------------------------------------------------- wm, small path
+
+def run_wm_fused_phase(seed: int = 0) -> dict:
+    """The bench world model with `use_fused_small` at b8 x T32 through
+    `BehaviorCloneTrainer`: a plain and a shortcut step; returns their
+    (K1..K5) launches."""
+    from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel
+    from dreamer4_torch.train.trainers import make_world_model_train_step
+
+    torch.manual_seed(seed)
+    cfg = {**BENCH_MODEL, 'use_fused_small': True}
+    model = DynamicsWorldModel(**cfg, dtype=torch.bfloat16)
+    b, t = WM_FUSED['batch_size'], WM_FUSED['time_steps']
+    g = torch.Generator(device=model.device).manual_seed(seed + 2)
+    batch = dict(latents=torch.randn((b, t, 16, 32), generator=g, device=model.device) * 0.5,
+                 rewards=torch.zeros((b, t), device=model.device),
+                 discrete_actions=torch.zeros((b, t, 1), dtype=torch.long, device=model.device))
+
+    ref = DynamicsWorldModel(**{**cfg, 'use_fused_small': False})
+    ref.load_state_dict(model.state_dict())
+    names = [f'transformer.attn_{i}.{w}.weight' for i in (0, 3) for w in ('to_q', 'to_k', 'to_v')]
+    check_grad_distances('wm fused grads', compare_grads(
+        model, ref, wm_plain_step_loss(batch, seed + 3), names, 'Attention', 'use_fused_small'))
+    del ref
+
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0, with_ema=True,
+                                   seed=seed)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+    launches = {}
+    for shortcut in (False, True):
+        name = 'wm_fused_shortcut' if shortcut else 'wm_fused_plain'
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+        ts_before = trainer.ts
+        zero_counts()
+        trainer.ts, loss, losses = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                           generator=trainer.generator)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before, name)
+        expect_launches(name, launches[name], WM_FUSED_LAUNCHES[shortcut])
+        log(f'{name}: loss {loss.item():.5f}; {n_grad} parameters with a gradient, all moved '
+            f'with their EMA; (K1..K5) launches {launches[name]}')
+        del before, ema_before
+
+        def one_step():
+            trainer.ts = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                 generator=trainer.generator)[0]
+        for fused in (True, False, True):
+            set_attention(model, 'Attention', 'use_fused_small', fused)
+            one_step()
+            sec = host_time_s(one_step, reps=3)
+            log(f'wm train step {"shortcut" if shortcut else "plain":<8} b{b} T{t}, '
+                f'{"K4/K5" if fused else "plain attention"}: {sec * 1e3:.1f} ms/step, '
+                f'{b * t / sec:.1f} frames/s (mean of 3 after a warm step)')
     return launches
 
 
@@ -760,9 +1171,14 @@ def main() -> int:
     train_shape = bwd_results[('t1024', torch.bfloat16)]
     if train_shape['dq']['library_ms'] is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
-    launches = {**run_model_phase(), **run_train_phase()}
-    totals = [sum(c[i] for c in launches.values()) for i in range(3)]
-    by_path = lambda i: {path: c[i] for path, c in launches.items()}
+    launches = {**run_model_phase(), **run_train_phase(), **run_tokenizer_phase(),
+                **run_wm_fused_phase()}
+    small_results = run_small_kernel_phase()
+    small_shape = small_results[('tok_time', torch.bfloat16)]
+    if small_shape['fwd']['library_ms'] is None or small_shape['bwd']['library_ms'] is None:
+        raise SystemExit('no library yardstick for K4 / K5 at the tokenizer time shape')
+    totals = [sum(c[i] for c in launches.values()) for i in range(5)]
+    by_path = lambda i: {path: c[i] for path, c in launches.items() if c[i]}
 
     kernels = [dict(name='K1 flash_attn_fwd', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_fwd.cu',
@@ -777,7 +1193,20 @@ def main() -> int:
                     source='dreamer4_torch/csrc/flash_attn_bwd_dkv.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:309',
                     launches=totals[2], launches_by_path=by_path(2), **train_shape['dkv'],
+                    library_covers='flex_attention backward: dq, dk and dv together'),
+               dict(name='K4 small_attn_fwd', route='cuda',
+                    source='dreamer4_torch/csrc/small_attn_fwd.cu',
+                    replaces='dreamer4_tpu/ops/small_attention.py:77',
+                    launches=totals[3], launches_by_path=by_path(3), **small_shape['fwd'],
+                    library_covers='compiled flex_attention, softclamp as score_mod'),
+               dict(name='K5 small_attn_bwd', route='cuda',
+                    source='dreamer4_torch/csrc/small_attn_bwd.cu',
+                    replaces='dreamer4_tpu/ops/small_attention.py:94',
+                    launches=totals[4], launches_by_path=by_path(4), **small_shape['bwd'],
                     library_covers='flex_attention backward: dq, dk and dv together')]
+    missing = [k['name'] for k in kernels if k['launches'] == 0]
+    if missing:
+        raise SystemExit(f'kernels never launched on the main paths: {missing}')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -5,7 +5,9 @@ The port keeps flax's submodule names, so conversion is a walk over names:
 kernels are (in, out) in flax and (out, in) in torch; `nn.Embed`'s
 `embedding` is `nn.Embedding`'s `weight`; every other leaf (the pools' raw
 `_Kernel` / `_Scale` / `_Gamma` holders, ensemble kernels, learned tokens)
-keeps its name and layout. A leftover or missing key raises.
+keeps its name and layout. Leaves of flax's `state` collection (the loss
+normalizers' `exp_avg_sq`) are the torch module's buffers of the same
+names. A leftover or missing key raises.
 """
 from __future__ import annotations
 
@@ -27,12 +29,18 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndar
     return flat
 
 
-def flax_params_to_torch(params: Mapping[str, Any], model: nn.Module) -> dict[str, torch.Tensor]:
-    """params: the flax `variables['params']` tree (numpy or jax arrays).
-    Returns a state_dict for `model`, on the model's devices and dtypes."""
+def flax_params_to_torch(params: Mapping[str, Any], model: nn.Module,
+                         state: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
+    """params: the flax `variables['params']` tree (numpy or jax arrays);
+    state: its `variables['state']` tree, if the model has one. Returns a
+    state_dict for `model`, on the model's devices and dtypes: every
+    parameter, and every buffer when `state` is given."""
     target = model.state_dict()
     out: dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params).items():
+    leaves = list(_flatten(params).items())
+    if state is not None:
+        leaves += list(_flatten(state).items())
+    for path, value in leaves:
         module = model
         for name in path[:-1]:
             child = module._modules.get(name)
@@ -54,7 +62,8 @@ def flax_params_to_torch(params: Mapping[str, Any], model: nn.Module) -> dict[st
             raise ValueError(f'{key}: flax shape {value.shape} != torch shape '
                              f'{tuple(ref.shape)}')
         out[key] = torch.from_numpy(np.array(value, copy=True)).to(ref.dtype).to(ref.device)
-    missing = sorted(set(target) - set(out))
+    expected = set(target) if state is not None else {n for n, _ in model.named_parameters()}
+    missing = sorted(expected - set(out))
     if missing:
         raise KeyError(f'torch parameters with no flax counterpart: {missing}')
     return out

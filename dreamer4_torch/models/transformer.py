@@ -6,9 +6,10 @@ time (causal, rotary, KV-cached, batch folded to b*s); the others attend over
 space (special-token masking, batch folded to b*t). Ported: the value
 residual, per-head gates, QK norm, the attention pools over the shared
 normed-hidden buffer, the final special cross-attend, `init_cache`,
-`token_count` and the flash gate. Not ported yet, and refused when set: the
-GRU time layer, MoT, MOSS spatial modules, H-Net, PoPE, ring attention and
-the small-attention kernel.
+`token_count`, the flash gate and the small-attention path
+(`use_fused_small`, uncached calls only). Not ported yet, and refused when
+set: the GRU time layer, MoT, MOSS spatial modules, H-Net, PoPE and ring
+attention.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def _from_space_major(x, bt_shape):
 
 _NOT_PORTED = ('rnn_time', 'mot_temporal', 'time_attention_use_pope',
                'space_attention_use_pope', 'spatial_module_layers', 'time_ring_axis',
-               'h_net_layer', 'use_fused_small')
+               'h_net_layer')
 
 
 class AxialSpaceTimeTransformer(nn.Module):
@@ -71,7 +72,8 @@ class AxialSpaceTimeTransformer(nn.Module):
                  special_attend_only_itself: bool = False, full_spatial_attn: bool = False,
                  final_norm: bool = True, value_residual: bool = True,
                  use_attn_pool: bool = True, use_flash_attention: bool = False,
-                 flash_min_scores: int = 128 * 128, ff_expansion_factor: float = 4.0,
+                 flash_min_scores: int = 128 * 128, use_fused_small: bool | None = None,
+                 ff_expansion_factor: float = 4.0,
                  ff_activation: str = 'silu', gate_values: bool = True,
                  rmsnorm_query: bool = False, rmsnorm_key: bool = True,
                  belief_attn: bool = True, dtype=None, device=None, **not_ported):
@@ -101,8 +103,8 @@ class AxialSpaceTimeTransformer(nn.Module):
         attn_common = dict(dim=dim, heads=attn_heads, dim_head=attn_dim_head,
                            query_heads=query_heads, softclamp_value=attn_softclamp_value,
                            gate_values=gate_values, rmsnorm_query=rmsnorm_query,
-                           rmsnorm_key=rmsnorm_key, belief_attn=belief_attn, dtype=dtype,
-                           device=device)
+                           rmsnorm_key=rmsnorm_key, belief_attn=belief_attn,
+                           use_fused_small=bool(use_fused_small), dtype=dtype, device=device)
         ff_kwargs = dict(dim=dim, expansion_factor=ff_expansion_factor,
                          activation=ff_activation, dtype=dtype, device=device)
         for i in range(depth):
@@ -240,7 +242,7 @@ class AxialSpaceTimeTransformer(nn.Module):
                 layer_cache = cache.kv[time_layer_idx] if has_cache else None
                 attn_out = attn(x_tm, kv_cache=layer_cache, rotary=time_rotary,
                                 mask=time_mask, residual_values=rv_tm, flash_spec=time_flash,
-                                flash_offset=token_count)
+                                flash_offset=token_count, allow_small=not has_cache)
                 tokens = tokens + _from_time_major(attn_out.out, bs_shape)
                 if attn_out.cache is not None:
                     new_kv_caches.append(attn_out.cache)
@@ -251,7 +253,7 @@ class AxialSpaceTimeTransformer(nn.Module):
                 rv_sm = (_to_space_major(residual_values)[0]
                          if residual_values is not None else None)
                 attn_out = attn(x_sm, mask=space_mask, residual_values=rv_sm,
-                                flash_spec=space_flash)
+                                flash_spec=space_flash, allow_small=not has_cache)
                 tokens = tokens + _from_space_major(attn_out.out, bt_shape)
                 normed_space_inputs.append(attn_out.normed_inputs)
 

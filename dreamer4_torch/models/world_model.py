@@ -77,7 +77,7 @@ _NOT_PORTED = (
     'spatial_pre_encoder_depth', 'action_pre_encoder_depth', 'dim_proprio', 'dim_state',
     'dim_critic_state', 'num_continuous_actions', 'actor_critic_latent_input',
     'add_state_pred_head', 'agent_predicts_state', 'latent_ar', 'has_aug_conditioning',
-    'ssl_lapo', 'ssl_tem', 'actor_spr', 'use_loss_normalization', 'use_fused_small',
+    'ssl_lapo', 'ssl_tem', 'actor_spr', 'use_loss_normalization',
     'time_attention_use_pope', 'use_time_rnn', 'mot_temporal', 'h_net_layer',
 )
 
@@ -120,7 +120,8 @@ class DynamicsWorldModel(nn.Module):
                  discrete_action_loss_weight: float = 1.0,
                  continuous_action_loss_weight: float = 1.0, gae_discount_factor: float = 0.997,
                  use_flash_attention: bool = False, flash_min_scores: int = 128 * 128,
-                 use_attn_pool: bool = True, dtype=None, device=None, **not_ported):
+                 use_fused_small: bool | None = None, use_attn_pool: bool = True, dtype=None,
+                 device=None, **not_ported):
         # the constructor's arguments, for checkpoints (train/checkpoint.py)
         config = {k: v for k, v in locals().items()
                   if k not in ('self', '__class__', 'device', 'not_ported')}
@@ -220,8 +221,8 @@ class DynamicsWorldModel(nn.Module):
             query_heads=query_heads, attn_softclamp_value=attn_softclamp_value,
             time_block_every=time_block_every, num_special_tokens=num_agents,
             final_norm=False, use_flash_attention=use_flash_attention,
-            flash_min_scores=flash_min_scores, use_attn_pool=use_attn_pool, dtype=dtype,
-            device=device)
+            flash_min_scores=flash_min_scores, use_fused_small=use_fused_small,
+            use_attn_pool=use_attn_pool, dtype=dtype, device=device)
 
     # ------------------------------------------------------------ properties
 

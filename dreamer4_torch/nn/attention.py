@@ -6,8 +6,10 @@ gates, key-only QK-RMSNorm, learned value-residual mixing, BeliefFormer
 output orthogonalization, logit softclamp, rotary. The KV cache is a
 preallocated (B, heads, max_len, dim_head) buffer pair that calls write into
 in place; its length is a host int, so the flash kernel's offset and
-kv_len need no device-to-host sync. The counterpart's `_small_path`
-(`use_fused_small`) and ring attention are not ported.
+kv_len need no device-to-host sync. With `use_fused_small`, uncached
+self-attention with a static 2-D mask takes `_small_path`, which runs the
+whole block in the flat (B, n*h, dh) layout around K4/K5
+(`ops/small_attention.py`). Ring attention is not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from torch import nn
 
 from ..ops.attention import naive_attend
 from ..ops.flash_attention import flash_attend
-from ..ops.rotary import apply_rotations
+from ..ops.rotary import apply_rotations, apply_rotations_flat
+from ..ops.small_attention import small_attend_flat, small_attention_viable
 from ..ops.utils import l2norm, softclamp
 from .activations import get_activation
 from .dense import Dense
@@ -83,8 +86,6 @@ class Attention(nn.Module):
                  belief_attn: bool = True, softclamp_value: float | None = 50.0,
                  use_fused_small: bool = False, dtype=None, device=None):
         super().__init__()
-        if use_fused_small:
-            raise NotImplementedError('use_fused_small (kernels K4/K5) is not ported yet')
         q_heads = query_heads if query_heads is not None else heads
         if q_heads < heads or q_heads % heads != 0:
             raise ValueError(f'query heads {q_heads} must be a multiple of heads {heads}')
@@ -95,6 +96,8 @@ class Attention(nn.Module):
         self.value_residual = value_residual
         self.belief_attn = belief_attn
         self.softclamp_value = softclamp_value
+        self.use_fused_small = use_fused_small
+        self.dtype = dtype
         dim_kv = dim_kv_input if dim_kv_input is not None else dim
 
         dense = lambda a, b: Dense(a, b, bias=False, dtype=dtype, device=device)
@@ -120,7 +123,9 @@ class Attention(nn.Module):
 
     def forward(self, tokens, context=None, kv_cache: KVCache | None = None, rotary=None,
                 mask=None, residual_values=None, flash_spec: FlashSpec | None = None,
-                flash_offset: int = 0) -> AttentionOut:
+                flash_offset: int = 0, allow_small: bool = True) -> AttentionOut:
+        """`allow_small=False` keeps the call off the small path (the trunk
+        passes it for cached calls, whose masks are not static)."""
         if self.pre_rmsnorm:
             tokens = self.norm(tokens)
         normed_inputs = tokens
@@ -131,6 +136,16 @@ class Attention(nn.Module):
                 context = self.norm_context(context)
         else:
             context = tokens
+
+        use_small = (self.use_fused_small and allow_small and flash_spec is None
+                     and kv_cache is None and not has_context and self.q_heads == self.heads
+                     and tokens.ndim == 3 and (mask is None or mask.ndim == 2))
+        if use_small:
+            dtype = self.dtype if self.dtype is not None else tokens.dtype
+            use_small = small_attention_viable(tokens.shape[-2], self.heads, self.dim_head,
+                                               dtype)
+        if use_small:
+            return self._small_path(tokens, normed_inputs, mask, rotary, residual_values)
 
         q = self._split(self.to_q(tokens), self.q_heads)
         k = self._split(self.to_k(context), self.heads)
@@ -184,6 +199,50 @@ class Attention(nn.Module):
 
         out = out.transpose(-3, -2).reshape(*out.shape[:-3], -1, self.q_heads * self.dim_head)
         return AttentionOut(self.to_out(out), new_cache, normed_inputs)
+
+    def _small_path(self, tokens, normed_inputs, mask, rotary, residual_values):
+        """Self-attention through K4/K5 with every op in the flat
+        (B, n*h, dh) layout (row i = position i // h, head i % h: the
+        projections' own memory order, so the reshapes are free). The value
+        residual mix, the head norms, rotary, BeliefFormer and the gates
+        apply in that layout with tables expanded to (n*h, ...). Same
+        parameters and function as the generic path."""
+        h, dh = self.heads, self.dim_head
+        B, n, _ = tokens.shape
+        nh = n * h
+        flat = lambda x: x.reshape(B, nh, dh)
+
+        q = flat(self.to_q(tokens))
+        k = flat(self.to_k(tokens))
+        v = flat(self.to_v(tokens))
+
+        if residual_values is not None:                    # (B, n, h, dh)
+            if not self.value_residual:
+                raise ValueError('residual_values given to an attention without value_residual')
+            mix = torch.sigmoid(self.to_value_residual_mix(tokens))
+            v = v + (flat(residual_values) - v) * mix.reshape(B, nh, 1)
+
+        if hasattr(self, 'q_norm'):
+            q = self.q_norm.flat(q)
+        if hasattr(self, 'k_norm'):
+            k = self.k_norm.flat(k)
+
+        if rotary is not None:
+            q = apply_rotations_flat(rotary, q, h)
+            k = apply_rotations_flat(rotary, k, h)
+
+        out = small_attend_flat(q.contiguous(), k.contiguous(), v.contiguous(), mask, h,
+                                softclamp_value=self.softclamp_value)
+
+        if self.belief_attn:
+            v_normed = l2norm(v)
+            out = out - (out * v_normed).sum(dim=-1, keepdim=True) * v_normed
+
+        if self.gate_values:
+            gates = torch.sigmoid(self.to_gates(tokens))
+            out = out * gates.reshape(B, nh, 1)
+
+        return AttentionOut(self.to_out(out.reshape(B, n, h * dh)), None, normed_inputs)
 
 
 class FeedForward(nn.Module):

@@ -14,6 +14,12 @@ def softclamp(t: torch.Tensor, value: float = 50.0) -> torch.Tensor:
     return torch.tanh(t / value) * value
 
 
+def frac_gradient(t: torch.Tensor, frac) -> torch.Tensor:
+    """t in the forward; only `frac` of its gradient flows back."""
+    sg = t.detach()
+    return sg + (t - sg) * frac
+
+
 def symexp(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * (torch.exp(x.abs()) - 1.0)
 

@@ -9,7 +9,8 @@ weight in flax's (in, out) orientation, the counterpart's, whatever its
 torch layout: `nn.Linear` keeps (out, in) and is transposed for the update,
 the attention pools' raw `_Kernel` holders keep flax's layout already. So
 the Newton-Schulz iteration and the shape scale `sqrt(max(1, in / out))`
-see the same matrix as in the counterpart.
+see the same matrix as in the counterpart. `MultiSteps` accumulates
+gradients over micro-steps (`optax.MultiSteps`).
 """
 from __future__ import annotations
 
@@ -156,3 +157,58 @@ class MuonAdamAtan2(torch.optim.Optimizer):
             mu = state['mu'].mul_(b1).add_((1 - b1) * g)
             nu = state['nu'].mul_(b2).add_((1 - b2) * g.square())
             p.add_(-group['lr'] * group['a'] * torch.atan2(mu / c1, group['b'] * (nu / c2).sqrt()))
+
+
+class MultiSteps:
+    """`optax.MultiSteps` over an optimizer: each `step()` folds the
+    parameters' gradients into a running mean (`acc + (g - acc) / (n + 1)`,
+    optax's form) and only every `every_k`-th applies the inner optimizer
+    to that mean, then starts a new mean. `mini_step` is 0 right after an
+    applied step. Its state (the inner optimizer's, the mean and
+    `mini_step`) round-trips through `state_dict`."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, every_k: int):
+        if every_k < 2:
+            raise ValueError('MultiSteps accumulates over every_k >= 2 steps')
+        self.optimizer = optimizer
+        self.every_k = every_k
+        self.mini_step = 0
+        self.params = [p for g in optimizer.param_groups for p in g['params']]
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self):
+        for p, acc in zip(self.params, self.acc):
+            if p.grad is not None:
+                acc.add_((p.grad - acc) / (self.mini_step + 1))
+            else:   # a missing gradient counts as zero, as in MuonAdamAtan2
+                acc.sub_(acc / (self.mini_step + 1))
+        self.mini_step += 1
+        if self.mini_step < self.every_k:
+            return
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.clone()
+        self.optimizer.step()
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        return dict(inner=self.optimizer.state_dict(), mini_step=self.mini_step,
+                    acc=[a.clone() for a in self.acc])
+
+    def load_state_dict(self, state: dict):
+        self.optimizer.load_state_dict(state['inner'])
+        self.mini_step = state['mini_step']
+        with torch.no_grad():
+            for acc, saved in zip(self.acc, state['acc']):
+                acc.copy_(saved)
+
+
+def with_grad_accum(optimizer: torch.optim.Optimizer, grad_accum: int):
+    """The optimizer as it is for `grad_accum <= 1`, else wrapped in
+    `MultiSteps` (the counterpart's `with_grad_accum`)."""
+    return optimizer if grad_accum <= 1 else MultiSteps(optimizer, grad_accum)

@@ -10,8 +10,9 @@ and one shortcut step, then prints, for each variant:
     EMA), each between two `torch.cuda.synchronize()`, mean of 3;
   - under torch.profiler, one whole step: its wall time, the device's busy
     time (the sum of the CUDA kernels' times) and idle share, the CUDA
-    kernels launched, the launches and device time of K1, K2 and K3, and
-    the CUDA kernels and host-side PyTorch ops that take the most time.
+    kernels launched, the launches and device time of each kernel of the
+    port (K1-K5), and the CUDA kernels and host-side PyTorch ops that take
+    the most time.
 Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -25,31 +26,27 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import BENCH_MODEL, TRAIN, gpu_name_and_power_limit, train_batch  # noqa: E402
+from chip_smoke import (BENCH_MODEL, TRAIN, gpu_name_and_power_limit,  # noqa: E402
+                        is_device_event, train_batch)
 from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel  # noqa: E402
 from dreamer4_torch.train.ema import update_ema  # noqa: E402
 from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E402
 
 # name stems of the port's CUDA kernels (dreamer4_torch/csrc)
-FLASH_KERNELS = {'K1': 'flash_fwd_', 'K2': 'bwd_dq_', 'K3': 'bwd_dkv_'}
+PORT_KERNELS = {'K1': 'flash_fwd_', 'K2': 'bwd_dq_', 'K3': 'bwd_dkv_', 'K4': 'small_fwd_',
+                'K5': 'small_bwd_'}
 
 
-def is_device_event(event) -> bool:
-    """A CUDA kernel or copy; not a user annotation's range on the device
-    (`Optimizer.step` records one, spanning the kernels it launches)."""
-    return (getattr(event, 'device_type', None) == torch.autograd.DeviceType.CUDA
-            and not getattr(event, 'is_user_annotation', False))
-
-
-def part_times_ms(model, trainer, batch, shortcut, reps=3):
-    """Mean wall ms of forward, backward, optimizer step and EMA update."""
+def part_times_ms(forward, trainer, reps=3):
+    """Mean wall ms of forward (`forward()` returns the loss), backward,
+    optimizer step and EMA update."""
     parts = {'forward': 0.0, 'backward': 0.0, 'optimizer': 0.0, 'ema': 0.0}
-    params = dict(model.named_parameters())
+    params = dict(trainer.model.named_parameters())
     for _ in range(reps):
         trainer.optimizer.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = model(**batch, shortcut_train=shortcut, generator=trainer.generator)
+        loss = forward()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         loss.backward()
@@ -78,7 +75,7 @@ def profile_step(step, label):
     print(f'{label} under the profiler: {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms '
           f'({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%; '
           f'{len(kernels)} CUDA kernels')
-    for kid, prefix in FLASH_KERNELS.items():
+    for kid, prefix in PORT_KERNELS.items():
         mine = [e for e in kernels if prefix in e.name]
         print(f'  {kid}: {len(mine)} launches, '
               f'{sum(e.time_range.elapsed_us() for e in mine) / 1e3:.3f} ms device')
@@ -115,7 +112,8 @@ def main() -> int:
             trainer.ts = step_fn(trainer.ts, batch, shortcut_train=shortcut,
                                  generator=trainer.generator)[0]
         step()
-        parts = part_times_ms(model, trainer, batch, shortcut)
+        parts = part_times_ms(lambda: model(**batch, shortcut_train=shortcut,
+                                            generator=trainer.generator), trainer)
         variant = 'shortcut' if shortcut else 'plain'
         print(f'{variant} step {label}: ' + ', '.join(f'{k} {v:.1f} ms' for k, v in parts.items())
               + f' (sum {sum(parts.values()):.1f} ms; wall, mean of 3)', flush=True)

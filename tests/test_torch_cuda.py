@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a card, each against its plain PyTorch
 version: K1 (`csrc/flash_attn_fwd.cu`) against `flash_attend_reference`, K2
-(`csrc/flash_attn_bwd_dq.cu`) against `bwd_dq_reference` and K3
-(`csrc/flash_attn_bwd_dkv.cu`) against `bwd_dkv_reference`. Every test here
+(`csrc/flash_attn_bwd_dq.cu`) against `bwd_dq_reference`, K3
+(`csrc/flash_attn_bwd_dkv.cu`) against `bwd_dkv_reference`, K4
+(`csrc/small_attn_fwd.cu`) against `small_attend_flat_reference` and K5
+(`csrc/small_attn_bwd.cu`) against `small_attend_flat_bwd_reference`. Every test here
 needs a CUDA device and skips without one: a hand-written kernel has no CPU
 or interpret mode. This file imports torch and the port only, so it runs on
 a machine without JAX:
@@ -16,12 +18,15 @@ hence p by that relative amount, plus summation order); bf16 1e-2 (one
 rounding of each output, 2^-9 of it, plus ds and p rounded to bf16 at the
 TPU kernel's points, where the kernel and the plain version may round a
 value that differs in its last float32 bits to neighbouring bf16 values).
+K4 takes K1's tolerances and K5 those of K2/K3, for the same reasons.
 """
 import pytest
 import torch
 
 from dreamer4_torch.models.transformer import AxialSpaceTimeTransformer
 from dreamer4_torch.ops import flash_attention as fa
+from dreamer4_torch.ops import small_attention as sa
+from dreamer4_torch.ops.masks import build_attend_mask
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
@@ -224,3 +229,108 @@ def test_autograd_runs_the_kernels(gen):
     with torch.no_grad():
         fa.flash_attend(q, k, v, 0, 200, **cfg)
     assert counts() == (before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+# K4 / K5: (B, n, h, dh, mask) at the shapes of chip_smoke.py, cut in batch:
+# the tokenizer's time layer, the world model's space and time layers, and
+# ragged n with other head dims
+SMALL_CASES = {
+    'tok_time': (64, 16, 8, 64, 'causal'),
+    'wm_space': (32, 27, 8, 64, 'special'),
+    'wm_time': (27, 32, 8, 64, 'causal'),
+    'ragged_16': (5, 13, 4, 16, 'special_only_itself'),
+    'ragged_32': (5, 13, 4, 32, 'none'),
+    'ragged_128': (5, 13, 4, 128, 'causal'),
+    'n64': (3, 64, 8, 64, 'causal'),
+}
+
+
+def small_mask(kind, n):
+    if kind == 'none':
+        return None
+    if kind == 'causal':
+        return build_attend_mask(n, n, causal=True, device='cuda')
+    return build_attend_mask(n, n, num_special=1, block_size_per_special=n,
+                             special_attend_only_itself=kind == 'special_only_itself',
+                             device='cuda')
+
+
+def small_inputs(gen, B, n, h, dh, dtype):
+    return tuple(torch.randn((B, n * h, dh), generator=gen, device='cuda').to(dtype)
+                 for _ in range(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('softclamp', [50.0, None])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', list(SMALL_CASES))
+def test_small_kernels_match_plain_versions(gen, case, dtype, softclamp):
+    B, n, h, dh, kind = SMALL_CASES[case]
+    q, k, v, do = small_inputs(gen, B, n, h, dh, dtype)
+    mask = small_mask(kind, n)
+    bias = sa.build_interleaved_bias(n, h, mask, device='cuda')
+    before = (sa.FWD_LAUNCHES, sa.BWD_LAUNCHES)
+    out = sa.small_attend_flat(q, k, v, mask, h, softclamp_value=softclamp)
+    grads = sa.small_attend_flat_bwd(q, k, v, do, mask, h, softclamp_value=softclamp)
+    torch.cuda.synchronize()
+    assert (sa.FWD_LAUNCHES, sa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = sa.small_attend_flat_reference(q, k, v, bias, softclamp)
+    refs = sa.small_attend_flat_bwd_reference(q, k, v, do, bias, softclamp)
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        assert rel_err(g, r) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_small_kernels_never_read_past_the_head(gen, dtype):
+    """n = 13 pads to 16 rows inside the kernel. The rows after the last
+    batch row hold NaN; no padded row is read from device memory, so no
+    output or gradient sees them."""
+    B, n, h, dh = 3, 13, 4, 64
+    full = [torch.full((B + 1, n * h, dh), float('nan'), device='cuda', dtype=dtype)
+            for _ in range(4)]
+    for t, src in zip(full, small_inputs(gen, B, n, h, dh, dtype)):
+        t[:B] = src
+    q, k, v, do = (t[:B] for t in full)
+    mask = small_mask('causal', n)
+    bias = sa.build_interleaved_bias(n, h, mask, device='cuda')
+    out = sa.small_attend_flat(q, k, v, mask, h)
+    grads = sa.small_attend_flat_bwd(q, k, v, do, mask, h)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - sa.small_attend_flat_reference(q, k, v, bias).float()
+            ).abs().max().item() <= TOL[dtype]
+    for g, r in zip(grads, sa.small_attend_flat_bwd_reference(q, k, v, do, bias)):
+        assert bool(torch.isfinite(g).all()) and rel_err(g, r) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_small_autograd_runs_the_kernels(gen):
+    """Under grad `small_attend_flat` launches K4 once and its backward K5
+    once; without grad K4 only."""
+    q, k, v, do = small_inputs(gen, 8, 27, 8, 64, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    mask = small_mask('special', 27)
+    before = (sa.FWD_LAUNCHES, sa.BWD_LAUNCHES)
+    grads = torch.autograd.grad(sa.small_attend_flat(q, k, v, mask, 8), (q, k, v), do)
+    assert (sa.FWD_LAUNCHES, sa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    refs = sa.small_attend_flat_bwd_reference(q, k, v, do, sa.build_interleaved_bias(
+        27, 8, mask, device='cuda'))
+    for g, r in zip(grads, refs):
+        assert rel_err(g, r) <= GRAD_TOL[torch.bfloat16]
+    with torch.no_grad():
+        sa.small_attend_flat(q, k, v, mask, 8)
+    assert (sa.FWD_LAUNCHES, sa.BWD_LAUNCHES) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_small_wrapper_refuses_what_the_kernels_do_not_take(gen):
+    q, k, v, _ = small_inputs(gen, 2, 8, 2, 16, torch.float32)
+    with pytest.raises(ValueError):   # n = 80 > 64
+        sa.small_attend_flat(*small_inputs(gen, 1, 80, 1, 16, torch.float32)[:3], None, 1)
+    with pytest.raises(ValueError):
+        sa.small_attend_flat(q.half(), k.half(), v.half(), None, 2)
+    with pytest.raises(ValueError):
+        sa.small_attend_flat(q, k.cpu(), v, None, 2)

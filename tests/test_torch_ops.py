@@ -177,9 +177,10 @@ def test_import_leaves_jax_out():
 
 
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
-    """Every kernel source is found, with the local header it includes; an
-    edit of that header changes the library name of every source that
-    includes it, so a stale build is never loaded. Needs no nvcc."""
+    """Every kernel source is found, with the local headers it includes,
+    transitively; an edit of a header changes the library name of every
+    source that includes it, so a stale build is never loaded. Needs no
+    nvcc."""
     import shutil
 
     from dreamer4_torch.ops import cuda_build
@@ -189,10 +190,12 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, 'CSRC_DIR', csrc)
     monkeypatch.setattr(cuda_build, 'nvcc_version', lambda: 'nvcc, a fixed version')
     names = cuda_build.kernel_names()
-    assert names == ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd']
+    assert names == ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd',
+                     'small_attn_bwd', 'small_attn_fwd']
     for name in names:
-        assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu',
-                                                                  'flash_attn_common.cuh']
+        headers = (['small_attn_common.cuh'] if name.startswith('small') else []) + [
+            'flash_attn_common.cuh']
+        assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu', *headers]
     before = {name: cuda_build.library_path(name) for name in names}
     assert before == {name: cuda_build.library_path(name) for name in names}
     header = csrc / 'flash_attn_common.cuh'

@@ -441,10 +441,9 @@ def test_trainer_device_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             BehaviorCloneTrainer(model)
-    for kw in (dict(tokenizer=object()), dict(aux_image_encoder_fn=lambda v: v),
-               dict(use_self_flow=True), dict(grad_accum=2)):
+    for kw in (dict(aux_image_encoder_fn=lambda v: v), dict(use_self_flow=True)):
         with pytest.raises(NotImplementedError):
             BehaviorCloneTrainer(model, device='cpu', **kw)
     trainer = BehaviorCloneTrainer(model, device='cpu')
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):   # video needs a tokenizer to become latents
         trainer.train_on_batch({'video': torch.zeros(1)})

@@ -130,7 +130,7 @@ def test_cached_forward_with_history_processes_last_frame():
 
 
 @pytest.mark.parametrize('option', ['rnn_time', 'mot_temporal', 'h_net_layer',
-                                    'use_fused_small'])
+                                    'time_attention_use_pope'])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         AxialSpaceTimeTransformer(dim=32, depth=2, device='cpu', **{option: 1})
