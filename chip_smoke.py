@@ -8,11 +8,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
                one nvcc per source, all at once.
   2. kernels — holds each kernel against its plain PyTorch version on the
                card at the shapes the rollout and the train step give it,
-               with stated tolerances, and times the kernel, the plain
-               version, its bound and the PyTorch call that computes the
-               same function (SDPA without a softclamp, compiled
-               `flex_attention` with one; for the backward pair K2 + K3,
-               flex_attention's backward).
+               with stated tolerances (K3 runs from the delta K2 wrote), and
+               times the kernel, the plain version, its bound and the
+               PyTorch call that computes the same function (SDPA without a
+               softclamp, compiled `flex_attention` with one; for the
+               backward pair K2 + K3, flex_attention's backward). A bound
+               is the largest of three times: the bytes at the memory rate,
+               the matrix operations at the tensor-core (or float32) peak,
+               and the transcendentals (2 per pair with a softclamp, else 1)
+               on the exponential unit, 16 per clock per SM at the card's
+               maximum SM clock; the line says which binds.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -47,9 +52,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
                call for the same function (SDPA, compiled
                `flex_attention`, flex's backward). K4 and K5 run for tens
                of microseconds, so their times (and the library's) are
-               device times under torch.profiler. The profiler can leave a
-               cost on every later launch of the process, so this phase
-               runs last, after every timed model phase.
+               device times under torch.profiler. Then the device times of
+               K2, K3 and flex's backward at t1024 bf16, beside phase 2's
+               CUDA-event times. The profiler can leave a cost on every
+               later launch of the process, so this phase runs last, after
+               every timed model phase.
 Launch counts (K1 to K5) are set to 0 just before each rollout, encode,
 decode and train step and read just after.
 
@@ -71,6 +78,9 @@ import torch
 H100_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core peak
                   torch.float32: 67e12}     # float32 outside the tensor cores
+# the exponential unit: special-function operations (ex2, rcp, tanh) per
+# clock on each SM of a Hopper card
+SFU_OPS_PER_CLOCK_PER_SM = 16
 # kernel vs plain version: f32 differs by summation order only; bf16 by one
 # rounding of the output (1 ulp at |o| < 4 is 1.6e-2) and of p before PV
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -82,6 +92,9 @@ LSE_TOL = 1e-3
 # to bf16 at the TPU kernel's points, where the two may round values that
 # differ in their last float32 bits to neighbouring bf16 values)
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# the delta K2 writes vs `attention_delta`, relative to its largest entry:
+# both sum rowsum(dO * O) in float32, in another order
+DELTA_TOL = 1e-5
 
 # bench.py:174-193 on the accelerator: flash on, bf16, no terminal head
 BENCH_MODEL = dict(dim=512, dim_latent=32, num_latent_tokens=16, num_spatial_tokens=16,
@@ -138,6 +151,30 @@ def gpu_name_and_power_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.cache
+def sfu_ops_per_s() -> float:
+    """The card's exponential-unit rate: 16 per clock per SM x its SMs x its
+    maximum SM clock (`nvidia-smi --query-gpu=clocks.max.sm`)."""
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def roofline(bytes_moved, ops, dtype, transcendentals):
+    """The least time of work that moves `bytes_moved` at the memory rate,
+    does `ops` at the peak rate of `dtype` and `transcendentals` on the
+    exponential unit: (ms, 'bytes' or 'operations' for the kernels line,
+    which of the three binds, each term in ms)."""
+    terms = {'bytes': bytes_moved / H100_BYTES_PER_S, 'operations': ops / PEAK_OPS_PER_S[dtype],
+             'exponential unit': transcendentals / sfu_ops_per_s()}
+    unit = max(terms, key=terms.get)
+    return (terms[unit] * 1e3, 'bytes' if unit == 'bytes' else 'operations', unit,
+            {k: v * 1e3 for k, v in terms.items()})
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of `fn` over `iters` back-to-back calls (CUDA events)."""
     for _ in range(warmup):
@@ -162,13 +199,16 @@ def is_device_event(event) -> bool:
 
 
 def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time per call of `fn`: the summed times of the CUDA
-    kernels it launches (only those whose name contains `match`, if given)
-    under torch.profiler, over `iters` calls. Unlike `cuda_time_ms` it does
-    not count the device's idle time while the host prepares a launch, which
-    is most of a call that runs for tens of microseconds. A trace that holds
-    none of those kernels (the profiler has been seen to drop a trace's
-    device events) is taken again, up to three times in all."""
+    """Mean device time per call of `fn` under torch.profiler over `iters`
+    calls. Without `match`, the summed times of all the CUDA kernels the
+    calls launch, per call. With `match`, each call launches exactly one
+    kernel whose name contains it, and the time per call is the mean
+    duration of the matching kernels the trace holds: a trace has been seen
+    to hold fewer of them than calls were made (the line says so). Unlike
+    `cuda_time_ms` it does not count the device's idle time while the host
+    prepares a launch, which is most of a call that runs for tens of
+    microseconds. A trace that holds none of those kernels is taken again,
+    up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -182,7 +222,12 @@ def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3) ->
         kernels = [e for e in prof.events() if is_device_event(e)
                    and (match is None or match in e.name)]
         if kernels:
-            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
+            total_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+            if match is None:
+                return total_ms / iters
+            if len(kernels) != iters:
+                print(f'# the trace held {len(kernels)} of {iters} launches of {match}', flush=True)
+            return total_ms / len(kernels)
         print(f'# a profiler trace held no device time{f" of {match}" if match else ""}; '
               'taking it again', flush=True)
     raise SystemExit(f'the profiler saw no device time{f" of {match}" if match else ""}')
@@ -200,10 +245,11 @@ def host_time_s(fn, reps: int) -> float:
 
 # ------------------------------------------------------------------ kernels
 
-def attention_bound_ms(q, k, mask, return_lse=False):
-    """Least time for the work these inputs need: q read and o written once,
-    the k/v rows some query may see read once; 4*D operations per unmasked
-    (q, k) pair (score and PV), at the peak rate of the input type."""
+def attention_bound_ms(q, k, mask, softclamp, return_lse=False):
+    """Least time for the work these inputs need (`roofline`): q read and o
+    written once, the k/v rows some query may see read once; 4*D operations
+    per unmasked (q, k) pair (score and PV), at the peak rate of the input
+    type; per pair 2 transcendentals with a softclamp (tanh, exp), else 1."""
     B, Hq, N, D = q.shape
     H = k.shape[1]
     elem = q.element_size()
@@ -211,10 +257,8 @@ def attention_bound_ms(q, k, mask, return_lse=False):
     bytes_moved = 2 * B * Hq * N * D * elem + 2 * B * H * kv_rows * D * elem
     if return_lse:
         bytes_moved += B * Hq * N * 4
-    ops = 4 * D * int(mask.sum()) * B * Hq
-    t_bytes = bytes_moved / H100_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype]
-    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+    pairs = int(mask.sum()) * B * Hq
+    return roofline(bytes_moved, 4 * D * pairs, q.dtype, pairs * (2 if softclamp else 1))
 
 
 def kernel_cases():
@@ -360,10 +404,11 @@ def run_kernel_phase():
         lib_name, library_ms, lib_err = time_library(q, k, v, off, kvl, cfg, mask, ref, tol)
         lib = ('library -' if library_ms is None else
                f'library {library_ms:.4f} ms ({lib_name}, its err {lib_err:.1e})')
-        bound_ms, bound_by = attention_bound_ms(q, k, mask, want_lse)
+        bound_ms, bound_by, unit, _ = attention_bound_ms(q, k, mask, cfg['softclamp_value'],
+                                                         want_lse)
         log(f'K1 {name:<34} {str(dtype).split(".")[-1]:<8} max_abs_err {err:.3e} '
             f'(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms {lib} '
-            f'bound {bound_ms:.4f} ms ({bound_by}){line_lse}' + ('' if ok else '  FAIL'))
+            f'bound {bound_ms:.4f} ms ({unit}){line_lse}' + ('' if ok else '  FAIL'))
         if not ok:
             failures.append(f'{name}/{dtype}')
         results[(name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -403,25 +448,30 @@ def bwd_kernel_cases():
     return cases
 
 
-def backward_bound_ms(q, k, mask, which):
+def backward_bound_ms(q, k, mask, which, softclamp):
     """Least time for the work of K2 (`which='dq'`) or K3 ('dkv') on these
-    inputs: the q and dO rows that see some key, the k and v rows that some
-    query sees, and those rows' lse and delta read once, the gradients
-    written once; 6*D operations per unmasked pair for K2 (s, dp, dq), 8*D
-    for K3 (s, dp, dv, dk), at the peak rate of the input type."""
+    inputs (`roofline`). K2: the q, dO and o rows that see some key, the k
+    and v rows that some query sees and the lse of those q rows read once,
+    dq and delta written once; 6*D operations per unmasked pair (s, dp, dq).
+    K3: the same q and dO rows, k and v rows and lse and delta read once, dk
+    and dv written once; 8*D operations per pair (s, dp, dv, dk). Each at
+    the peak rate of the input type, with 2 transcendentals per pair with a
+    softclamp (tanh, exp), else 1."""
     B, Hq, N, D = q.shape
     H, M = k.shape[1], k.shape[2]
     elem = q.element_size()
     q_rows, kv_rows = int(mask.any(dim=1).sum()), int(mask.any(dim=0).sum())
-    reads = 2 * B * Hq * q_rows * D * elem + 2 * B * H * kv_rows * D * elem + 2 * B * Hq * q_rows * 4
+    kv_bytes = 2 * B * H * kv_rows * D * elem
     pairs = int(mask.sum()) * B * Hq
     if which == 'dq':
-        bytes_moved, ops = reads + B * Hq * N * D * elem, 6 * D * pairs
+        bytes_moved = (3 * B * Hq * q_rows * D * elem + kv_bytes + B * Hq * q_rows * 4
+                       + B * Hq * N * D * elem + B * Hq * N * 4)
+        ops = 6 * D * pairs
     else:
-        bytes_moved, ops = reads + 2 * B * H * M * D * elem, 8 * D * pairs
-    t_bytes = bytes_moved / H100_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype]
-    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+        bytes_moved = (2 * B * Hq * q_rows * D * elem + kv_bytes + 2 * B * Hq * q_rows * 4
+                       + 2 * B * H * M * D * elem)
+        ops = 8 * D * pairs
+    return roofline(bytes_moved, ops, q.dtype, pairs * (2 if softclamp else 1))
 
 
 def rel_err(out, ref):
@@ -430,11 +480,12 @@ def rel_err(out, ref):
 
 
 def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
-    """(ms, relative error) of the backward of compiled `flex_attention`
-    (fwd+bwd less fwd, both with inputs that require grad): the PyTorch
-    call that computes dq, dk and dv together, the work of K2 + K3 and the
-    delta reduction. A yardstick only; the port never calls it. ms is None
-    where it does not compile or disagrees with the plain backward."""
+    """(ms, relative error, (fwd+bwd, fwd) callables) of the backward of
+    compiled `flex_attention` (fwd+bwd less fwd, both with inputs that
+    require grad): the PyTorch call that computes dq, dk and dv together,
+    the work of K2 + K3. A yardstick only; the port never calls it. ms and
+    the callables are None where it does not compile or disagrees with the
+    plain backward."""
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     try:
         fwd = flex_call(qg, kg, vg, offset, kv_len, cfg, FLEX_OPTIONS[q.dtype][0])
@@ -442,21 +493,23 @@ def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
         err = max(rel_err(g, r) for g, r in zip(grads(), refs))
     except Exception as e:   # the compiler refuses this setting at this shape
         log(f'#   flex backward: does not compile here ({type(e).__name__}: {e})'[:300])
-        return None, None
+        return None, None, None
     if err > tol:
         log(f'#   flex backward: rel err {err:.3e} above {tol:.0e}, not a yardstick')
-        return None, err
-    return cuda_time_ms(grads) - cuda_time_ms(fwd), err
+        return None, err, None
+    return cuda_time_ms(grads) - cuda_time_ms(fwd), err, (grads, fwd)
 
 
 def run_backward_kernel_phase():
     """K2 and K3 against `bwd_dq_reference` / `bwd_dkv_reference` on every
-    case, from the same q, k, v, dO, LSE and delta; returns the
-    measurements of each case by (name, dtype)."""
+    case, from the same q, k, v, o, dO and LSE, K3 from the delta K2 wrote
+    (and the plain K3 from the plain K2's); returns the measurements of each
+    case by (name, dtype), and the callables of K2, K3 and flex's backward
+    at t1024 bf16 for the device times of the last phase."""
     from dreamer4_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device='cuda').manual_seed(1)
-    results, failures = {}, []
+    results, failures, t1024_calls = {}, [], None
     for name, dtype, c in bwd_kernel_cases():
         B, Hq, H, N, M, D = (c[x] for x in ('B', 'Hq', 'H', 'N', 'M', 'D'))
         q, k, v, do = (torch.randn(shape, generator=gen, device='cuda').to(dtype)
@@ -467,59 +520,84 @@ def run_backward_kernel_phase():
                    special_attend_only_itself=c.get('special_attend_only_itself', False))
         off, kvl = c['offset'], c['kv_len']
         o, lse = fa.flash_attend_reference(q, k, v, off, kvl, return_lse=True, **cfg)
-        delta = fa.attention_delta(o, do)
-        args = (q, k, v, do, lse, delta, off, kvl)
-        dq = fa.bwd_dq(*args, **cfg)
-        dk, dv = fa.bwd_dkv(*args, **cfg)
-        ref_dq = fa.bwd_dq_reference(*args, **cfg)
-        ref_dk, ref_dv = fa.bwd_dkv_reference(*args, **cfg)
+        dq_args = (q, k, v, o, lse, do, off, kvl)
+        dq, delta = fa.bwd_dq(*dq_args, **cfg)
+        dk, dv = fa.bwd_dkv(q, k, v, do, lse, delta, off, kvl, **cfg)
+        ref_dq, ref_delta = fa.bwd_dq_reference(*dq_args, **cfg)
+        dkv_args = (q, k, v, do, lse, ref_delta, off, kvl)
+        ref_dk, ref_dv = fa.bwd_dkv_reference(*dkv_args, **cfg)
         torch.cuda.synchronize()
         tol = GRAD_TOL[dtype]
         errs = {n: rel_err(out, ref) for n, out, ref in
                 (('dq', dq, ref_dq), ('dk', dk, ref_dk), ('dv', dv, ref_dv))}
+        delta_err = rel_err(delta, ref_delta)
         finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-        ok = finite and max(errs.values()) <= tol
+        ok = finite and max(errs.values()) <= tol and delta_err <= DELTA_TOL
         abs_err = {'dq': (dq.float() - ref_dq.float()).abs().max().item(),
                    'dkv': max((dk.float() - ref_dk.float()).abs().max().item(),
                               (dv.float() - ref_dv.float()).abs().max().item())}
         mask = fa.attend_mask(N, M, off, kvl, device='cuda', **{
             x: cfg[x] for x in ('causal', 'num_special', 'special_seq_len',
                                 'special_attend_only_itself')})
-        plain_iters = 5
+        # partial, not lambda: t1024's calls are timed again after the loop
+        # has moved on to other cases
+        kernels = {'dq': functools.partial(fa.bwd_dq, *dq_args, **cfg),
+                   'dkv': functools.partial(fa.bwd_dkv, q, k, v, do, lse, delta, off, kvl, **cfg)}
+        plains = {'dq': functools.partial(fa.bwd_dq_reference, *dq_args, **cfg),
+                  'dkv': functools.partial(fa.bwd_dkv_reference, *dkv_args, **cfg)}
         row = {}
-        for which, kernel, plain in (
-                ('dq', lambda: fa.bwd_dq(*args, **cfg), lambda: fa.bwd_dq_reference(*args, **cfg)),
-                ('dkv', lambda: fa.bwd_dkv(*args, **cfg),
-                 lambda: fa.bwd_dkv_reference(*args, **cfg))):
-            bound_ms, bound_by = backward_bound_ms(q, k, mask, which)
-            row[which] = dict(max_abs_err=abs_err[which], ms=cuda_time_ms(kernel),
-                              plain_ms=cuda_time_ms(plain, iters=plain_iters),
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        delta_ms = cuda_time_ms(lambda: fa.attention_delta(o, do))
+        for which in ('dq', 'dkv'):
+            bound_ms, bound_by, unit, terms = backward_bound_ms(q, k, mask, which,
+                                                                cfg['softclamp_value'])
+            row[which] = dict(max_abs_err=abs_err[which], ms=cuda_time_ms(kernels[which]),
+                              plain_ms=cuda_time_ms(plains[which], iters=5), bound_ms=bound_ms,
+                              bound_by=bound_by, bound_unit=unit, bounds_ms=terms,
+                              library_ms=None)
         lib = ''
         if name == 't1024':
-            lib_ms, lib_err = time_library_backward(q, k, v, do, off, kvl, cfg,
-                                                    (ref_dq, ref_dk, ref_dv), tol)
+            lib_ms, lib_err, lib_calls = time_library_backward(q, k, v, do, off, kvl, cfg,
+                                                               (ref_dq, ref_dk, ref_dv), tol)
             for which in ('dq', 'dkv'):
                 row[which]['library_ms'] = lib_ms
-            pair = row['dq']['ms'] + row['dkv']['ms'] + delta_ms
-            lib = ('library -' if lib_ms is None else
-                   f'library (flex backward, dq+dk+dv) {lib_ms:.4f} ms vs K2+K3+delta '
-                   f'{pair:.4f} ms, its rel err {lib_err:.1e}')
+            pair = row['dq']['ms'] + row['dkv']['ms']
+            lib = ('   library -' if lib_ms is None else
+                   f'   K2 + K3 {pair:.4f} ms vs flex backward (dq+dk+dv) {lib_ms:.4f} ms '
+                   f'({pair / lib_ms:.2f}x), its rel err {lib_err:.1e}')
+            if dtype == torch.bfloat16 and lib_calls is not None:
+                t1024_calls = dict(kernels, flex=lib_calls)
         dt = str(dtype).split('.')[-1]
         log(f'K2/K3 {name:<32} {dt:<8} rel err dq {errs["dq"]:.2e} dk {errs["dk"]:.2e} '
-            f'dv {errs["dv"]:.2e} (tol {tol:.0e})' + ('' if ok else '  FAIL'))
+            f'dv {errs["dv"]:.2e} (tol {tol:.0e}), delta {delta_err:.1e} (tol {DELTA_TOL:.0e})'
+            + ('' if ok else '  FAIL'))
         for which, label in (('dq', 'K2'), ('dkv', 'K3')):
             r = row[which]
+            terms = ', '.join(f'{u} {t:.4f}' for u, t in r['bounds_ms'].items())
             log(f'   {label} kernel {r["ms"]:.4f} ms plain {r["plain_ms"]:.4f} ms '
-                f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
-        log(f'   delta {delta_ms:.4f} ms {lib}')
+                f'bound {r["bound_ms"]:.4f} ms ({r["bound_unit"]}; {terms})')
+        if lib:
+            log(lib)
         if not ok:
             failures.append(f'{name}/{dt}')
         results[(name, dtype)] = row
     if failures:
         raise SystemExit(f'backward kernel phase failed: {failures}')
-    return results
+    return results, t1024_calls
+
+
+def backward_device_times(row, calls):
+    """Device times under torch.profiler of K2, K3 and flex's backward
+    (fwd+bwd less fwd) at t1024 bf16, into `row`; run after the timed model
+    phases, as `device_ms` can leave a cost on later launches."""
+    row['dq']['device_ms'] = device_ms(calls['dq'], 'bwd_dq_')
+    row['dkv']['device_ms'] = device_ms(calls['dkv'], 'bwd_dkv_')
+    grads, fwd = calls['flex']
+    flex_ms = device_ms(grads) - device_ms(fwd)
+    for which in ('dq', 'dkv'):
+        row[which]['library_device_ms'] = flex_ms
+    pair = row['dq']['device_ms'] + row['dkv']['device_ms']
+    log(f'K2/K3 t1024 bf16 device time: K2 {row["dq"]["device_ms"]:.4f} ms, K3 '
+        f'{row["dkv"]["device_ms"]:.4f} ms, K2 + K3 {pair:.4f} ms vs flex backward '
+        f'{flex_ms:.4f} ms ({pair / flex_ms:.2f}x)')
 
 
 # -------------------------------------------------------------------- model
@@ -1167,13 +1245,14 @@ def main() -> int:
     main_shape = kernel_results[('prefill', torch.bfloat16)]
     if main_shape['library_ms'] is None:
         raise SystemExit('no library yardstick at the prefill shape')
-    bwd_results = run_backward_kernel_phase()
+    bwd_results, t1024_calls = run_backward_kernel_phase()
     train_shape = bwd_results[('t1024', torch.bfloat16)]
-    if train_shape['dq']['library_ms'] is None:
+    if t1024_calls is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {**run_model_phase(), **run_train_phase(), **run_tokenizer_phase(),
                 **run_wm_fused_phase()}
     small_results = run_small_kernel_phase()
+    backward_device_times(train_shape, t1024_calls)
     small_shape = small_results[('tok_time', torch.bfloat16)]
     if small_shape['fwd']['library_ms'] is None or small_shape['bwd']['library_ms'] is None:
         raise SystemExit('no library yardstick for K4 / K5 at the tokenizer time shape')

@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernel `_bwd_dkv_kernel` (host `flash_attend_bwd`)
 // in dreamer4_tpu/ops/flash_attention.py, together with the host-side sum of
 // its per-query-head partials over the GQA group. From the forward's saved
-// log-sum-exp and delta = rowsum(dO * O) it recomputes, per (q, k) pair,
+// log-sum-exp and delta = rowsum(dO * O) (which K2 writes) it recomputes,
+// per (q, k) pair,
 //
 //   s   = softclamp(scale * q . k)                     float32, as K1
 //   p   = visible ? exp(s - lse) : 0                   zeroed by the mask predicate
@@ -27,24 +28,52 @@
 // and dv stay in registers for the whole walk, so the GQA group is summed
 // inside the block: no (B, Hq, M, D) partial buffer, no atomics, and the
 // gradients are the same from run to run. Key rows at or past kv_len are
-// never read (zeros in the staged tile) and get zero gradients.
-//   bf16: four warps, 16 keys each, on the tensor cores (`mma.sync.m16n8k16`,
-//     float32 accumulation). S^T = K Q^T and dP^T = V dO^T take A fragments
-//     from the staged k and v tiles; p and ds overwrite their accumulators,
-//     which are then the A fragments of P^T . dO and dS^T . Q, with the
-//     B fragments of dO and Q from `ldmatrix.trans`.
+// never read (zeros in the staged tile) and get zero gradients. The kv
+// tile index runs in launch order, so the longest causal walks start first.
+//   bf16, head dims 64 and 128 (the models' path): `bwd_dkv_sm90`.
+//     - One producer warp issues TMA loads (cp.async.bulk.tensor): k and v
+//       once, through tensor maps that end at min(kv_len, M) (TMA writes
+//       zeros for the rows past it, so a NaN there reaches no gradient),
+//       then per q tile its q and dO rows through a ring of STAGES stages
+//       with full and empty mbarriers. The q tile's lse and delta go into
+//       the same stage by plain loads of the producer's 32 lanes, which
+//       arrive on the stage's full barrier. (A tensor map cannot take them:
+//       a 2-D map over (B Hq, N) floats needs N * 4 bytes a multiple of 16,
+//       and a 1-D map over the flat vector, whose tiles start 16-byte
+//       aligned only when N is a multiple of 4, hung the ring at N = 130.)
+//     - One consumer warpgroup (4 warps, 64 key rows) computes S^T = K Q^T
+//       and dP^T = V dO^T with `wgmma` from shared memory (both K-major),
+//       p and ds in their accumulators, then dV += P^T dO and dK += dS^T Q
+//       with P^T and dS^T as register A operands (rounded to bf16) and the
+//       dO and q tiles as MN-major B operands: no transposed copy.
+//     - The q tile is 32 rows: S^T and dP^T are 64 x 32 (`wgmma` m64n32).
+//       Registers per consumer thread: dK + dV 64 (D = 64) or 128 (D = 128)
+//       float32, S^T + dP^T 32, P and dS 16 packed, plus indices: 128 at
+//       D = 64, where the compiler is held to 3 blocks per SM, about 220 at
+//       D = 128 (1 block), so no setmaxnreg.
+//     - Tiles wholly inside the visible region skip the mask predicate; the
+//       others get the special flags of their query columns once per tile
+//       (the key rows' once per block). log2(e) is folded into the LSE.
+//   bf16, head dims 16 and 32 (tests only): `bwd_dkv_bf16`, four warps, 16
+//     keys each, on `mma.sync.m16n8k16` from padded shared tiles: S^T and
+//     dP^T take A fragments from the staged k and v tiles; p and ds
+//     overwrite their accumulators, which are then the A fragments of
+//     P^T . dO and dS^T . Q, with the B fragments from `ldmatrix.trans`.
 //   float32: 256 threads on the float32 cores, four per key row; p and ds
 //     go through shared 64 x 64 tiles to the dv and dk products.
 //
-// Bound. At the training slice's shape (B=27, H=8, N=M=1024, D=64, causal,
-// bf16) the work is 8 D operations per visible pair (s, dp, dv, dk):
-// 216 x 524,800 pairs, 58.0 GFLOP, 0.059 ms at the bf16 tensor-core peak,
-// against 56.6 MB of q/dO, 113.2 MB of k/v/dk/dv and 1.8 MB of lse/delta
-// (0.051 ms at 3.35 TB/s): bound by operations. This first version has no
-// copy pipeline and no wgmma; its q/dO tiles are re-read from device memory
-// (and L2) once per kv tile, as in the TPU kernel's grid.
+// Bounds at the training shape (B=27, H=8, N=M=1024, D=64, causal, bf16;
+// 113.4M visible pairs): bytes 171.6 MB (q, dO, k, v, lse, delta read; dk,
+// dv written) 0.051 ms at 3.35 TB/s; tensor cores 8 D operations per pair
+// (s, dp, dv, dk), 58.0 GFLOP, 0.059 ms at 989 TFLOP/s; exponential unit 2
+// transcendentals per pair (tanh, exp), 0.054 ms at 16 per clock per SM x
+// 132 SMs x 1.98 GHz. The tensor cores bind. As the kernel computes it, the
+// softclamp costs an exponential and a reciprocal, and the diagonal tiles
+// evaluate their masked halves: 3 x 120.3M special-function operations,
+// 0.086 ms, the floor of this design.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_sm90.cuh"
 
 namespace {
 
@@ -66,7 +95,7 @@ struct Params : MaskParams {
 };
 
 // rows of this block's kv tile that hold valid keys (< kv_len and < M)
-__device__ __forceinline__ int valid_keys(int k_start, const Params& p) {
+__device__ __forceinline__ int valid_keys(int k_start, const MaskParams& p) {
     return max(0, min(BK, min(p.kv_len, p.M) - k_start));
 }
 
@@ -360,10 +389,319 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// ------------------------------------- bf16, head dims 64 and 128: Hopper
+
+constexpr int SM90_THREADS = 160;  // one consumer warpgroup + one producer warp
+constexpr int STAGES = 2;          // q/dO/lse/delta ring depth (3 and 4 were no faster)
+constexpr int SM90_BQ = 32;        // q rows per streamed tile
+
+// Blocks per SM the compiler must fit: 3 at D = 64 caps a thread at 128
+// registers (no spills with 32-row q tiles); 64-row q tiles took 202
+// registers, 2 blocks per SM, and 1.4x the time at the training shape on
+// an H100.
+// D = 128 needs about 220 registers: 1 block.
+constexpr int sm90_min_blocks(int D) { return D == 64 ? 3 : 1; }
+
+struct Sm90Params : MaskParams {
+    CUtensorMap k, v;              // (B * H, min(kv_len, M), D), boxes of 64 rows
+    CUtensorMap q, dout;           // (B * Hq, N, D), boxes of the q tile's rows
+    const float* lse;
+    const float* delta;
+    bf16* dk;
+    bf16* dv;
+    int Hq, H;
+};
+
+// byte offsets in the block's shared memory (from a 1024-byte aligned base)
+template <int D>
+struct Sm90Layout {
+    static constexpr int BQ = SM90_BQ;
+    static constexpr int KTILE = BK * D * 2, KSLAB = BK * 128;
+    static constexpr int QTILE = BQ * D * 2, QSLAB = BQ * 128;
+    static constexpr int K = 0, V = KTILE;
+    static constexpr int Q = 2 * KTILE, DO = Q + STAGES * QTILE;
+    static constexpr int LSE = DO + STAGES * QTILE, DELTA = LSE + STAGES * BQ * 4;
+    static constexpr int BARS = DELTA + STAGES * BQ * 4;   // full, empty (STAGES each), resident
+    static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;   // + alignment slack
+};
+
+// P^T and dS^T of a 64-key x BQ-query tile as the A fragments of dV +=
+// P^T dO and dK += dS^T Q, in one pass (two passes, through p * (1 -
+// tanh^2) kept in the score registers, spilled at the 128-register cap):
+// pf[kk], dsf[kk] hold queries 16 kk .. 16 kk + 15 (s[4j + 2r + e]: key row
+// g + 8r, query q0 + 8j + e, whose lse and delta are lse_s[8j + 2t + e] and
+// delta_s[...]). Without MASKED every pair is visible.
+template <int BQ, bool MASKED, bool CLAMP>
+__device__ __forceinline__ void p_ds_fragments(uint32_t (&pf)[BQ / 16][4],
+                                               uint32_t (&dsf)[BQ / 16][4],
+                                               const float (&s)[BQ / 2], const float (&dp)[BQ / 2],
+                                               const float* lse_s, const float* delta_s, int t,
+                                               const int (&kj)[2], const bool (&k_sp)[2], int q0,
+                                               uint32_t q_sp, const MaskParams& p) {
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+        const float lse2[2] = {l2.x * LOG2E, l2.y * LOG2E};
+        const float delta[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float pr[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int idx = 4 * j + 2 * r + e;
+                float dscore;
+                pr[e] = backward_p<CLAMP>(s[idx], lse2[e], p, dscore);
+                ds[e] = pr[e] * (dp[idx] - delta[e]) * dscore;
+                if (MASKED && !visible_given(q0 + 8 * j + e, (q_sp >> (2 * j + e)) & 1u, kj[r],
+                                             k_sp[r], p)) {
+                    pr[e] = ds[e] = 0.f;
+                }
+            }
+            pf[j >> 1][(j & 1) * 2 + r] = pack_bf16x2(pr[0], pr[1]);
+            dsf[j >> 1][(j & 1) * 2 + r] = pack_bf16x2(ds[0], ds[1]);
+        }
+    }
+}
+
+template <int D, bool CLAMP>
+__global__ void __launch_bounds__(SM90_THREADS, sm90_min_blocks(D))
+    bwd_dkv_sm90(const __grid_constant__ Sm90Params p) {
+    using namespace sm90;
+    using L = Sm90Layout<D>;
+    constexpr int BQ = L::BQ;
+    constexpr int NS = D / 64;       // slabs per row
+    constexpr uint32_t SBO = 1024;   // bytes per 8-row group of a slab
+
+    extern __shared__ __align__(1024) uint8_t sm90_smem[];
+    uint8_t* sm = align_1024(sm90_smem);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+    uint64_t* empty = full + STAGES;
+    uint64_t* resident = empty + STAGES;
+
+    const int k_start = blockIdx.x * BK;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int groups = p.Hq / p.H;
+    const int bh = b * p.H + h;
+    const int q_lo = q_begin(k_start, BQ, p);
+    const int n_q = valid_keys(k_start, p) > 0 && q_lo < p.N ? (p.N - q_lo + BQ - 1) / BQ : 0;
+    const int n_tiles = groups * n_q;    // (query head, q tile) pairs the block walks
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1 + 32);   // the TMA's expect_tx, then each producer lane
+            mbar_init(&empty[s], 4);       // one arrival per consumer warp
+        }
+        mbar_init(resident, 1);
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (warp == 4) {   // producer: k, v once, then the q tiles through the ring
+        if (n_tiles == 0) return;
+        if (lane == 0) {
+            mbar_expect_tx(resident, 2 * L::KTILE);
+            for (int s = 0; s < NS; ++s) {
+                tma_load_3d(sm + L::K + s * L::KSLAB, &p.k, resident, 64 * s, k_start, bh);
+                tma_load_3d(sm + L::V + s * L::KSLAB, &p.v, resident, 64 * s, k_start, bh);
+            }
+        }
+        for (int i = 0; i < n_tiles; ++i) {
+            const int st = i % STAGES;
+            const int bhq = b * p.Hq + h * groups + i / n_q;
+            const int q_start = q_lo + (i % n_q) * BQ;
+            // lse and delta by plain loads (see the note at the top), issued
+            // before the wait for the stage
+            const size_t row0 = (size_t)bhq * p.N + q_start;
+            float lse_v[BQ / 32], delta_v[BQ / 32];
+#pragma unroll
+            for (int c = 0; c < BQ / 32; ++c) {
+                const bool in = q_start + lane + 32 * c < p.N;
+                lse_v[c] = in ? p.lse[row0 + lane + 32 * c] : 0.f;
+                delta_v[c] = in ? p.delta[row0 + lane + 32 * c] : 0.f;
+            }
+            mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+            if (lane == 0) {
+                mbar_expect_tx(&full[st], 2 * L::QTILE);
+                for (int s = 0; s < NS; ++s) {
+                    tma_load_3d(sm + L::Q + st * L::QTILE + s * L::QSLAB, &p.q, &full[st], 64 * s,
+                                q_start, bhq);
+                    tma_load_3d(sm + L::DO + st * L::QTILE + s * L::QSLAB, &p.dout, &full[st],
+                                64 * s, q_start, bhq);
+                }
+            }
+            float* lse_s = reinterpret_cast<float*>(sm + L::LSE + st * BQ * 4);
+            float* delta_s = reinterpret_cast<float*>(sm + L::DELTA + st * BQ * 4);
+#pragma unroll
+            for (int c = 0; c < BQ / 32; ++c) {
+                lse_s[lane + 32 * c] = lse_v[c];
+                delta_s[lane + 32 * c] = delta_v[c];
+            }
+            mbar_arrive(&full[st]);
+        }
+        return;
+    }
+
+    // consumer warpgroup: warp w owns key rows 16 w .. 16 w + 15
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int w_row = warp * 16;
+    int kj[2];
+    bool k_sp[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        kj[r] = k_start + w_row + g + 8 * r;
+        k_sp[r] = p.num_special > 0 && is_special(kj[r], p);
+    }
+
+    float dk[NS][32], dv[NS][32];    // [s][4j + 2r + e]: key row g + 8r, column 64 s + 8j + 2t + e
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dk[s][i] = dv[s][i] = 0.f;
+    }
+    if (n_tiles > 0) mbar_wait(resident, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES;
+        const int q_start = q_lo + (i % n_q) * BQ;
+        const uint8_t* qt = sm + L::Q + st * L::QTILE;
+        const uint8_t* dot = sm + L::DO + st * L::QTILE;
+        const float* lse_s = reinterpret_cast<const float*>(sm + L::LSE + st * BQ * 4);
+        const float* delta_s = reinterpret_cast<const float*>(sm + L::DELTA + st * BQ * 4);
+        mbar_wait(&full[st], (i / STAGES) & 1);
+
+        // S^T = K Q^T, dP^T = V dO^T. (Committing dP^T apart, to compute p
+        // and start dV while it runs, needed more registers than the cap of
+        // 128: it spilled and ran slower.)
+        float s_acc[BQ / 2], dp_acc[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            const int a_off = (kk / 4) * L::KSLAB + (kk % 4) * 32;
+            const int b_off = (kk / 4) * L::QSLAB + (kk % 4) * 32;
+            wgmma_ss_n32(s_acc, sw128_desc(sm + L::K + a_off, 16, SBO),
+                         sw128_desc(qt + b_off, 16, SBO), kk > 0);
+            wgmma_ss_n32(dp_acc, sw128_desc(sm + L::V + a_off, 16, SBO),
+                         sw128_desc(dot + b_off, 16, SBO), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+        fence_regs(dp_acc);
+
+        uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+        if (tile_all_visible(q_start, BQ, k_start, BK, p)) {
+            p_ds_fragments<BQ, false, CLAMP>(pf, dsf, s_acc, dp_acc, lse_s, delta_s, t, kj, k_sp, 0,
+                                             0u, p);
+        } else {
+            const int q0 = q_start + 2 * t;
+            uint32_t q_sp = 0;   // special flags of the thread's query columns
+            if (p.num_special > 0) {
+#pragma unroll
+                for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        q_sp |= (uint32_t)is_special(q0 + 8 * j + e + p.offset, p) << (2 * j + e);
+                    }
+                }
+            }
+            p_ds_fragments<BQ, true, CLAMP>(pf, dsf, s_acc, dp_acc, lse_s, delta_s, t, kj, k_sp, q0,
+                                            q_sp, p);
+        }
+
+        // dV += P^T dO, dK += dS^T Q: the dO and q tiles MN-major (their
+        // rows are the reduced queries)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            fence_regs(dk[s]);
+            fence_regs(dv[s]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+                const int off = s * L::QSLAB + kk * 16 * 128;
+                wgmma_rs_n64_mn(dv[s], pf[kk], sw128_desc(dot + off, L::QSLAB, SBO));
+                wgmma_rs_n64_mn(dk[s], dsf[kk], sw128_desc(qt + off, L::QSLAB, SBO));
+            }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            fence_regs(dk[s]);
+            fence_regs(dv[s]);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        if (kj[r] >= p.M) continue;
+        const size_t out = ((size_t)bh * p.M + kj[r]) * D;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int c = 64 * s + 8 * j + 2 * t;
+                *reinterpret_cast<uint32_t*>(p.dk + out + c) = pack_bf16x2(
+                    dk[s][4 * j + 2 * r] * p.scale, dk[s][4 * j + 2 * r + 1] * p.scale);
+                *reinterpret_cast<uint32_t*>(p.dv + out + c) =
+                    pack_bf16x2(dv[s][4 * j + 2 * r], dv[s][4 * j + 2 * r + 1]);
+            }
+        }
+    }
+}
+
+template <int D, bool CLAMP>
+cudaError_t launch_sm90_as(const Sm90Params& p, int B, cudaStream_t stream) {
+    constexpr int smem = Sm90Layout<D>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(bwd_dkv_sm90<D, CLAMP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.M + BK - 1) / BK, p.H, B);
+    bwd_dkv_sm90<D, CLAMP><<<grid, SM90_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_sm90(const Params& in, int B, cudaStream_t stream) {
+    constexpr int BQ = Sm90Layout<D>::BQ;
+    Sm90Params p;
+    static_cast<MaskParams&>(p) = in;
+    const int kv_rows = max(1, min(in.kv_len, in.M));
+    const bool maps =
+        sm90::make_rows_map(&p.k, in.k, D, in.M, kv_rows, B * in.H, BK) &&
+        sm90::make_rows_map(&p.v, in.v, D, in.M, kv_rows, B * in.H, BK) &&
+        sm90::make_rows_map(&p.q, in.q, D, in.N, in.N, B * in.Hq, BQ) &&
+        sm90::make_rows_map(&p.dout, in.dout, D, in.N, in.N, B * in.Hq, BQ);
+    if (!maps) return cudaErrorInvalidValue;
+    p.lse = in.lse;
+    p.delta = in.delta;
+    p.dk = static_cast<bf16*>(in.dk);
+    p.dv = static_cast<bf16*>(in.dv);
+    p.Hq = in.Hq;
+    p.H = in.H;
+    return in.softclamp > 0.f ? launch_sm90_as<D, true>(p, B, stream)
+                              : launch_sm90_as<D, false>(p, B, stream);
+}
+
 template <int D>
 cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
     if (dtype == 0) return launch_f32<D>(p, B, stream);
-    if (dtype == 1) return launch_bf16<D>(p, B, stream);
+    if (dtype == 1) {
+        if constexpr (D >= 64) {
+            return launch_sm90<D>(p, B, stream);
+        } else {
+            return launch_bf16<D>(p, B, stream);
+        }
+    }
     return cudaErrorInvalidValue;
 }
 

@@ -78,16 +78,21 @@ __device__ __forceinline__ float clamp_score(float dot, const MaskParams& p, flo
     return dot * p.scale;
 }
 
-// Whether query qi (q_special: its special flag) may attend to key kj.
-__device__ __forceinline__ bool visible(int qi, bool q_special, int kj, const MaskParams& p) {
+// Whether query qi may attend to key kj, given both special flags.
+__device__ __forceinline__ bool visible_given(int qi, bool q_special, int kj, bool k_special,
+                                              const MaskParams& p) {
     bool ok = qi < p.N && kj < p.kv_len && kj < p.M;
     if (p.causal) ok = ok && kj <= qi + p.offset;
     if (p.num_special > 0) {
-        const bool k_special = is_special(kj, p);
         ok = ok && (p.special_only_itself ? !(q_special && !k_special)
                                           : !(!q_special && k_special));
     }
     return ok;
+}
+
+// Whether query qi (q_special: its special flag) may attend to key kj.
+__device__ __forceinline__ bool visible(int qi, bool q_special, int kj, const MaskParams& p) {
+    return visible_given(qi, q_special, kj, p.num_special > 0 && is_special(kj, p), p);
 }
 
 // scale, softclamp, then the mask (the TPU kernel's order)
@@ -113,6 +118,38 @@ __device__ __forceinline__ int kv_end(int q_start, int q_rows, const MaskParams&
 __device__ __forceinline__ int q_begin(int k_start, int q_rows, const MaskParams& p) {
     if (!p.causal) return 0;
     return max(k_start - p.offset, 0) / q_rows * q_rows;
+}
+
+// Whether every pair of the q_rows x k_rows tile at (q_start, k_start) is
+// visible, so that the tile may skip the predicate: no special tokens, every
+// query and key in range, the tile wholly at or below the causal diagonal.
+__device__ __forceinline__ bool tile_all_visible(int q_start, int q_rows, int k_start, int k_rows,
+                                                 const MaskParams& p) {
+    return p.num_special == 0 && q_start + q_rows <= p.N &&
+           k_start + k_rows <= min(p.kv_len, p.M) &&
+           (!p.causal || k_start + k_rows - 1 <= q_start + p.offset);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The backward's p of one pair from its raw dot product s = q . k, with
+// the softclamp exactly as `clamp_score` takes it and log2(e) folded into
+// the LSE: lse2 = lse * log2(e), so p = 2^(log2(e) * score - lse2) costs one
+// FMA and one fast exponential (the softclamp adds one exponential and one
+// reciprocal). Returns p and, in `dscore`, the softclamp's derivative
+// 1 - tanh^2 (1 without one): ds = p * dscore * (dp - delta) is the
+// gradient of the scaled score. The mask is the caller's.
+template <bool CLAMP>
+__device__ __forceinline__ float backward_p(float dot, float lse2, const MaskParams& m,
+                                            float& dscore) {
+    if (CLAMP) {
+        const float e = exp2_approx(fminf(fmaxf(dot * m.tanh_k, -43.f), 43.f));
+        const float t = 1.f - __fdividef(2.f, e + 1.f);
+        dscore = 1.f - t * t;
+        return exp2_approx(fmaf(t, m.softclamp * LOG2E, -lse2));
+    }
+    dscore = 1.f;
+    return exp2_approx(fmaf(dot, m.scale * LOG2E, -lse2));
 }
 
 // ------------------------------------------------------------------ float32
@@ -153,6 +190,23 @@ __device__ __forceinline__ void load_bf16_tile(bf16* __restrict__ dst, const bf1
 
 __device__ __forceinline__ uint32_t ld_pair(const bf16* ptr) {
     return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+// acc + the dot product of 8 bf16 pairs (16 bytes each), in float32, in order
+__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b, float acc) {
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(pa[i]);
+        const float2 y = __bfloat1622float2(pb[i]);
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+    }
+    return acc;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -3,9 +3,9 @@
 
 `flash_attend` is differentiable. Its forward launches the hand-written
 CUDA kernel `csrc/flash_attn_fwd.cu` (K1), with the log-sum-exp when a
-gradient is needed; its backward (`flash_attend_bwd`) computes delta =
-rowsum(dO * O) and launches `csrc/flash_attn_bwd_dq.cu` (K2) and
-`csrc/flash_attn_bwd_dkv.cu` (K3). Each kernel has its plain PyTorch version
+gradient is needed; its backward (`flash_attend_bwd`) launches
+`csrc/flash_attn_bwd_dq.cu` (K2), which also computes delta = rowsum(dO * O),
+and `csrc/flash_attn_bwd_dkv.cu` (K3). Each kernel has its plain PyTorch version
 here (`flash_attend_reference`, `bwd_dq_reference`, `bwd_dkv_reference`),
 which a wrapper computes only for tensors on the CPU: on a CUDA tensor it
 launches the kernel or raises. The mask family is that of the TPU kernels:
@@ -102,11 +102,13 @@ def _scale_and_groups(q, k, scale):
     return (q.shape[-1] ** -0.5 if scale is None else scale), q.shape[-3] // k.shape[-3]
 
 
-def bwd_dq_reference(q, k, v, do, lse, delta, offset: int, kv_len: int, *, softclamp_value=50.0,
+def bwd_dq_reference(q, k, v, o, lse, do, offset: int, kv_len: int, *, softclamp_value=50.0,
                      causal=False, num_special=0, special_seq_len=0,
                      special_attend_only_itself=False, scale=None):
-    """Plain PyTorch version of K2: dq = scale * ds . k, ds rounded to k's
-    dtype and the product summed in float32, as the TPU kernel does."""
+    """Plain PyTorch version of K2: delta = `attention_delta(o, do)`, then
+    dq = scale * ds . k, ds rounded to k's dtype and the product summed in
+    float32, as the TPU kernel does. Returns (dq, delta)."""
+    delta = attention_delta(o, do)
     scale, groups = _scale_and_groups(q, k, scale)
     kx, vx = (t.repeat_interleave(groups, dim=-3) for t in (k, v))
     _, ds = _p_ds_reference(q, kx, vx, do, lse, delta, offset, kv_len,
@@ -114,7 +116,7 @@ def bwd_dq_reference(q, k, v, do, lse, delta, offset: int, kv_len: int, *, softc
                             num_special=num_special, special_seq_len=special_seq_len,
                             special_attend_only_itself=special_attend_only_itself, scale=scale)
     dq = torch.einsum('...ij,...jd->...id', ds.to(k.dtype).float(), kx.float())
-    return (dq * scale).to(q.dtype)
+    return (dq * scale).to(q.dtype), delta
 
 
 def bwd_dkv_reference(q, k, v, do, lse, delta, offset: int, kv_len: int, *, softclamp_value=50.0,
@@ -200,14 +202,13 @@ def _forward(q, k, v, offset, kv_len, *, return_lse, **cfg):
 
 
 def flash_attend_bwd(q, k, v, o, lse, do, offset: int, kv_len: int, **cfg):
-    """The backward of `flash_attend` from its saved output and LSE:
-    delta = rowsum(dO * O), then K2 (dq) and K3 (dk, dv). The LSE is an
-    input, so a caller may pass one it reduced itself (a ring's global
-    LSE). Returns (dq, dk, dv) in the input dtypes."""
+    """The backward of `flash_attend` from its saved output and LSE: K2
+    (dq, and delta = rowsum(dO * O)), then K3 (dk, dv) from that delta. The
+    LSE is an input, so a caller may pass one it reduced itself (a ring's
+    global LSE). Returns (dq, dk, dv) in the input dtypes."""
     do = do.contiguous()   # autograd may hand over a strided view
-    delta = attention_delta(o, do)
-    return (bwd_dq(q, k, v, do, lse, delta, offset, kv_len, **cfg),
-            *bwd_dkv(q, k, v, do, lse, delta, offset, kv_len, **cfg))
+    dq, delta = bwd_dq(q, k, v, o, lse, do, offset, kv_len, **cfg)
+    return (dq, *bwd_dkv(q, k, v, do, lse, delta, offset, kv_len, **cfg))
 
 
 class _FlashAttend(torch.autograd.Function):
@@ -243,7 +244,7 @@ def _kernel_entry(name: str):
     kv_len, scale, softclamp, causal, num_special, special_seq_len,
     special_only_itself and the stream."""
     from .cuda_build import load
-    n_ptr = {'flash_attn_fwd': 5, 'flash_attn_bwd_dq': 7, 'flash_attn_bwd_dkv': 8}[name]
+    n_ptr = {'flash_attn_fwd': 5, 'flash_attn_bwd_dq': 8, 'flash_attn_bwd_dkv': 8}[name]
     fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
@@ -266,11 +267,16 @@ def _check_cuda(q, named: dict):
         raise ValueError(f'head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}')
 
 
-def _check_bwd(q, k, v, do, lse, delta):
-    _check_cuda(q, dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta))
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError('do must match q in shape and dtype')
-    for name, t in (('lse', lse), ('delta', delta)):
+def _check_bwd(q, k, v, do, lse, *, o=None, delta=None):
+    """The backward kernels' inputs: do (and K2's o) like q; lse (and K3's
+    delta) float32 of shape q.shape[:-1]."""
+    like_q = {'do': do} if o is None else {'do': do, 'o': o}
+    stats = {'lse': lse} if delta is None else {'lse': lse, 'delta': delta}
+    _check_cuda(q, dict(q=q, k=k, v=v, **like_q, **stats))
+    for name, t in like_q.items():
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f'{name} must match q in shape and dtype')
+    for name, t in stats.items():
         if t.dtype != torch.float32 or tuple(t.shape) != tuple(q.shape[:-1]):
             raise ValueError(f'{name} must be float32 of shape {tuple(q.shape[:-1])}')
 
@@ -302,20 +308,21 @@ def _flash_attend_cuda(q, k, v, offset, kv_len, *, return_lse, **cfg):
     return (out, lse) if return_lse else out
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg):
+def _bwd_dq_cuda(q, k, v, o, lse, do, offset, kv_len, **cfg):
     global BWD_DQ_LAUNCHES
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, o=o)
     dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _launch('flash_attn_bwd_dq', (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+                                  o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, k, offset, kv_len, **cfg)
     BWD_DQ_LAUNCHES += 1
-    return dq
+    return dq, delta
 
 
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg):
     global BWD_DKV_LAUNCHES
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch('flash_attn_bwd_dkv', (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
@@ -325,12 +332,13 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg):
     return dk, dv
 
 
-def bwd_dq(q, k, v, do, lse, delta, offset: int, kv_len: int, **cfg):
+def bwd_dq(q, k, v, o, lse, do, offset: int, kv_len: int, **cfg):
     """K2's wrapper: the kernel on CUDA tensors, `bwd_dq_reference` on CPU
-    tensors."""
-    if _on_cpu(q, k, v, do, lse, delta):
-        return bwd_dq_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
-    return _bwd_dq_cuda(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    tensors. Returns (dq, delta), delta = rowsum(dO * O) in float32 for
+    `bwd_dkv`."""
+    if _on_cpu(q, k, v, o, lse, do):
+        return bwd_dq_reference(q, k, v, o, lse, do, offset, kv_len, **cfg)
+    return _bwd_dq_cuda(q, k, v, o, lse, do, offset, kv_len, **cfg)
 
 
 def bwd_dkv(q, k, v, do, lse, delta, offset: int, kv_len: int, **cfg):

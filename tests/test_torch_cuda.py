@@ -105,8 +105,9 @@ def test_rows_beyond_kv_len_do_not_reach_the_output(gen, dtype, n, kv_len, causa
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     q, k, v = qkv(gen, 1, 2, 2, 8, 8, 16, torch.float32)
     with pytest.raises(ValueError):   # the LSE of the backward is float32
-        fa.bwd_dq(q, k, v, q, torch.zeros(1, 2, 8, device='cuda').double(),
-                  torch.zeros(1, 2, 8, device='cuda'), 0, 8)
+        fa.bwd_dq(q, k, v, q, torch.zeros(1, 2, 8, device='cuda').double(), q, 0, 8)
+    with pytest.raises(ValueError):   # K2's o is like q
+        fa.bwd_dq(q, k, v, q.half(), torch.zeros(1, 2, 8, device='cuda'), q, 0, 8)
     with pytest.raises(ValueError):
         fa.flash_attend(q.detach().half(), k.half(), v.half(), 0, 8)
     with pytest.raises(ValueError):
@@ -139,9 +140,13 @@ def test_trunk_flash_branch_matches_plain_branch(gen):
 
 
 # K2 / K3: (B, Hq, H, N, M, D, offset, kv_len, mask config) of the kernel
-# phase of chip_smoke.py, cut in batch
+# phase of chip_smoke.py, cut in batch, and shapes the 64-row tiles of the
+# Hopper path must meet: a longer causal walk, N = M not a multiple of a
+# tile, head dim 128 with GQA, kv_len inside a tile at an offset
 BWD_CASES = {
     't1024': ((2, 8, 8, 1024, 1024, 64, 0, 1024), dict(causal=True)),
+    't2048': ((1, 8, 8, 2048, 2048, 64, 0, 2048), dict(causal=True)),
+    'n1000': ((2, 8, 8, 1000, 1000, 64, 0, 1000), dict(causal=True)),
     'gqa': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True)),
     'space_special': ((8, 8, 8, 144, 144, 64, 0, 144),
                       dict(num_special=1, special_seq_len=144)),
@@ -151,21 +156,38 @@ BWD_CASES = {
     'ragged_offset': ((3, 4, 2, 130, 192, 64, 20, 150),
                       dict(causal=True, num_special=2, special_seq_len=9)),
     'negative_offset': ((2, 4, 4, 100, 96, 64, -7, 96), dict(causal=True)),
+    'kv_len_in_tile_offset': ((2, 4, 4, 100, 256, 64, 37, 137), dict(causal=True)),
     'no_softclamp': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True, softclamp_value=None)),
     'head_dim_16': ((3, 4, 2, 77, 130, 16, 3, 101), dict(causal=True, softclamp_value=30.0)),
     'head_dim_32': ((3, 4, 2, 77, 130, 32, 3, 101), dict(causal=True, softclamp_value=30.0)),
     'head_dim_128': ((3, 4, 2, 77, 130, 128, 3, 101), dict(causal=True, softclamp_value=30.0)),
+    'head_dim_128_gqa_t512': ((2, 8, 2, 512, 512, 128, 0, 512), dict(causal=True)),
+    'head_dim_128_special': ((4, 8, 8, 144, 144, 128, 0, 144),
+                             dict(num_special=1, special_seq_len=144)),
 }
 
 
 def bwd_inputs(gen, shape, dtype, cfg):
     """q, k, v, dO and the forward's o, lse (from the plain version, so that
-    kernel and plain version see the same inputs) and delta."""
+    kernel and plain version see the same inputs)."""
     B, Hq, H, N, M, D, offset, kv_len = shape
     q, k, v = qkv(gen, B, Hq, H, N, M, D, dtype)
     do = torch.randn((B, Hq, N, D), generator=gen, device='cuda').to(dtype)
     o, lse = fa.flash_attend_reference(q, k, v, offset, kv_len, return_lse=True, **cfg)
-    return q, k, v, do, o, lse, fa.attention_delta(o, do)
+    return q, k, v, do, o, lse
+
+
+def run_backward(q, k, v, do, o, lse, offset, kv_len, cfg):
+    """K2 then K3 from K2's delta, as `flash_attend_bwd` runs them: (dq, dk,
+    dv, delta)."""
+    dq, delta = fa.bwd_dq(q, k, v, o, lse, do, offset, kv_len, **cfg)
+    dk, dv = fa.bwd_dkv(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    return dq, dk, dv, delta
+
+
+def plain_backward(q, k, v, do, o, lse, offset, kv_len, cfg):
+    ref_dq, delta = fa.bwd_dq_reference(q, k, v, o, lse, do, offset, kv_len, **cfg)
+    return (ref_dq, *fa.bwd_dkv_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg))
 
 
 def rel_err(out, ref):
@@ -178,15 +200,12 @@ def rel_err(out, ref):
 def test_backward_kernels_match_plain_versions(gen, case, dtype):
     shape, cfg = BWD_CASES[case]
     offset, kv_len = shape[6], shape[7]
-    q, k, v, do, o, lse, delta = bwd_inputs(gen, shape, dtype, cfg)
+    inputs = bwd_inputs(gen, shape, dtype, cfg)
     before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
-    dq = fa.bwd_dq(q, k, v, do, lse, delta, offset, kv_len, **cfg)
-    dk, dv = fa.bwd_dkv(q, k, v, do, lse, delta, offset, kv_len, **cfg)
+    dq, dk, dv, _ = run_backward(*inputs, offset, kv_len, cfg)
     torch.cuda.synchronize()
     assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    ref_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
-    ref_dk, ref_dv = fa.bwd_dkv_reference(q, k, v, do, lse, delta, offset, kv_len, **cfg)
-    for out, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+    for out, ref in zip((dq, dk, dv), plain_backward(*inputs, offset, kv_len, cfg)):
         assert out.dtype == dtype and out.shape == ref.shape
         assert bool(torch.isfinite(out).all())
         assert rel_err(out, ref) <= GRAD_TOL[dtype]
@@ -194,21 +213,48 @@ def test_backward_kernels_match_plain_versions(gen, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_rows_beyond_kv_len_do_not_reach_the_gradients(gen, dtype):
-    """Non-finite values in cache rows at and beyond kv_len reach none of
-    dq, dk, dv; those rows get zero gradients."""
-    shape, cfg = (2, 4, 4, 96, 192, 64, 0, 96), dict(causal=True)
-    q, k, v, do, o, lse, delta = bwd_inputs(gen, shape, dtype, cfg)
-    ref_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, 0, 96, **cfg)
-    ref_dk, ref_dv = fa.bwd_dkv_reference(q, k, v, do, lse, delta, 0, 96, **cfg)
-    k[:, :, 96:] = float('nan')
-    v[:, :, 96:] = float('inf')
-    dq = fa.bwd_dq(q, k, v, do, lse, delta, 0, 96, **cfg)
-    dk, dv = fa.bwd_dkv(q, k, v, do, lse, delta, 0, 96, **cfg)
-    for out, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+@pytest.mark.parametrize('case', ['t1024', 'n1000', 'head_dim_16', 'head_dim_128_gqa_t512'])
+def test_k2_delta_matches_attention_delta(gen, case, dtype):
+    """The delta K2 writes is rowsum(dO * O) in float32; it differs from
+    `attention_delta` by the order of the float32 sums only."""
+    shape, cfg = BWD_CASES[case]
+    q, k, v, do, o, lse = bwd_inputs(gen, shape, dtype, cfg)
+    _, delta = fa.bwd_dq(q, k, v, o, lse, do, shape[6], shape[7], **cfg)
+    ref = fa.attention_delta(o, do)
+    assert delta.dtype == torch.float32 and delta.shape == ref.shape
+    assert rel_err(delta, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['t1024', 'ragged_offset', 'head_dim_128_gqa_t512'])
+def test_backward_is_bitwise_reproducible(gen, case, dtype):
+    """No atomics: two runs of K2 and K3 on the same inputs give the same
+    bits of dq, dk, dv and delta."""
+    shape, cfg = BWD_CASES[case]
+    inputs = bwd_inputs(gen, shape, dtype, cfg)
+    first = run_backward(*inputs, shape[6], shape[7], cfg)
+    second = run_backward(*inputs, shape[6], shape[7], cfg)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('d, kv_len', [(64, 96), (64, 100), (128, 77)])
+def test_rows_beyond_kv_len_do_not_reach_the_gradients(gen, dtype, d, kv_len):
+    """Non-finite values in cache rows at and beyond kv_len (also inside a
+    64-row tile) reach none of dq, dk, dv; those rows get zero gradients."""
+    shape, cfg = (2, 4, 4, 96, 192, d, 0, kv_len), dict(causal=True)
+    q, k, v, do, o, lse = bwd_inputs(gen, shape, dtype, cfg)
+    refs = plain_backward(q, k, v, do, o, lse, 0, kv_len, cfg)
+    k[:, :, kv_len:] = float('nan')
+    v[:, :, kv_len:] = float('inf')
+    dq, dk, dv, _ = run_backward(q, k, v, do, o, lse, 0, kv_len, cfg)
+    for out, ref in zip((dq, dk, dv), refs):
         assert bool(torch.isfinite(out).all())
         assert rel_err(out, ref) <= GRAD_TOL[dtype]
-    assert not bool(dk[:, :, 96:].any()) and not bool(dv[:, :, 96:].any())
+    assert not bool(dk[:, :, kv_len:].any()) and not bool(dv[:, :, kv_len:].any())
 
 
 @pytest.mark.cuda

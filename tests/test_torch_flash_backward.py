@@ -1,10 +1,12 @@
 """The port's flash-attention backward against the JAX one.
 
-Two things are held against the JAX package at float32 on the CPU:
-  - the port's plain backward (`flash_attend_bwd` on CPU tensors: delta,
-    then the plain versions of K2 and K3) against JAX's fused
-    `flash_attend_bwd` (the Pallas kernels in interpret mode), both given the
-    same q, k, v, output, LSE and output gradient;
+Three things are held against the JAX package at float32 on the CPU:
+  - the port's plain backward (`flash_attend_bwd` on CPU tensors: the plain
+    versions of K2, which derives delta from the output, and K3) against
+    JAX's fused `flash_attend_bwd` (the Pallas kernels in interpret mode),
+    both given the same q, k, v, output, LSE and output gradient;
+  - the wrappers `bwd_dq` (taking o, returning dq and delta) and `bwd_dkv`
+    (taking that delta) called one by one, against the same;
   - the port's differentiable `flash_attend` (its `torch.autograd.Function`)
     under `torch.autograd.grad` against `jax.grad` of the JAX `flash_attend`
     custom VJP.
@@ -78,6 +80,33 @@ def test_plain_backward_matches_jax_fused_backward(case):
                                   torch.from_numpy(np.array(lse)[..., :N]),
                                   torch.from_numpy(g), offset, kv_len, **cfg)
     for jx, tx in zip(j_grads, t_grads):
+        assert tx.shape == jx.shape and tx.dtype == torch.float32
+        assert_close(jx, tx.numpy())
+
+
+@pytest.mark.parametrize('case', list(CASES))
+def test_wrappers_match_jax_fused_backward(case):
+    """The wrappers' own contract on CPU tensors: `bwd_dq` takes the output
+    and returns (dq, delta), delta derived from o by the plain version;
+    `bwd_dkv` takes that delta. Held against JAX's fused backward, and the
+    delta against `attention_delta` exactly."""
+    shape, cfg = CASES[case]
+    offset, kv_len = shape[6], shape[7]
+    q, k, v, g = make_inputs(4, shape)
+    cfg = full_cfg(cfg)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out, lse = j_flash_attend_fwd(jq, jk, jv, jnp.int32(offset), jnp.int32(kv_len),
+                                  return_lse=True, interpret=True, **cfg)
+    j_grads = j_flash_attend_bwd(jq, jk, jv, out, lse, jg, jnp.int32(offset),
+                                 jnp.int32(kv_len), interpret=True, **cfg)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    to = torch.from_numpy(np.array(out))
+    tlse = torch.from_numpy(np.array(lse)[..., :q.shape[2]])
+    dq, delta = fa.bwd_dq(tq, tk, tv, to, tlse, tg, offset, kv_len, **cfg)
+    dk, dv = fa.bwd_dkv(tq, tk, tv, tg, tlse, delta, offset, kv_len, **cfg)
+    assert delta.dtype == torch.float32 and delta.shape == tlse.shape
+    torch.testing.assert_close(delta, fa.attention_delta(to, tg), atol=0, rtol=0)
+    for jx, tx in zip(j_grads, (dq, dk, dv)):
         assert tx.shape == jx.shape and tx.dtype == torch.float32
         assert_close(jx, tx.numpy())
 
