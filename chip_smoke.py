@@ -17,12 +17,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
                the matrix operations at the tensor-core (or float32) peak,
                and the transcendentals (2 per pair with a softclamp, else 1)
                on the exponential unit, 16 per clock per SM at the card's
-               maximum SM clock; the line says which binds.
+               maximum SM clock; the line says which binds. Each K1 line
+               names the kernel `k1_variant` chose (f32, mma or sm90); the
+               bf16 cases at t1024, s=144 and the prefill must take the
+               wgmma kernel.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
                b16 x T192 rollout with a 96-frame prompt, whose prompt pass
-               runs K1 on both time layers. Then the same prompt pass runs
+               runs K1 on both time layers, each launch of the wgmma kernel.
+               Then the same prompt pass runs
                in bf16 with the kernel and with the plain attention, each
                held against the pass in float32.
   4. train   — builds the bench world model with float32 master weights and
@@ -30,7 +34,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                long-sequence step) through `BehaviorCloneTrainer`: one plain
                and one shortcut step through the train-step function, then
                one `train_on_batch`. Both time layers run K1 with its LSE
-               and K2 and K3 on every step. The plain step's loss and
+               and K2 and K3 on every step; every K1 launch of a step must
+               be of the wgmma kernel. The plain step's loss and
                time-layer gradients through the kernels are held against
                float32, and both variants are timed.
   5. tokenizer — builds the bench tokenizer (dim 512, 64 x 64, patch 8, 16
@@ -53,12 +58,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
                `flex_attention`, flex's backward). K4 and K5 run for tens
                of microseconds, so their times (and the library's) are
                device times under torch.profiler. Then the device times of
-               K2, K3 and flex's backward at t1024 bf16, beside phase 2's
+               K1 and flex_attention at t1024, s=144 and the prefill bf16,
+               and of K2, K3 and flex's backward at t1024 bf16, beside phase 2's
                CUDA-event times. The profiler can leave a cost on every
                later launch of the process, so this phase runs last, after
                every timed model phase.
-Launch counts (K1 to K5) are set to 0 just before each rollout, encode,
-decode and train step and read just after.
+Launch counts (K1 to K5, and K1's by variant) are set to 0 just before
+each rollout, encode, decode and train step and read just after.
 
 The last three lines of standard output are a JSON line with one entry per
 kernel, the card's name and power limit, and the result line
@@ -68,6 +74,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -340,16 +347,16 @@ def flex_call(q, k, v, offset, kv_len, cfg, options):
 
 
 def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_ms):
-    """(name, ms, max abs error against the plain version) of the one PyTorch
-    call that computes K1's function here, timed by `timer`; ms is None
-    where no setting of it compiles or agrees with the plain version within
-    the kernel's tolerance."""
+    """(name, ms, max abs error against the plain version, callable) of the
+    one PyTorch call that computes K1's function here, timed by `timer`; ms
+    and the callable are None where no setting of it compiles or agrees with
+    the plain version within the kernel's tolerance."""
     if cfg['softclamp_value'] is None:
         candidates = [('sdpa', sdpa_call(q, k, v, mask))]
     else:
         candidates = [(f'flex {o}', flex_call(q, k, v, offset, kv_len, cfg, o))
                       for o in FLEX_OPTIONS[q.dtype]]
-    best = ('-', None, None)
+    best = ('-', None, None, None)
     for name, fn in candidates:
         try:
             err = (fn().float() - ref.float()).abs().max().item()
@@ -361,17 +368,25 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
             continue
         ms = timer(fn)
         if best[1] is None or ms < best[1]:
-            best = (name, ms, err)
+            best = (name, ms, err, fn)
     return best
+
+
+# K1 cases that must take the wgmma kernel in bf16, and whose device time
+# is taken beside flex_attention's in the last phase
+K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only_itself=True',
+                 'prefill')
 
 
 def run_kernel_phase():
     """K1 against `flash_attend_reference` on every case; returns the
-    measurements of each case by (name, dtype)."""
+    measurements of each case by (name, dtype), and the callables of K1 and
+    flex_attention at the bf16 `K1_SM90_CASES` for the device times of the
+    last phase."""
     from dreamer4_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device='cuda').manual_seed(0)
-    results, failures = {}, []
+    results, failures, device_calls = {}, [], {}
     for name, dtype, c in kernel_cases():
         B, Hq, H, N, M, D = (c[x] for x in ('B', 'Hq', 'H', 'N', 'M', 'D'))
         q, k, v = (torch.randn(shape, generator=gen, device='cuda').to(dtype)
@@ -382,7 +397,9 @@ def run_kernel_phase():
                    special_attend_only_itself=c.get('special_attend_only_itself', False))
         want_lse = c.get('lse', False)
         off, kvl = c['offset'], c['kv_len']
+        before = dict(fa.K1_LAUNCHES)
         out = fa.flash_attend(q, k, v, off, kvl, return_lse=want_lse, **cfg)
+        variant, = (x for x, n in fa.K1_LAUNCHES.items() if n != before[x])
         ref = fa.flash_attend_reference(q, k, v, off, kvl, return_lse=want_lse, **cfg)
         torch.cuda.synchronize()
         if want_lse:
@@ -395,28 +412,48 @@ def run_kernel_phase():
             lse_err = (lse - ref_lse).abs().max().item()
             ok = ok and lse_err <= LSE_TOL
             line_lse = f' lse_err {lse_err:.2e} (tol {LSE_TOL:.0e})'
-        ms = cuda_time_ms(lambda: fa.flash_attend(q, k, v, off, kvl, **cfg))
+        kernel = functools.partial(fa.flash_attend, q, k, v, off, kvl, **cfg)
+        ms = cuda_time_ms(kernel)
         plain_ms = cuda_time_ms(lambda: fa.flash_attend_reference(q, k, v, off, kvl, **cfg))
         mask = fa.attend_mask(N, M, off, kvl, device='cuda', **{
             x: cfg[x] for x in ('causal', 'num_special', 'special_seq_len',
                                 'special_attend_only_itself')})
         # SDPA takes no softclamp; flex_attention takes it as a score_mod
-        lib_name, library_ms, lib_err = time_library(q, k, v, off, kvl, cfg, mask, ref, tol)
+        lib_name, library_ms, lib_err, lib_fn = time_library(q, k, v, off, kvl, cfg, mask, ref,
+                                                             tol)
         lib = ('library -' if library_ms is None else
                f'library {library_ms:.4f} ms ({lib_name}, its err {lib_err:.1e})')
         bound_ms, bound_by, unit, _ = attention_bound_ms(q, k, mask, cfg['softclamp_value'],
                                                          want_lse)
-        log(f'K1 {name:<34} {str(dtype).split(".")[-1]:<8} max_abs_err {err:.3e} '
+        if dtype == torch.bfloat16 and name in K1_SM90_CASES:
+            ok = ok and variant == 'sm90'
+            device_calls[name] = (kernel, lib_fn)
+        log(f'K1 {name:<34} {str(dtype).split(".")[-1]:<8} {variant:<5} max_abs_err {err:.3e} '
             f'(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms {lib} '
             f'bound {bound_ms:.4f} ms ({unit}){line_lse}' + ('' if ok else '  FAIL'))
         if not ok:
             failures.append(f'{name}/{dtype}')
         results[(name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       library_ms=library_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)
+                                      bound_by=bound_by, variant=variant)
     if failures:
         raise SystemExit(f'kernel phase failed: {failures}')
-    return results
+    return results, device_calls
+
+
+def forward_device_times(results, calls):
+    """Device times under torch.profiler of K1 (its wgmma kernel) and of
+    flex_attention (all the kernels of one call) at the bf16
+    `K1_SM90_CASES`, into `results`; run after the timed model phases, as
+    `device_ms` can leave a cost on later launches."""
+    for name, (kernel, flex) in calls.items():
+        row = results[(name, torch.bfloat16)]
+        row['device_ms'] = device_ms(kernel, 'flash_fwd_sm90')
+        row['library_device_ms'] = None if flex is None else device_ms(flex)
+        lib = ('flex_attention -' if flex is None else
+               f'flex_attention {row["library_device_ms"]:.4f} ms '
+               f'({row["device_ms"] / row["library_device_ms"]:.2f}x)')
+        log(f'K1 {name} bf16 device time: K1 {row["device_ms"]:.4f} ms vs {lib}')
 
 
 # ------------------------------------------------------- backward kernels
@@ -696,18 +733,22 @@ def run_model_phase(seed: int = 0) -> dict:
         exp = generate(model, gen, **kw, **extra)
         torch.cuda.synchronize()
         launches[name] = read_counts()
+        variants = read_k1_variants()
         p_len = P if extra else 0
         check_experience(exp, kw['batch_size'], kw['time_steps'], p_len, model.dim,
                          model.latent_shape, prompt=extra or None)
         if launches[name] != want:
             raise SystemExit(f'{name} rollout launched (K1..K5) {launches[name]} times, '
                              f'expected {want}')
+        if variants != ({'sm90': want[0]} if want[0] else {}):
+            raise SystemExit(f'{name} rollout: K1 ran as {variants}, not all on the wgmma '
+                             'kernel')
         sec = host_time_s(lambda: generate(model, gen, **kw, **extra), reps)
         env_steps = kw['batch_size'] * (kw['time_steps'] - p_len)
         log(f'rollout {name:<9} b{kw["batch_size"]} T{kw["time_steps"]} P{p_len} '
             f'steps {kw["num_steps"]}: (K1..K5) launches {launches[name]} (expected '
-            f'{want}), {sec * 1e3:.1f} ms/rollout, {env_steps / sec:.1f} env-steps/s '
-            f'(mean of {reps} after a first run)')
+            f'{want}; K1 by variant {variants}), {sec * 1e3:.1f} ms/rollout, '
+            f'{env_steps / sec:.1f} env-steps/s (mean of {reps} after a first run)')
 
     errors, ms_k, ms_p = compare_prefill(model, prompt, PROMPTED['time_steps'])
     ok = True
@@ -727,7 +768,8 @@ def run_model_phase(seed: int = 0) -> dict:
 def zero_counts():
     from dreamer4_torch.ops import flash_attention as fa
     from dreamer4_torch.ops import small_attention as sa
-    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.K1_LAUNCHES = dict.fromkeys(fa.K1_VARIANTS, 0)
     sa.FWD_LAUNCHES = sa.BWD_LAUNCHES = 0
 
 
@@ -735,8 +777,14 @@ def read_counts() -> tuple[int, int, int, int, int]:
     """(K1, K2, K3, K4, K5) launches since the last `zero_counts`."""
     from dreamer4_torch.ops import flash_attention as fa
     from dreamer4_torch.ops import small_attention as sa
-    return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES, sa.FWD_LAUNCHES,
-            sa.BWD_LAUNCHES)
+    return (sum(fa.K1_LAUNCHES.values()), fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
+            sa.FWD_LAUNCHES, sa.BWD_LAUNCHES)
+
+
+def read_k1_variants() -> dict[str, int]:
+    """K1 launches by variant since the last `zero_counts`, those launched."""
+    from dreamer4_torch.ops import flash_attention as fa
+    return {v: n for v, n in fa.K1_LAUNCHES.items() if n}
 
 
 # -------------------------------------------------------------------- train
@@ -846,14 +894,18 @@ def run_train_phase(seed: int = 0) -> dict:
                                            generator=trainer.generator)
         torch.cuda.synchronize()
         launches[name] = read_counts()
+        variants = read_k1_variants()
         n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before,
                             name)
         want = LAUNCHES_PER_STEP[shortcut]
         log(f'{name}: loss {loss.item():.5f} (flow {losses.flow.item():.5f}, shortcut '
             f'{losses.shortcut.item():.5f}); {n_grad} parameters with a gradient, all moved '
-            f'with their EMA; (K1..K5) launches {launches[name]} (expected {want})')
+            f'with their EMA; (K1..K5) launches {launches[name]} (expected {want}); K1 by '
+            f'variant {variants} (expected all sm90)')
         if launches[name] != want:
             raise SystemExit(f'{name} launched (K1..K5) {launches[name]}, expected {want}')
+        if variants != {'sm90': want[0]}:
+            raise SystemExit(f'{name}: K1 ran as {variants}, not all on the wgmma kernel')
         del before, ema_before
 
     # the trainer's own branch draw: numpy default_rng(seed), untouched so far
@@ -941,7 +993,8 @@ def time_small_library(q, k, v, do, h, mask, cfg, ref, grad_refs, tol, grad_tol)
     n = mask.shape[0]
     qh, kh, vh = (to_heads(t, h) for t in (q, k, v))
     ref_h = to_heads(ref, h)
-    lib_name, fwd_ms, _ = time_library(qh, kh, vh, 0, n, cfg, mask, ref_h, tol, timer=device_ms)
+    lib_name, fwd_ms, _, _ = time_library(qh, kh, vh, 0, n, cfg, mask, ref_h, tol,
+                                          timer=device_ms)
     bwd_ms = None
     if cfg['softclamp_value'] is not None:
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -1237,11 +1290,16 @@ def main() -> int:
     log(f'# build {", ".join(f"{n}.cu" for n in builds)}: {time.perf_counter() - t0:.1f} s '
         '(one nvcc each, in parallel)')
     for name, (_, build_log) in builds.items():
+        kernel = ''
         for line in build_log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                log(f'#   {name}: {line.strip()}')
+            # ptxas names each kernel (mangled) before its stack, spill and register lines
+            entry = re.search(r"entry function '.*?_cu_[0-9a-f]+\d+(\w+?)EvN", line)
+            if entry:
+                kernel = entry.group(1)
+            elif 'registers' in line or 'spill' in line or 'wgmma' in line:
+                log(f'#   {name} {kernel}: {line.strip()}')
 
-    kernel_results = run_kernel_phase()
+    kernel_results, k1_device_calls = run_kernel_phase()
     main_shape = kernel_results[('prefill', torch.bfloat16)]
     if main_shape['library_ms'] is None:
         raise SystemExit('no library yardstick at the prefill shape')
@@ -1252,6 +1310,7 @@ def main() -> int:
     launches = {**run_model_phase(), **run_train_phase(), **run_tokenizer_phase(),
                 **run_wm_fused_phase()}
     small_results = run_small_kernel_phase()
+    forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)
     small_shape = small_results[('tok_time', torch.bfloat16)]
     if small_shape['fwd']['library_ms'] is None or small_shape['bwd']['library_ms'] is None:
@@ -1259,10 +1318,14 @@ def main() -> int:
     totals = [sum(c[i] for c in launches.values()) for i in range(5)]
     by_path = lambda i: {path: c[i] for path, c in launches.items() if c[i]}
 
+    k1_at = {name: {x: kernel_results[(name, torch.bfloat16)][x]
+                    for x in ('ms', 'device_ms', 'library_ms', 'library_device_ms', 'bound_ms')}
+             for name in K1_SM90_CASES}
     kernels = [dict(name='K1 flash_attn_fwd', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:86',
-                    launches=totals[0], launches_by_path=by_path(0), **main_shape),
+                    launches=totals[0], launches_by_path=by_path(0), **main_shape,
+                    at_other_shapes=k1_at),
                dict(name='K2 flash_attn_bwd_dq', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_bwd_dq.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:269',

@@ -599,16 +599,8 @@ __global__ void __launch_bounds__(SM90_THREADS, sm90_min_blocks(D))
                                              0u, p);
         } else {
             const int q0 = q_start + 2 * t;
-            uint32_t q_sp = 0;   // special flags of the thread's query columns
-            if (p.num_special > 0) {
-#pragma unroll
-                for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        q_sp |= (uint32_t)is_special(q0 + 8 * j + e + p.offset, p) << (2 * j + e);
-                    }
-                }
-            }
+            // special flags of the thread's query columns
+            const uint32_t q_sp = p.num_special > 0 ? special_bits<BQ / 8>(q0 + p.offset, p) : 0u;
             p_ds_fragments<BQ, true, CLAMP>(pf, dsf, s_acc, dp_acc, lse_s, delta_s, t, kj, k_sp, q0,
                                             q_sp, p);
         }

@@ -571,16 +571,8 @@ __global__ void __launch_bounds__(SM90_THREADS, sm90_min_blocks(D))
             p_times_dscore<false, CLAMP>(s_acc, lse2, qi, q_sp, 0, 0u, p);
         } else {
             const int k0 = k_start + 2 * t;
-            uint32_t k_sp = 0;   // special flags of the thread's 16 key columns
-            if (p.num_special > 0) {
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-#pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        k_sp |= (uint32_t)is_special(k0 + 8 * j + e, p) << (2 * j + e);
-                    }
-                }
-            }
+            // special flags of the thread's 16 key columns
+            const uint32_t k_sp = p.num_special > 0 ? special_bits<8>(k0, p) : 0u;
             p_times_dscore<true, CLAMP>(s_acc, lse2, qi, q_sp, k0, k_sp, p);
         }
         wgmma_wait<0>();

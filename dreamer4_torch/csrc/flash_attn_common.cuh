@@ -120,14 +120,50 @@ __device__ __forceinline__ int q_begin(int k_start, int q_rows, const MaskParams
     return max(k_start - p.offset, 0) / q_rows * q_rows;
 }
 
+// Whether some position of [start, start + len) is a special token
+// (num_special > 0): the first position at or after `start` whose residue
+// reaches special_seq_len - num_special lies inside.
+__device__ __forceinline__ bool range_has_special(int start, int len, const MaskParams& p) {
+    const int first = p.special_seq_len - p.num_special;
+    const int r = pos_mod(start, p.special_seq_len);
+    return len > 0 && (r >= first || first - r < len);
+}
+
+// The special flags of positions c0 + 8 j + e (j < J, e < 2), the columns
+// a thread holds in an accumulator tile, as bit 2 j + e: one pos_mod, then
+// the residue advanced by addition.
+template <int J>
+__device__ __forceinline__ uint32_t special_bits(int c0, const MaskParams& p) {
+    const int L = p.special_seq_len;
+    const int first = L - p.num_special;
+    int r = pos_mod(c0, L);
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            bits |= (uint32_t)(r >= first) << (2 * j + e);
+            r += e == 0 ? 1 : 7;
+            while (r >= L) r -= L;
+        }
+    }
+    return bits;
+}
+
 // Whether every pair of the q_rows x k_rows tile at (q_start, k_start) is
-// visible, so that the tile may skip the predicate: no special tokens, every
-// query and key in range, the tile wholly at or below the causal diagonal.
+// visible, so that the tile may skip the predicate: every query and key in
+// range, the tile wholly at or below the causal diagonal, and no pair taken
+// away by the special tokens. Those take away a special query's non-special
+// keys (special_only_itself), else a non-special query's special keys, so a
+// tile without special query rows, or without special key columns, loses
+// none.
 __device__ __forceinline__ bool tile_all_visible(int q_start, int q_rows, int k_start, int k_rows,
                                                  const MaskParams& p) {
-    return p.num_special == 0 && q_start + q_rows <= p.N &&
-           k_start + k_rows <= min(p.kv_len, p.M) &&
-           (!p.causal || k_start + k_rows - 1 <= q_start + p.offset);
+    const bool in_range = q_start + q_rows <= p.N && k_start + k_rows <= min(p.kv_len, p.M) &&
+                          (!p.causal || k_start + k_rows - 1 <= q_start + p.offset);
+    if (!in_range || p.num_special == 0) return in_range;
+    return p.special_only_itself ? !range_has_special(q_start + p.offset, q_rows, p)
+                                 : !range_has_special(k_start, k_rows, p);
 }
 
 constexpr float LOG2E = 1.4426950408889634f;

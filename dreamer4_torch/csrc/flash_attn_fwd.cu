@@ -17,34 +17,65 @@
 //
 // Layout: q, o (B, Hq, N, D); k, v (B, H, M, D); lse (B, Hq, N); all
 // contiguous. D is 16, 32, 64 or 128; the element type is float32 or bf16.
+// Tiles wholly beyond kv_len or above the causal diagonal are never loaded;
+// ragged N and M edges are masked inside the kernel. As in the TPU kernel,
+// the probabilities are rounded to the input type before the PV product and
+// the row sum uses them unrounded. The TPU kernel's blocking (128-lane LSE
+// padding, D padded to 128) is not carried over. Three kernels, chosen by
+// the caller (`k1_variant` in ops/flash_attention.py):
 //
-// Design. One block per (q tile of 64 rows, q head, batch) walks the kv
-// tiles of 64 rows in order, stages each in shared memory and keeps the
-// running max, sum and output accumulator of its rows in registers. Tiles
-// wholly beyond kv_len or above the causal diagonal are never loaded; ragged
-// N and M edges are masked inside the kernel. As in the TPU kernel, the
-// probabilities are rounded to the input type before the PV product and the
-// row sum uses them unrounded. The TPU kernel's blocking (128-lane LSE
-// padding, D padded to 128) is not carried over.
-//   bf16: four warps, 16 query rows each, on the tensor cores
-//     (`mma.sync.m16n8k16`, float32 accumulation). Q stays in registers as
-//     A fragments; the score accumulators are reused as the A fragments of
-//     the PV product, so P never leaves registers; V's B fragments come
-//     from the row-major tile through `ldmatrix.trans`.
-//   float32: 256 threads on the float32 cores, four threads per query row,
-//     the tiles staged as float32 (the tensor cores have no float32 mode
-//     that keeps the reference's precision).
+// sm90: bf16, head dims 64 and 128, any N down to a single query:
+//   `flash_fwd_sm90`. One block per (q tile of 64 rows, q head, batch), three
+//   blocks per SM, three ring stages, as measured on an H100 (PERF.md): two
+//   consumer warpgroups per block fit two blocks per SM only at 96
+//   registers, where ptxas spills and serializes the wgmma pipeline.
+//   - One producer warp loads the block's q tile once, then the k and v
+//     tiles of 64 rows by TMA (cp.async.bulk.tensor) through a ring of STAGES
+//     stages with full and empty mbarriers. The k/v tensor maps end at
+//     min(kv_len, M), so TMA writes zeros for the rows past it and a NaN in
+//     an unused cache row cannot reach O; tiles no query of the block sees
+//     are never requested.
+//   - One consumer warpgroup (4 warps, 16 query rows each) on `wgmma`:
+//     S = Q K^T with both operands K-major in shared memory; the softclamp,
+//     the mask and the online softmax (log2 units, log2(e) folded into one
+//     constant) on the accumulator registers; O += P V with P re-packed to
+//     bf16 as the register A operand and the v tile as the MN-major B
+//     operand. Tile i's
+//     S is issued together with P V of tile i - 1, so the exponentials of
+//     tile i run while the tensor cores work on that product; p stays in
+//     the float32 score registers until the product completed and is
+//     packed to bf16 only then (rewriting the A operand of an in-flight
+//     wgmma makes ptxas serialize the pipeline). Registers at D = 64: S 32,
+//     O 32, P 16, held to 128 (three blocks per SM).
+//   - Tiles wholly inside the visible region skip the predicate (also with
+//     special tokens, where the tile holds no special row or column that
+//     loses a pair); the others take each column's special flag once per
+//     tile. Each thread keeps its share of the row sums and reduces them
+//     across its row's four lanes once, at the end. Blocks run the longest
+//     causal walk of each head first (the q tile index counts down).
+// mma: bf16, any head dim (head dims 16/32 on the port's path):
+//   `flash_fwd_bf16`, four warps, 16 query rows each, on
+//   `mma.sync.m16n8k16`. Q stays in registers as A fragments; the score
+//   accumulators are reused as the A fragments of the PV product; V's B
+//   fragments come from the row-major tile through `ldmatrix.trans`; plain
+//   16-byte loads without a copy pipeline.
+// f32: `flash_fwd_f32`, 256 threads on the float32 cores, four threads per
+//   query row, the tiles staged as float32 (the tensor cores have no float32
+//   mode that keeps the reference's precision).
 //
-// Bound. At the rollout's prefill shape (B=432, H=8, N=96, M=192, D=64,
-// bf16, causal, kv_len=96) the kernel must read q and the 96 valid k/v rows
-// and write o: 4 x 42.5 MB = 170 MB, 51 us at 3.35 TB/s, against 4.1 GFLOP
-// of causal score and PV work (4 us at the bf16 tensor-core peak). So it is
-// bound by bytes: the design reads each q/k/v element once per block from
-// device memory and keeps scores and probabilities out of it. Loads are
-// plain 16-byte loads without a copy pipeline (cp.async or TMA); occupancy
-// alone hides their latency.
+// Bounds. At the train step's time attention (B=27, H=8, N=M=1024, D=64,
+// bf16, causal, softclamp 50; 113.4M visible pairs): bytes 0.034 ms at
+// 3.35 TB/s, tensor work (4 D operations per pair) 0.029 ms at 989 TFLOP/s,
+// 2 transcendentals per pair (tanh, exp) 0.054 ms on the exponential unit
+// (16 per clock per SM x 132 SMs x 1.98 GHz): the exponential unit binds.
+// As the kernel computes it, the softclamp costs an exponential and a
+// reciprocal and the diagonal tiles evaluate their masked halves: 3 x 120.3M
+// special-function operations, 0.086 ms, the floor of this design. At the
+// rollout's prefill (B=432, H=8, N=96, M=192, kv_len=96) bytes bind: 170 MB,
+// 0.051 ms.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_sm90.cuh"
 
 namespace {
 
@@ -365,23 +396,396 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// ------------------------------------- bf16, head dims 64 and 128: Hopper
+
+constexpr int SM90_THREADS = 160;   // one consumer warpgroup (64 query rows) + one producer warp
+// k/v ring depth: 2 stages were 6-10% slower at the training shape on an
+// H100, 4 no faster (scripts/time_torch_flash.py, PERF.md)
+constexpr int STAGES = 3;
+
+// Blocks per SM the compiler must fit: 3 at D = 64 caps a thread at 128
+// registers without spills; 4 (96 registers) spill and were slower. At
+// D = 128 a block takes 113 KB of shared memory: 1 per SM.
+constexpr int sm90_min_blocks(int D) { return D == 64 ? 3 : 1; }
+
+__device__ __forceinline__ float rcp_approx(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// a masked score in log2 units: NEG_INF * log2(e), so that the LSE of a row
+// that sees no key is NEG_INF + log(l), as in the other kernels
+constexpr float MASKED2 = NEG_INF * LOG2E;
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Sm90Params : MaskParams {
+    CUtensorMap q;                 // (B * Hq, N, D), boxes of 64 rows
+    CUtensorMap k, v;              // (B * H, min(kv_len, M), D), boxes of 64 rows
+    bf16* o;
+    float* lse;                    // null: no LSE
+    float score_k;                 // log2(e) * softclamp, or log2(e) * scale without one
+    int Hq, H;
+};
+
+// byte offsets in the block's shared memory (from a 1024-byte aligned base)
 template <int D>
-cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
-    if (dtype == 0) return launch_f32<D>(p, B, stream);
-    if (dtype == 1) return launch_bf16<D>(p, B, stream);
+struct Sm90Layout {
+    static constexpr int TILE = BQ * D * 2;     // a 64-row tile (BQ == BK)
+    static constexpr int SLAB = 64 * 128;       // one 64-column slab of it
+    static constexpr int Q = 0;
+    static constexpr int K = TILE, V = K + STAGES * TILE;
+    static constexpr int BARS = V + STAGES * TILE;    // full, empty (STAGES each), resident
+    static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;   // + alignment slack
+};
+
+// S = Q K^T of one 64 x 64 tile (s[4j + 2r + e]: row g + 8r of the warp, key
+// 8j + 2t + e), both K-major, as one commit group
+template <int D>
+__device__ __forceinline__ void scores_async(float (&s)[32], const uint8_t* qt, const uint8_t* kt) {
+    using namespace sm90;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * Sm90Layout<D>::SLAB + (kk % 4) * 32;
+        wgmma_ss_n64(s, sw128_desc(qt + off, 16, 1024), sw128_desc(kt + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+}
+
+// O += P V of one tile as one commit group: P from registers (pf[kk]: keys
+// 16 kk .. 16 kk + 15), the v tile MN-major (its rows are the reduced keys)
+template <int D>
+__device__ __forceinline__ void pv_async(float (&o)[D / 64][32], const uint32_t (&pf)[4][4],
+                                         const uint8_t* vt) {
+    using namespace sm90;
+    constexpr int SLAB = Sm90Layout<D>::SLAB;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int s = 0; s < D / 64; ++s) {
+            wgmma_rs_n64_mn(o[s], pf[kk], sw128_desc(vt + s * SLAB + kk * 16 * 128, SLAB, 1024));
+        }
+    }
+    wgmma_commit();
+}
+
+// The mask of one query row on a tile of 64 keys (the row's 16 columns k0 +
+// 8 j + e in a thread): the row sees keys below `limit` (kv_len, M, the
+// causal diagonal; 0 for a row past N) among the columns whose bit 2 j + e
+// is set in `cols` (the special-token rule).
+struct RowMask {
+    int limit;
+    uint32_t cols;
+};
+
+// The masks of the thread's two rows qi[r] (q_sp: their special flags) on
+// the tile of 64 keys at k_start: one pos_mod for the special flags of the
+// thread's 16 columns, then per row the columns the special-token rule
+// leaves, as `visible_given` decides.
+__device__ __forceinline__ void row_masks(RowMask (&rm)[2], const int (&qi)[2],
+                                          const bool (&q_sp)[2], int k0, const MaskParams& p) {
+    const uint32_t k_sp = p.num_special > 0 ? special_bits<8>(k0, p) : 0u;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        int limit = min(p.kv_len, p.M);
+        if (p.causal) limit = min(limit, qi[r] + p.offset + 1);
+        rm[r].limit = qi[r] < p.N ? limit : 0;
+        rm[r].cols = 0xffffu;
+        if (p.num_special > 0) {
+            if (p.special_only_itself && q_sp[r]) rm[r].cols = k_sp;     // special keys only
+            if (!p.special_only_itself && !q_sp[r]) rm[r].cols = ~k_sp;  // no special key
+        }
+    }
+}
+
+// One tile's online-softmax step, in place on its raw scores s (s[4j + 2r +
+// e]: row r of the thread, key k0 + 8j + e): each score in log2 units (the
+// softclamp as `clamp_score` takes it, c (1 - 2 / (e + 1)) with e = 2^(tanh_k
+// dot), without its clamp of the exponent to [-43, 43]: beyond it tanh
+// rounds to +-1 in float32 either way, and e = 0 or +inf gives -1 or 1 here;
+// MASKED2 where masked), the row maxima
+// m2 raised, alpha = 2^(old max - new max), this thread's share of the row
+// sums l rescaled and increased, and s replaced by p = 2^(score - max).
+// Without MASKED every pair is visible.
+template <bool MASKED, bool CLAMP>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m2)[2], float (&l)[2],
+                                             float (&alpha)[2], const RowMask (&rm)[2], int k0,
+                                             const Sm90Params& p) {
+    float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int idx = 4 * j + 2 * r + e;
+                float x;
+                if (CLAMP) {
+                    const float ex = exp2_approx(s[idx] * p.tanh_k);
+                    x = fmaf(rcp_approx(ex + 1.f), -2.f * p.score_k, p.score_k);
+                } else {
+                    x = s[idx] * p.score_k;
+                }
+                const int c = 2 * j + e;
+                if (MASKED && !(k0 + 8 * j + e < rm[r].limit && ((rm[r].cols >> c) & 1u))) {
+                    x = MASKED2;
+                }
+                s[idx] = x;
+                mx[r] = fmaxf(mx[r], x);
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        // the four lanes of a row group hold its 64 scores
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2_approx(m2[r] - mx[r]);
+        m2[r] = mx[r];
+        l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int idx = 4 * j + 2 * r + e;
+                s[idx] = exp2_approx(s[idx] - m2[r]);
+                l[r] += s[idx];
+            }
+        }
+    }
+}
+
+template <bool CLAMP>
+__device__ __forceinline__ void softmax_step(float (&s)[32], float (&m2)[2], float (&l)[2],
+                                             float (&alpha)[2], const int (&qi)[2],
+                                             const bool (&q_sp)[2], int q_start, int k_start,
+                                             int t, const Sm90Params& p) {
+    if (tile_all_visible(q_start, 64, k_start, BK, p)) {
+        const RowMask all[2] = {};
+        softmax_tile<false, CLAMP>(s, m2, l, alpha, all, 0, p);
+    } else {
+        const int k0 = k_start + 2 * t;
+        RowMask rm[2];
+        row_masks(rm, qi, q_sp, k0, p);
+        softmax_tile<true, CLAMP>(s, m2, l, alpha, rm, k0, p);
+    }
+}
+
+// p rounded to bf16 as the A fragments of O += P V (pf[kk]: keys 16 kk ..
+// 16 kk + 15)
+__device__ __forceinline__ void p_fragments(uint32_t (&pf)[4][4], const float (&s)[32]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            pf[j >> 1][(j & 1) * 2 + r] = pack_bf16x2(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+        }
+    }
+}
+
+template <int D, bool CLAMP>
+__global__ void __launch_bounds__(SM90_THREADS, sm90_min_blocks(D))
+    flash_fwd_sm90(const __grid_constant__ Sm90Params p) {
+    using namespace sm90;
+    using L = Sm90Layout<D>;
+    constexpr int NS = D / 64;       // slabs per row
+
+    extern __shared__ __align__(1024) uint8_t sm90_smem[];
+    uint8_t* sm = align_1024(sm90_smem);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+    uint64_t* empty = full + STAGES;
+    uint64_t* resident = empty + STAGES;
+
+    const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;   // the longest causal walk first
+    const int hq = blockIdx.y;
+    const int b = blockIdx.z;
+    const int bhq = b * p.Hq + hq;
+    const int bh = b * p.H + hq / (p.Hq / p.H);
+    const int n_tiles = (kv_end(q_start, BQ, p) + BK - 1) / BK;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 4);   // one arrival per consumer warp
+        }
+        mbar_init(resident, 1);
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (warp == 4) {   // producer: the q tile once, then the kv tiles through the ring
+        if (lane == 0) {
+            mbar_expect_tx(resident, L::TILE);
+            for (int s = 0; s < NS; ++s) {
+                tma_load_3d(sm + L::Q + s * L::SLAB, &p.q, resident, 64 * s, q_start, bhq);
+            }
+            for (int i = 0; i < n_tiles; ++i) {
+                const int st = i % STAGES;
+                mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[st], 2 * L::TILE);
+                for (int s = 0; s < NS; ++s) {
+                    tma_load_3d(sm + L::K + st * L::TILE + s * L::SLAB, &p.k, &full[st], 64 * s,
+                                i * BK, bh);
+                    tma_load_3d(sm + L::V + st * L::TILE + s * L::SLAB, &p.v, &full[st], 64 * s,
+                                i * BK, bh);
+                }
+            }
+        }
+        return;
+    }
+
+    // consumer warpgroup: warp w owns query rows 16 w .. 16 w + 15
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint8_t* qt = sm + L::Q;
+
+    int qi[2];
+    bool q_sp[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        qi[r] = q_start + warp * 16 + g + 8 * r;
+        q_sp[r] = p.num_special > 0 && is_special(qi[r] + p.offset, p);
+    }
+    float m2[2] = {MASKED2, MASKED2};
+    float l[2] = {0.f, 0.f};
+    float alpha[2];
+    float o[NS][32];                 // o[s][4j + 2r + e]: row qi[r], column 64 s + 8j + 2t + e
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[s][i] = 0.f;
+    }
+    const auto release = [&](int i) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+    };
+    mbar_wait(resident, 0);   // also where no tile is computed: no copy outlives the block
+
+    if (n_tiles > 0) {
+        float s[32];
+        uint32_t pf[4][4];
+        mbar_wait(&full[0], 0);
+        wgmma_fence();
+        scores_async<D>(s, qt, sm + L::K);
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax_step<CLAMP>(s, m2, l, alpha, qi, q_sp, q_start, 0, t, p);
+        p_fragments(pf, s);
+
+        for (int i = 1; i < n_tiles; ++i) {
+            const int st = i % STAGES;
+            const uint8_t* v_prev = sm + L::V + ((i - 1) % STAGES) * L::TILE;
+            mbar_wait(&full[st], (i / STAGES) & 1);
+            // S of tile i, then P V of tile i - 1: this tile's exponentials
+            // run while the tensor cores work on the product. P's fragments
+            // are rewritten only after that product completed.
+            fence_regs(s);
+#pragma unroll
+            for (int sl = 0; sl < NS; ++sl) fence_regs(o[sl]);
+            wgmma_fence();
+            scores_async<D>(s, qt, sm + L::K + st * L::TILE);
+            pv_async<D>(o, pf, v_prev);
+            wgmma_wait<1>();
+            fence_regs(s);
+            softmax_step<CLAMP>(s, m2, l, alpha, qi, q_sp, q_start, i * BK, t, p);
+            wgmma_wait<0>();
+#pragma unroll
+            for (int sl = 0; sl < NS; ++sl) {
+                fence_regs(o[sl]);
+#pragma unroll
+                for (int x = 0; x < 32; ++x) o[sl][x] *= alpha[(x >> 1) & 1];
+            }
+            release(i - 1);
+            p_fragments(pf, s);
+        }
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl) fence_regs(o[sl]);
+        wgmma_fence();
+        pv_async<D>(o, pf, sm + L::V + ((n_tiles - 1) % STAGES) * L::TILE);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl) fence_regs(o[sl]);
+        release(n_tiles - 1);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        // the row's sum over its four lanes' shares
+        float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+        lr = fmaxf(lr + __shfl_xor_sync(0xffffffffu, lr, 2), 1e-30f);
+        if (qi[r] >= p.N) continue;
+        bf16* orow = p.o + ((size_t)bhq * p.N + qi[r]) * D;
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                *reinterpret_cast<uint32_t*>(orow + 64 * sl + 8 * j + 2 * t) = pack_bf16x2(
+                    o[sl][4 * j + 2 * r] / lr, o[sl][4 * j + 2 * r + 1] / lr);
+            }
+        }
+        if (p.lse != nullptr && t == 0) {
+            p.lse[(size_t)bhq * p.N + qi[r]] = m2[r] * LN2 + logf(lr);
+        }
+    }
+}
+
+template <int D, bool CLAMP>
+cudaError_t launch_sm90_as(const Sm90Params& p, int B, cudaStream_t stream) {
+    constexpr int smem = Sm90Layout<D>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90<D, CLAMP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.N + BQ - 1) / BQ, p.Hq, B);
+    flash_fwd_sm90<D, CLAMP><<<grid, SM90_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_sm90(const Params& in, int B, cudaStream_t stream) {
+    Sm90Params p;
+    static_cast<MaskParams&>(p) = in;
+    const int kv_rows = max(1, min(in.kv_len, in.M));
+    const bool maps = sm90::make_rows_map(&p.q, in.q, D, in.N, in.N, B * in.Hq, BQ) &&
+                      sm90::make_rows_map(&p.k, in.k, D, in.M, kv_rows, B * in.H, BK) &&
+                      sm90::make_rows_map(&p.v, in.v, D, in.M, kv_rows, B * in.H, BK);
+    if (!maps) return cudaErrorInvalidValue;
+    p.o = static_cast<bf16*>(in.o);
+    p.lse = in.lse;
+    p.score_k = LOG2E * (in.softclamp > 0.f ? in.softclamp : in.scale);
+    p.Hq = in.Hq;
+    p.H = in.H;
+    return in.softclamp > 0.f ? launch_sm90_as<D, true>(p, B, stream)
+                              : launch_sm90_as<D, false>(p, B, stream);
+}
+
+// variant: 0 = f32 (float32), 1 = mma (bf16), 2 = sm90 (bf16, D 64 or 128)
+template <int D>
+cudaError_t launch(const Params& p, int B, int dtype, int variant, cudaStream_t stream) {
+    if (variant == 0 && dtype == 0) return launch_f32<D>(p, B, stream);
+    if (variant == 1 && dtype == 1) return launch_bf16<D>(p, B, stream);
+    if constexpr (D >= 64) {
+        if (variant == 2 && dtype == 1) return launch_sm90<D>(p, B, stream);
+    }
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16.
-// softclamp <= 0 means no softclamp. lse may be null. Returns the CUDA error
-// code of the launch (0 on success); the launch is asynchronous on `stream`.
+// Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16;
+// variant: the kernel, 0 = f32, 1 = mma, 2 = sm90 (see above; one that does
+// not take dtype and D is refused). softclamp <= 0 means no softclamp. lse
+// may be null. Returns the CUDA error code of the launch (0 on success); the
+// launch is asynchronous on `stream`.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int Hq, int H, int N, int M, int D, int dtype, int offset,
                               int kv_len, float scale, float softclamp, int causal,
                               int num_special, int special_seq_len, int special_only_itself,
-                              void* stream) {
+                              int variant, void* stream) {
     if (B <= 0 || Hq <= 0 || H <= 0 || N <= 0 || M <= 0 || Hq % H != 0) {
         return (int)cudaErrorInvalidValue;
     }
@@ -400,10 +804,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     p.H = H;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 16: return (int)launch<16>(p, B, dtype, s);
-        case 32: return (int)launch<32>(p, B, dtype, s);
-        case 64: return (int)launch<64>(p, B, dtype, s);
-        case 128: return (int)launch<128>(p, B, dtype, s);
+        case 16: return (int)launch<16>(p, B, dtype, variant, s);
+        case 32: return (int)launch<32>(p, B, dtype, variant, s);
+        case 64: return (int)launch<64>(p, B, dtype, variant, s);
+        case 128: return (int)launch<128>(p, B, dtype, variant, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

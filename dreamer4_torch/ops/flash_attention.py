@@ -3,7 +3,8 @@
 
 `flash_attend` is differentiable. Its forward launches the hand-written
 CUDA kernel `csrc/flash_attn_fwd.cu` (K1), with the log-sum-exp when a
-gradient is needed; its backward (`flash_attend_bwd`) launches
+gradient is needed, in the variant `k1_variant` picks for the shape; its
+backward (`flash_attend_bwd`) launches
 `csrc/flash_attn_bwd_dq.cu` (K2), which also computes delta = rowsum(dO * O),
 and `csrc/flash_attn_bwd_dkv.cu` (K3). Each kernel has its plain PyTorch version
 here (`flash_attend_reference`, `bwd_dq_reference`, `bwd_dkv_reference`),
@@ -22,12 +23,33 @@ import torch
 
 from .attention import naive_attend
 
+# K1's kernels, in the order of their code in the C entry point: float32 on
+# the float32 cores; bf16 on `mma.sync`; bf16 at head dims 64 and 128 on
+# `wgmma` fed by TMA (Hopper only)
+K1_VARIANTS = ('f32', 'mma', 'sm90')
+
 # kernel launches since the last reset; one per launch of each CUDA kernel
-LAUNCHES = 0            # K1, the forward
+K1_LAUNCHES = dict.fromkeys(K1_VARIANTS, 0)   # K1, the forward, by variant
 BWD_DQ_LAUNCHES = 0     # K2
 BWD_DKV_LAUNCHES = 0    # K3
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# bf16 at these head dims runs on the wgmma kernel at every N: measured on an
+# H100 (scripts/time_torch_flash.py, PERF.md) it is the faster bf16 kernel
+# down to one query (decode N = 1: 0.031 against 0.051 ms per call at 10x the
+# batch; GQA 8/4 at N = M = 128: 0.015 against 0.032), and back-to-back calls
+# of both issue at the same host rate (0.03-0.08 ms)
+SM90_HEAD_DIMS = (64, 128)
+
+
+def k1_variant(N: int, M: int, D: int, dtype: torch.dtype) -> str:
+    """The K1 kernel for a forward of N queries over M keys at head dim D.
+    Measured so far, the choice depends on D and the dtype only."""
+    if dtype == torch.float32:
+        return 'f32'
+    if D in SM90_HEAD_DIMS:
+        return 'sm90'
+    return 'mma'
 
 
 def attend_mask(N: int, M: int, offset: int, kv_len: int, *, causal=False, num_special=0,
@@ -237,19 +259,24 @@ class _FlashAttend(torch.autograd.Function):
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.cache
-def _kernel_entry(name: str):
-    """The entry point `name` of the built `csrc/<name>.cu`, its C signature
-    declared once: n_ptr pointers, then B, Hq, H, N, M, D, dtype, offset,
+def declare_entry(fn, name: str):
+    """Declares the C signature of the entry point `name` on the ctypes
+    function `fn`: n_ptr pointers, then B, Hq, H, N, M, D, dtype, offset,
     kv_len, scale, softclamp, causal, num_special, special_seq_len,
-    special_only_itself and the stream."""
-    from .cuda_build import load
-    n_ptr = {'flash_attn_fwd': 5, 'flash_attn_bwd_dq': 8, 'flash_attn_bwd_dkv': 8}[name]
-    fn = getattr(load(name), name)
+    special_only_itself, K1's variant code, and the stream."""
+    n_ptr, n_extra = {'flash_attn_fwd': (5, 1), 'flash_attn_bwd_dq': (8, 0),
+                      'flash_attn_bwd_dkv': (8, 0)}[name]
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * (4 + n_extra) + [ctypes.c_void_p])
     return fn
+
+
+@functools.cache
+def _kernel_entry(name: str):
+    """The entry point `name` of the built `csrc/<name>.cu`, declared once."""
+    from .cuda_build import load
+    return declare_entry(getattr(load(name), name), name)
 
 
 def _check_cuda(q, named: dict):
@@ -281,8 +308,9 @@ def _check_bwd(q, k, v, do, lse, *, o=None, delta=None):
             raise ValueError(f'{name} must be float32 of shape {tuple(q.shape[:-1])}')
 
 
-def _launch(name, pointers, q, k, offset, kv_len, *, softclamp_value=50.0, causal=False,
-            num_special=0, special_seq_len=0, special_attend_only_itself=False, scale=None):
+def _launch(name, pointers, q, k, offset, kv_len, *, extra=(), softclamp_value=50.0,
+            causal=False, num_special=0, special_seq_len=0, special_attend_only_itself=False,
+            scale=None):
     B, Hq, N, D = q.shape
     H, M = k.shape[1], k.shape[2]
     L = special_seq_len if special_seq_len > 0 else M
@@ -290,21 +318,21 @@ def _launch(name, pointers, q, k, offset, kv_len, *, softclamp_value=50.0, causa
         *pointers, B, Hq, H, N, M, D, _DTYPE_CODES[q.dtype], offset, kv_len,
         float(D ** -0.5 if scale is None else scale),
         float(softclamp_value) if softclamp_value is not None else 0.0,
-        int(causal), int(num_special), int(L), int(special_attend_only_itself),
+        int(causal), int(num_special), int(L), int(special_attend_only_itself), *extra,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{name} launch failed with CUDA error {err}')
 
 
 def _flash_attend_cuda(q, k, v, offset, kv_len, *, return_lse, **cfg):
-    global LAUNCHES
     _check_cuda(q, dict(q=q, k=k, v=v))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if return_lse else None
+    variant = k1_variant(q.shape[2], k.shape[2], q.shape[3], q.dtype)
     _launch('flash_attn_fwd', (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                lse.data_ptr() if lse is not None else None),
-            q, k, offset, kv_len, **cfg)
-    LAUNCHES += 1
+            q, k, offset, kv_len, extra=(K1_VARIANTS.index(variant),), **cfg)
+    K1_LAUNCHES[variant] += 1
     return (out, lse) if return_lse else out
 
 

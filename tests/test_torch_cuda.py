@@ -39,6 +39,10 @@ def gen():
     return torch.Generator(device='cuda').manual_seed(0)
 
 
+def k1_launches():
+    return sum(fa.K1_LAUNCHES.values())
+
+
 def qkv(gen, b, hq, h, n, m, d, dtype):
     return tuple(torch.randn(shape, generator=gen, device='cuda').to(dtype)
                  for shape in ((b, hq, n, d), (b, h, m, d), (b, h, m, d)))
@@ -52,9 +56,9 @@ def test_kernel_matches_plain_version(gen, dtype, d):
     buffer and periodic special tokens, with the LSE."""
     q, k, v = qkv(gen, 3, 4, 2, 70, 90, d, dtype)
     cfg = dict(softclamp_value=50.0, causal=True, num_special=1, special_seq_len=9)
-    before = fa.LAUNCHES
+    before = k1_launches()
     out, lse = fa.flash_attend(q, k, v, 5, 80, return_lse=True, **cfg)
-    assert fa.LAUNCHES == before + 1
+    assert k1_launches() == before + 1
     ref, ref_lse = fa.flash_attend_reference(q, k, v, 5, 80, return_lse=True, **cfg)
     assert out.dtype == dtype and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
@@ -101,6 +105,117 @@ def test_rows_beyond_kv_len_do_not_reach_the_output(gen, dtype, n, kv_len, causa
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+# K1's wgmma kernel (`k1_variant` 'sm90'): (B, Hq, H, N, M, D, offset,
+# kv_len, mask config) of the shapes its 64-row tiles and warpgroups must
+# meet: the train step's time attention and a longer walk, ragged N = M,
+# head dim 128 with GQA, kv_len inside a tile, both signs of the offset,
+# special tokens in both directions, the rollout's prefill, a cached decode
+# step and a handful of query rows in one tile
+K1_SM90_CASES = {
+    't1024': ((2, 8, 8, 1024, 1024, 64, 0, 1024), dict(causal=True)),
+    't2048': ((1, 8, 8, 2048, 2048, 64, 0, 2048), dict(causal=True)),
+    'n1000': ((2, 8, 8, 1000, 1000, 64, 0, 1000), dict(causal=True)),
+    'head_dim_128_gqa': ((2, 8, 4, 512, 512, 128, 0, 512), dict(causal=True)),
+    'head_dim_128_ragged': ((3, 4, 2, 77, 130, 128, 3, 101),
+                            dict(causal=True, softclamp_value=30.0)),
+    'kv_len_in_tile_offset': ((2, 4, 4, 100, 256, 64, 37, 137), dict(causal=True)),
+    'negative_offset': ((2, 4, 4, 100, 96, 64, -7, 96), dict(causal=True)),
+    'space_special': ((4, 8, 8, 144, 144, 64, 0, 144), dict(num_special=1, special_seq_len=144)),
+    'space_special_only_itself': ((4, 8, 8, 144, 144, 64, 0, 144),
+                                  dict(num_special=1, special_seq_len=144,
+                                       special_attend_only_itself=True)),
+    'special_period_offset': ((3, 4, 2, 130, 192, 64, 20, 150),
+                              dict(causal=True, num_special=2, special_seq_len=9)),
+    'prefill': ((8, 8, 8, 96, 192, 64, 0, 96), dict(causal=True)),
+    'decode': ((8, 8, 8, 1, 192, 64, 4, 5), dict(causal=True)),
+    'few_queries_gqa': ((3, 8, 4, 13, 200, 128, 150, 163), dict(causal=True)),
+    'no_softclamp': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True, softclamp_value=None)),
+}
+
+
+def seen_rows(shape, cfg):
+    """The query rows that see some key: a row that sees none has no
+    softmax, and the kernels and the plain version fill it differently."""
+    B, Hq, H, N, M, D, offset, kv_len = shape
+    return fa.attend_mask(N, M, offset, kv_len, device='cuda', **{
+        x: cfg[x] for x in ('causal', 'num_special', 'special_seq_len',
+                            'special_attend_only_itself') if x in cfg}).any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(K1_SM90_CASES))
+def test_sm90_forward_matches_plain_version(gen, monkeypatch, case):
+    """bf16 through the wgmma kernel (forced where `k1_variant` would route
+    the shape elsewhere), o and its LSE."""
+    shape, cfg = K1_SM90_CASES[case]
+    B, Hq, H, N, M, D, offset, kv_len = shape
+    monkeypatch.setattr(fa, 'k1_variant', lambda *_: 'sm90')
+    q, k, v = qkv(gen, B, Hq, H, N, M, D, torch.bfloat16)
+    before = fa.K1_LAUNCHES['sm90']
+    out, lse = fa.flash_attend(q, k, v, offset, kv_len, return_lse=True, **cfg)
+    torch.cuda.synchronize()
+    assert fa.K1_LAUNCHES['sm90'] == before + 1
+    ref, ref_lse = fa.flash_attend_reference(q, k, v, offset, kv_len, return_lse=True, **cfg)
+    rows = seen_rows(shape, cfg)
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float())[:, :, rows].abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - ref_lse)[:, :, rows].abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['mma', 'sm90'])
+@pytest.mark.parametrize('case', ['t1024', 'special_period_offset', 'head_dim_128_ragged',
+                                  'prefill', 'decode'])
+def test_bf16_variants_agree(gen, monkeypatch, case, variant):
+    """Either bf16 kernel, forced, at the same shape: each within the bf16
+    tolerance of the plain version."""
+    shape, cfg = K1_SM90_CASES[case]
+    B, Hq, H, N, M, D, offset, kv_len = shape
+    monkeypatch.setattr(fa, 'k1_variant', lambda *_: variant)
+    q, k, v = qkv(gen, B, Hq, H, N, M, D, torch.bfloat16)
+    before = fa.K1_LAUNCHES[variant]
+    out = fa.flash_attend(q, k, v, offset, kv_len, **cfg)
+    assert fa.K1_LAUNCHES[variant] == before + 1
+    ref = fa.flash_attend_reference(q, k, v, offset, kv_len, **cfg)
+    assert (out.float() - ref.float())[:, :, seen_rows(shape, cfg)].abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d, kv_len', [(64, 100), (64, 128), (128, 77)])
+def test_sm90_rows_beyond_kv_len_do_not_reach_the_output(gen, monkeypatch, d, kv_len):
+    """The wgmma kernel's k/v tensor maps end at kv_len: NaN and Inf in the
+    cache rows after it (also inside a 64-row tile) reach no output."""
+    monkeypatch.setattr(fa, 'k1_variant', lambda *_: 'sm90')
+    q, k, v = qkv(gen, 2, 4, 4, 256, 320, d, torch.bfloat16)
+    k_zero, v_zero = k.clone(), v.clone()
+    k_zero[:, :, kv_len:] = 0
+    v_zero[:, :, kv_len:] = 0
+    k[:, :, kv_len:] = float('nan')
+    v[:, :, kv_len:] = float('inf')
+    before = fa.K1_LAUNCHES['sm90']
+    out, lse = fa.flash_attend(q, k, v, 0, kv_len, return_lse=True)
+    assert fa.K1_LAUNCHES['sm90'] == before + 1
+    ref, ref_lse = fa.flash_attend_reference(q, k_zero, v_zero, 0, kv_len, return_lse=True)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['t1024', 'special_period_offset', 'head_dim_128_gqa'])
+def test_sm90_forward_is_bitwise_reproducible(gen, monkeypatch, case):
+    """Nothing is summed across blocks: two runs of the wgmma kernel give
+    the same bits of o and the LSE."""
+    monkeypatch.setattr(fa, 'k1_variant', lambda *_: 'sm90')
+    shape, cfg = K1_SM90_CASES[case]
+    B, Hq, H, N, M, D, offset, kv_len = shape
+    q, k, v = qkv(gen, B, Hq, H, N, M, D, torch.bfloat16)
+    first = fa.flash_attend(q, k, v, offset, kv_len, return_lse=True, **cfg)
+    second = fa.flash_attend(q, k, v, offset, kv_len, return_lse=True, **cfg)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     q, k, v = qkv(gen, 1, 2, 2, 8, 8, 16, torch.float32)
@@ -128,9 +243,9 @@ def test_trunk_flash_branch_matches_plain_branch(gen):
                                       flash_min_scores=1, device='cuda')
     x = torch.randn(2, 6, 7, 64, generator=gen, device='cuda')
     with torch.no_grad():
-        before = fa.LAUNCHES
+        before = k1_launches()
         out, cache = trunk(x, max_time=10)
-        assert fa.LAUNCHES == before + 4
+        assert k1_launches() == before + 4
         step, _ = trunk(x[:, :1], cache=cache)
         trunk.use_flash_attention = False
         ref, ref_cache = trunk(x, max_time=10)
@@ -265,7 +380,7 @@ def test_autograd_runs_the_kernels(gen):
     q, k, v = (t.requires_grad_() for t in qkv(gen, 2, 4, 2, 200, 200, 64, torch.float32))
     do = torch.randn((2, 4, 200, 64), generator=gen, device='cuda')
     cfg = dict(causal=True, num_special=1, special_seq_len=25)
-    counts = lambda: (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    counts = lambda: (k1_launches(), fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
     before = counts()
     grads = torch.autograd.grad(fa.flash_attend(q, k, v, 0, 200, **cfg), (q, k, v), do)
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)

@@ -108,3 +108,21 @@ def test_wrapper_rejects_bad_input(bad):
         kw['softclamp_value'] = 0.0
     with pytest.raises(ValueError):
         fa.flash_attend(q, k, v, 0, kv_len, **kw)
+
+
+@pytest.mark.parametrize('N, M, D, dtype, want', [
+    (1024, 1024, 64, torch.bfloat16, 'sm90'),     # the train step's time attention
+    (144, 144, 64, torch.bfloat16, 'sm90'),       # space attention with a special token
+    (1024, 1024, 128, torch.bfloat16, 'sm90'),
+    (144, 144, 128, torch.bfloat16, 'sm90'),
+    (1, 192, 64, torch.bfloat16, 'sm90'),         # a cached decode step
+    (1024, 1024, 16, torch.bfloat16, 'mma'),
+    (1024, 1024, 32, torch.bfloat16, 'mma'),
+    (1024, 1024, 64, torch.float32, 'f32'),
+    (144, 144, 128, torch.float32, 'f32'),
+])
+def test_k1_variant_routes_by_shape(N, M, D, dtype, want):
+    """The wgmma kernel takes bf16 at head dims 64 and 128, down to a
+    decode step's single query; the small head dims and float32 keep their
+    kernels."""
+    assert fa.k1_variant(N, M, D, dtype) == want

@@ -194,7 +194,7 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
                      'small_attn_bwd', 'small_attn_fwd']
     for name in names:
         headers = (['small_attn_common.cuh'] if name.startswith('small') else []) + [
-            'flash_attn_common.cuh'] + (['flash_attn_sm90.cuh'] if '_bwd_d' in name else [])
+            'flash_attn_common.cuh'] + (['flash_attn_sm90.cuh'] if name.startswith('flash') else [])
         assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu', *headers]
     before = {name: cuda_build.library_path(name) for name in names}
     assert before == {name: cuda_build.library_path(name) for name in names}
