@@ -19,8 +19,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
                on the exponential unit, 16 per clock per SM at the card's
                maximum SM clock; the line says which binds. Each K1 line
                names the kernel `k1_variant` chose (f32, mma or sm90); the
-               bf16 cases at t1024, s=144 and the prefill must take the
-               wgmma kernel.
+               bf16 cases at t1024, s=144, the prefill and the full-model
+               RL replay (`rl_full`: 432 rows, N = M = 192, with the LSE;
+               K2 and K3 at the same shape) must take the wgmma kernel.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -38,33 +39,53 @@ Phases, each of which fails the run (non-zero exit) on any error:
                be of the wgmma kernel. The plain step's loss and
                time-layer gradients through the kernels are held against
                float32, and both variants are timed.
-  5. tokenizer — builds the bench tokenizer (dim 512, 64 x 64, patch 8, 16
+  5. dream   — RL in imagination on the bench world model (float32 master
+               weights, bf16 compute): `DreamTrainer` steps (heads-only
+               PPO) that dream the prompted b16 x T192 rollout from the
+               model phase's 96-frame prompt, whose prompt pass runs K1 on
+               both time layers, and update the heads on it; only the
+               policy head, the value head and the unembedding may move.
+               Then full-model RL updates (`make_rl_optimizer` with a trunk
+               rate, `make_rl_update_step(only_learn_policy_value_heads=
+               False)`) on that dream: the trunk replay runs K1 with its LSE
+               on both time layers (N = M = 192), and K2 and K3 in the
+               backward, every K1 launch on the wgmma kernel; the RL loss
+               and the time layers' attention-projection gradients through
+               the kernels are held against float32 as in phase 4, on the
+               dream's first 4 rows (float32 over all 16 needs more than
+               the card's memory). Prints ms
+               per dream step (dream and update apart), dreamed
+               env-steps/s, ms per full-model update and its peak memory.
+  6. tokenizer — builds the bench tokenizer (dim 512, 64 x 64, patch 8, 16
                latents, depth 4 + 4, 4 flow steps, bf16, `use_fused_small`)
                from a seed and drives `encode`, `decode` and two train
                steps through `TokenizerTrainer` on b8 x T16 video; each
                time layer runs K4, and K5 in the backward. The step's loss
                and time-layer gradients through K4/K5 are held against
                float32.
-  6. wm-fused — the bench world model with `use_fused_small` at b8 x T32:
+  7. wm-fused — the bench world model with `use_fused_small` at b8 x T32:
                a plain and a shortcut step through `BehaviorCloneTrainer`,
                every space and time layer on K4/K5, the gradients held
                against float32 as in phase 4.
-  7. small   — K4 and K5 (the small-attention forward and backward) against
+  8. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
                beside their bounds, their plain versions and the PyTorch
                call for the same function (SDPA, compiled
-               `flex_attention`, flex's backward). K4 and K5 run for tens
+               `flex_attention`, flex's backward; at the ragged n = 13 shapes
+               too, in bf16). K4 and K5 run for tens
                of microseconds, so their times (and the library's) are
-               device times under torch.profiler. Then the device times of
-               K1 and flex_attention at t1024, s=144 and the prefill bf16,
+               device times under torch.profiler, with the library's
+               CUDA-event times beside them. Then the device times of
+               K1 and flex_attention at the bf16 `K1_SM90_CASES`,
                and of K2, K3 and flex's backward at t1024 bf16, beside phase 2's
                CUDA-event times. The profiler can leave a cost on every
                later launch of the process, so this phase runs last, after
                every timed model phase.
 Launch counts (K1 to K5, and K1's by variant) are set to 0 just before
-each rollout, encode, decode and train step and read just after.
+each rollout, dream step, RL update, encode, decode and train step and read
+just after.
 
 The last three lines of standard output are a JSON line with one entry per
 kernel, the card's name and power limit, and the result line
@@ -125,6 +146,28 @@ TRAIN = dict(batch_size=1, time_steps=1024)
 # step adds the two no-grad half-step passes, K1 without its LSE
 LAUNCHES_PER_STEP = {False: (2, 2, 2, 0, 0), True: (6, 2, 2, 0, 0)}
 TIME_LAYERS = (3, 7)   # (i + 1) % time_block_every == 0 at depth 8
+
+# RL in imagination on the bench model: `DreamTrainer` dreams the prompted
+# rollout (PROMPTED with the 96-frame prompt) and takes a heads-only PPO
+# update per step; full-model RL re-forwards the trunk over the whole dream
+DREAM = dict(PROMPTED, objective='ppo')
+# (K1..K5) launches: a dream step runs K1 in its prompt pass only (the heads'
+# update reads the stored agent embeddings); a full-model update replays
+# b16 x T192 (rows 16 x 27 = 432, N = M = 192, causal) through both time
+# layers, K1 with its LSE forward and K2, K3 backward
+LAUNCHES_PER_DREAM_STEP = (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0)
+LAUNCHES_PER_RL_FULL_UPDATE = (2, 2, 2, 0, 0)
+RL_LR = dict(policy_lr=1e-4, value_lr=1e-4, trunk_lr=1e-5)
+# the full-model update's gradient check runs on the dream's first rows: the
+# float32 reference over all 16 rows needs more than the card's 80 GB (an
+# earlier run of this script ran out of memory there). 4 rows keep each
+# kernel's per-row shape (N = M = 192, head dim 64) over 4 x 27 = 108 rows
+GRAD_CHECK_ROWS = 4
+# the shape each time layer of that replay gives K1 (with its LSE), K2 and
+# K3, held against their plain versions in the kernel phases
+RL_FULL_ATTENTION = dict(B=DREAM['batch_size'] * 27, Hq=8, H=8, N=DREAM['time_steps'],
+                         M=DREAM['time_steps'], D=64, causal=True, offset=0,
+                         kv_len=DREAM['time_steps'], softclamp=50.0)
 
 # bench.py:516-521: the bench tokenizer, here with the small-attention path
 # on. 80 tokens per frame: space attention (n*h = 640 > 512) stays on the
@@ -205,17 +248,28 @@ def is_device_event(event) -> bool:
             and not getattr(event, 'is_user_annotation', False))
 
 
-def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3) -> float:
+def is_launch_event(event) -> bool:
+    """The host side of a kernel launch in a torch.profiler trace
+    (`cudaLaunchKernel`, `cuLaunchKernel`, `cuLaunchKernelEx`, ...)."""
+    return (getattr(event, 'device_type', None) == torch.autograd.DeviceType.CPU
+            and 'LaunchKernel' in event.name)
+
+
+def device_ms(fn, match: str | None = None, iters: int = 20,
+              warmup: int = 3) -> float | None:
     """Mean device time per call of `fn` under torch.profiler over `iters`
-    calls. Without `match`, the summed times of all the CUDA kernels the
-    calls launch, per call. With `match`, each call launches exactly one
-    kernel whose name contains it, and the time per call is the mean
-    duration of the matching kernels the trace holds: a trace has been seen
-    to hold fewer of them than calls were made (the line says so). Unlike
-    `cuda_time_ms` it does not count the device's idle time while the host
-    prepares a launch, which is most of a call that runs for tens of
-    microseconds. A trace that holds none of those kernels is taken again,
-    up to three times in all."""
+    calls. Unlike `cuda_time_ms` it does not count the device's idle time
+    while the host prepares a launch, which is most of a call that runs for
+    tens of microseconds. A trace has been seen to hold fewer device events
+    than the calls launched (the line says so), so:
+    - with `match`, each call launches exactly one kernel whose name
+      contains it, and the time per call is the mean duration of the
+      matching kernels the trace holds;
+    - without `match`, every kernel and copy the calls launch counts, as
+      `traced_call_ms` matches them to their launches; None where no trace
+      could be matched so.
+    A trace that holds none of those kernels is taken again, up to three
+    times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -226,18 +280,63 @@ def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3) ->
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if is_device_event(e)
-                   and (match is None or match in e.name)]
-        if kernels:
-            total_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-            if match is None:
-                return total_ms / iters
-            if len(kernels) != iters:
-                print(f'# the trace held {len(kernels)} of {iters} launches of {match}', flush=True)
-            return total_ms / len(kernels)
-        print(f'# a profiler trace held no device time{f" of {match}" if match else ""}; '
-              'taking it again', flush=True)
-    raise SystemExit(f'the profiler saw no device time{f" of {match}" if match else ""}')
+        events = prof.events()
+        if match is None:
+            ms = traced_call_ms(events, iters)
+            if ms is not None:
+                return ms
+            continue
+        held = [e for e in events if is_device_event(e) and match in e.name]
+        if held:
+            if len(held) != iters:
+                print(f'# the trace held {len(held)} of {iters} launches of {match}', flush=True)
+            return sum(e.time_range.elapsed_us() for e in held) / 1e3 / len(held)
+        print(f'# a profiler trace held no device time of {match}; taking it again', flush=True)
+    if match is None:
+        print('# no profiler trace of the call could be matched to its launches', flush=True)
+        return None
+    raise SystemExit(f'the profiler saw no device time of {match}')
+
+
+def traced_call_ms(events, iters: int) -> float | None:
+    """Device time per call in a trace of `iters` calls of one function
+    that launches the same kernels in the same order on every call. Each
+    host launch is matched to its kernel by correlation id (the `id` that
+    both events of one launch carry). Launch j of every call runs the same
+    kernel, so a launch whose kernel the trace lost takes the mean duration
+    of launch j's kernels that the trace holds. Copies and memsets count as
+    the trace holds them. None, with the reason printed, where the trace
+    holds no kernel, its launches do not split into `iters` equal calls,
+    or some launch j holds no kernel or two kernel names."""
+    device = [e for e in events if is_device_event(e)]
+    copies = [e for e in device if e.name.startswith(('Memcpy', 'Memset'))]
+    kernels = {e.id: e for e in device if e not in copies}
+    launches = sorted((e for e in events if is_launch_event(e)),
+                      key=lambda e: e.time_range.start)
+    us = lambda e: e.time_range.elapsed_us()
+    if not kernels or not launches or len(launches) % iters:
+        print(f'# a profiler trace held {len(kernels)} kernels of {len(launches)} launches '
+              f'over {iters} calls; taking it again', flush=True)
+        return None
+    per_call = len(launches) // iters
+    total_us, matched = sum(us(e) for e in copies), 0
+    for j in range(per_call):
+        held = [kernels[e.id] for e in launches[j::per_call] if e.id in kernels]
+        names = {e.name for e in held}
+        if len(names) != 1:
+            print(f'# launch {j} of each call holds the kernels {sorted(names)[:2]} in the '
+                  'trace; taking it again', flush=True)
+            return None
+        matched += len(held)
+        total_us += sum(us(e) for e in held) / len(held) * iters
+    launch_ids = {e.id for e in launches}
+    unlaunched = [e for i, e in kernels.items() if i not in launch_ids]
+    total_us += sum(us(e) for e in unlaunched)
+    if matched != len(launches) or unlaunched:
+        print(f'# the trace held the kernels of {matched} of {len(launches)} launches (a lost '
+              f'one counts its launch\'s mean) and {len(unlaunched)} kernels of no launch',
+              flush=True)
+    return total_us / 1e3 / iters
 
 
 def host_time_s(fn, reps: int) -> float:
@@ -288,6 +387,9 @@ def kernel_cases():
                            kv_len=128, softclamp=sc)))
     cases.append(('t1024', bf16, dict(B=27, Hq=8, H=8, N=1024, M=1024, D=64, causal=True,
                                       offset=0, kv_len=1024, softclamp=50.0)))
+    # the full-model RL update's trunk replay: the b16 x T192 dream's time
+    # attention, 16*27 rows, N = M = 192, with the LSE kept for K2/K3
+    cases.append(('rl_full', bf16, dict(RL_FULL_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -367,6 +469,9 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
             log(f'#   {name}: max_abs_err {err:.3e} above {tol:.0e}, not a yardstick')
             continue
         ms = timer(fn)
+        if ms is None:
+            log(f'#   {name}: not timed')
+            continue
         if best[1] is None or ms < best[1]:
             best = (name, ms, err, fn)
     return best
@@ -375,7 +480,7 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
 # K1 cases that must take the wgmma kernel in bf16, and whose device time
 # is taken beside flex_attention's in the last phase
 K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only_itself=True',
-                 'prefill')
+                 'prefill', 'rl_full')
 
 
 def run_kernel_phase():
@@ -412,9 +517,12 @@ def run_kernel_phase():
             lse_err = (lse - ref_lse).abs().max().item()
             ok = ok and lse_err <= LSE_TOL
             line_lse = f' lse_err {lse_err:.2e} (tol {LSE_TOL:.0e})'
-        kernel = functools.partial(fa.flash_attend, q, k, v, off, kvl, **cfg)
+        # timed as the path calls it: with the LSE where the case keeps it
+        kernel = functools.partial(fa.flash_attend, q, k, v, off, kvl, return_lse=want_lse,
+                                   **cfg)
         ms = cuda_time_ms(kernel)
-        plain_ms = cuda_time_ms(lambda: fa.flash_attend_reference(q, k, v, off, kvl, **cfg))
+        plain_ms = cuda_time_ms(functools.partial(fa.flash_attend_reference, q, k, v, off, kvl,
+                                                  return_lse=want_lse, **cfg))
         mask = fa.attend_mask(N, M, off, kvl, device='cuda', **{
             x: cfg[x] for x in ('causal', 'num_special', 'special_seq_len',
                                 'special_attend_only_itself')})
@@ -441,6 +549,15 @@ def run_kernel_phase():
     return results, device_calls
 
 
+def diff_ms(a, b):
+    """a - b, or None where either time is missing."""
+    return None if a is None or b is None else a - b
+
+
+def fmt_ms(ms):
+    return '-' if ms is None else f'{ms:.4f} ms'
+
+
 def forward_device_times(results, calls):
     """Device times under torch.profiler of K1 (its wgmma kernel) and of
     flex_attention (all the kernels of one call) at the bf16
@@ -450,9 +567,9 @@ def forward_device_times(results, calls):
         row = results[(name, torch.bfloat16)]
         row['device_ms'] = device_ms(kernel, 'flash_fwd_sm90')
         row['library_device_ms'] = None if flex is None else device_ms(flex)
-        lib = ('flex_attention -' if flex is None else
-               f'flex_attention {row["library_device_ms"]:.4f} ms '
-               f'({row["device_ms"] / row["library_device_ms"]:.2f}x)')
+        lib_ms = row['library_device_ms']
+        lib = f'flex_attention {fmt_ms(lib_ms)}' + (
+            '' if lib_ms is None else f' ({row["device_ms"] / lib_ms:.2f}x)')
         log(f'K1 {name} bf16 device time: K1 {row["device_ms"]:.4f} ms vs {lib}')
 
 
@@ -464,6 +581,7 @@ def bwd_kernel_cases():
     t1024 = dict(B=27, Hq=8, H=8, N=1024, M=1024, D=64, causal=True, offset=0, kv_len=1024,
                  softclamp=50.0)
     cases = [('t1024', dt, t1024) for dt in (bf16, f32)]
+    cases.append(('rl_full', bf16, RL_FULL_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -591,7 +709,8 @@ def run_backward_kernel_phase():
                               bound_by=bound_by, bound_unit=unit, bounds_ms=terms,
                               library_ms=None)
         lib = ''
-        if name == 't1024':
+        if name in ('t1024', 'rl_full') or (name == 'space_special_only_itself=False'
+                                            and dtype == torch.float32):
             lib_ms, lib_err, lib_calls = time_library_backward(q, k, v, do, off, kvl, cfg,
                                                                (ref_dq, ref_dk, ref_dv), tol)
             for which in ('dq', 'dkv'):
@@ -600,7 +719,7 @@ def run_backward_kernel_phase():
             lib = ('   library -' if lib_ms is None else
                    f'   K2 + K3 {pair:.4f} ms vs flex backward (dq+dk+dv) {lib_ms:.4f} ms '
                    f'({pair / lib_ms:.2f}x), its rel err {lib_err:.1e}')
-            if dtype == torch.bfloat16 and lib_calls is not None:
+            if name == 't1024' and dtype == torch.bfloat16 and lib_calls is not None:
                 t1024_calls = dict(kernels, flex=lib_calls)
         dt = str(dtype).split('.')[-1]
         log(f'K2/K3 {name:<32} {dt:<8} rel err dq {errs["dq"]:.2e} dk {errs["dk"]:.2e} '
@@ -628,13 +747,13 @@ def backward_device_times(row, calls):
     row['dq']['device_ms'] = device_ms(calls['dq'], 'bwd_dq_')
     row['dkv']['device_ms'] = device_ms(calls['dkv'], 'bwd_dkv_')
     grads, fwd = calls['flex']
-    flex_ms = device_ms(grads) - device_ms(fwd)
+    flex_ms = diff_ms(device_ms(grads), device_ms(fwd))
     for which in ('dq', 'dkv'):
         row[which]['library_device_ms'] = flex_ms
     pair = row['dq']['device_ms'] + row['dkv']['device_ms']
     log(f'K2/K3 t1024 bf16 device time: K2 {row["dq"]["device_ms"]:.4f} ms, K3 '
         f'{row["dkv"]["device_ms"]:.4f} ms, K2 + K3 {pair:.4f} ms vs flex backward '
-        f'{flex_ms:.4f} ms ({pair / flex_ms:.2f}x)')
+        f'{fmt_ms(flex_ms)}' + ('' if flex_ms is None else f' ({pair / flex_ms:.2f}x)'))
 
 
 # -------------------------------------------------------------------- model
@@ -699,6 +818,15 @@ def compare_prefill(model, prompt, max_time):
             ms_kernel, ms_plain)
 
 
+def bench_prompt(model, seed: int) -> dict:
+    """The prompted rollout's fixed 96-frame prompt, from `seed`."""
+    dev, b, P = model.device, PROMPTED['batch_size'], PROMPT_LEN
+    pgen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return dict(
+        prompt_latents=torch.rand((b, P, *model.latent_shape), generator=pgen, device=dev) * 2 - 1,
+        prompt_discrete_actions=torch.randint(0, 4, (b, P, 1), generator=pgen, device=dev))
+
+
 def run_model_phase(seed: int = 0) -> dict:
     """Builds the bench model and drives both rollouts; returns the (K1..K5)
     launches of each rollout."""
@@ -718,10 +846,7 @@ def run_model_phase(seed: int = 0) -> dict:
 
     dev = model.device
     b, P = PROMPTED['batch_size'], PROMPT_LEN
-    pgen = torch.Generator(device=dev).manual_seed(seed + 1)
-    prompt = dict(
-        prompt_latents=torch.rand((b, P, *model.latent_shape), generator=pgen, device=dev) * 2 - 1,
-        prompt_discrete_actions=torch.randint(0, 4, (b, P, 1), generator=pgen, device=dev))
+    prompt = bench_prompt(model, seed)
 
     gen = torch.Generator(device=dev)
     launches = {}
@@ -932,6 +1057,144 @@ def run_train_phase(seed: int = 0) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- dream
+
+def check_rl_outputs(label, out):
+    values = {'policy_loss': out.policy_loss, 'value_loss': out.value_loss, **out.stats,
+              'return_mean': out.return_stats.mean, 'return_var': out.return_stats.var}
+    bad = [k for k, v in values.items() if not bool(torch.isfinite(v))]
+    if bad:
+        raise SystemExit(f'{label}: not finite: {bad}')
+
+
+def rl_full_loss(exp):
+    """The full-model RL loss (policy + value) of `exp`, as the update step
+    differentiates it."""
+    from dreamer4_torch.models.rl import ReturnStats, rl_losses
+
+    def loss_fn(model):
+        out = rl_losses(model, exp, objective=DREAM['objective'],
+                        only_learn_policy_value_heads=False,
+                        return_stats=ReturnStats.create(device=model.device))
+        return out.policy_loss + out.value_loss
+    return loss_fn
+
+
+def run_dream_phase(seed: int = 0) -> dict:
+    """RL in imagination on the bench model: `DreamTrainer` steps, then
+    full-model RL updates on the last dream; returns the (K1..K5) launches
+    of a dream step and of a full-model update."""
+    from dreamer4_torch import DreamTrainer, DynamicsWorldModel
+    from dreamer4_torch.data.experience import index_experience
+    from dreamer4_torch.train.trainers import (create_rl_state, make_rl_optimizer,
+                                               make_rl_update_step, rl_param_labels)
+
+    torch.manual_seed(seed)
+    # float32 master weights, bf16 compute, as in the train phase
+    model = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    b, T, P = DREAM['batch_size'], DREAM['time_steps'], PROMPT_LEN
+    if b * model.tokens_per_frame != RL_FULL_ATTENTION['B']:
+        raise SystemExit(f'the dream has {b} x {model.tokens_per_frame} time-attention rows, '
+                         f'not the {RL_FULL_ATTENTION["B"]} of the kernel phases\' rl_full case')
+    prompt = bench_prompt(model, seed)
+    trainer = DreamTrainer(model, time_steps=T, num_steps=DREAM['num_steps'], batch_size=b,
+                           objective=DREAM['objective'], prompt_fn=lambda generator: prompt,
+                           seed=seed)
+    launches = {}
+
+    # one step, counted and checked; it is the warm step of the timing
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    zero_counts()
+    exp, out = trainer.step()
+    torch.cuda.synchronize()
+    launches['dream'] = read_counts()
+    variants = read_k1_variants()
+    check_experience(exp, b, T, P, model.dim, model.latent_shape, prompt=prompt)
+    check_rl_outputs('dream step', out)
+    labels = rl_param_labels(model)
+    frozen_moved = [n for n, p in model.named_parameters()
+                    if labels[n] == 'frozen' and not torch.equal(p, before[n])]
+    heads_still = [n for n, p in model.named_parameters()
+                   if labels[n] != 'frozen' and torch.equal(p, before[n])]
+    if frozen_moved or heads_still:
+        raise SystemExit(f'dream step: frozen parameters moved {frozen_moved[:5]}, head '
+                         f'parameters that did not move {heads_still[:5]}')
+    expect_launches('dream step', launches['dream'], LAUNCHES_PER_DREAM_STEP)
+    if variants != {'sm90': LAUNCHES_PER_DREAM_STEP[0]}:
+        raise SystemExit(f'dream step: K1 ran as {variants}, not all on the wgmma kernel')
+    del before
+    log(f'dream step b{b} T{T} P{P} (heads-only {DREAM["objective"]}): (K1..K5) launches '
+        f'{launches["dream"]} (expected {LAUNCHES_PER_DREAM_STEP}; K1 by variant {variants}); '
+        f'stats {", ".join(f"{k} {v.item():.4f}" for k, v in out.stats.items())}; only the '
+        'policy head, the value head and the unembedding moved')
+
+    # two timed steps of the trainer; then its own update step alone on the
+    # last dream, which a step runs `update_epochs` times after its dream
+    def one_step():
+        nonlocal exp, out
+        exp, out = trainer.step()
+    step_s = host_time_s(one_step, reps=2)
+    check_rl_outputs('timed dream step', out)
+
+    def one_update():
+        trainer.rl_state = trainer._update(trainer.rl_state, exp)[0]
+    update_s = host_time_s(one_update, reps=3) * trainer.update_epochs
+    env_steps = b * (T - P)
+    log(f'dream step b{b} T{T} P{P}: {step_s * 1e3:.1f} ms/step (mean of 2 after a warm step), '
+        f'{env_steps / step_s:.1f} dreamed env-steps/s; of a step, the heads-only update '
+        f'{update_s * 1e3:.1f} ms (mean of 3 apart, x {trainer.update_epochs} epochs) and the '
+        f'dream the rest, {(step_s - update_s) * 1e3:.1f} ms')
+
+    # full-model RL on the last dream: gradients through K1-K3 against float32
+    ref = DynamicsWorldModel(**{**BENCH_MODEL, 'use_flash_attention': False})
+    ref.load_state_dict(model.state_dict())
+    names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
+             for w in ('to_q', 'to_k', 'to_v')]
+    torch.cuda.reset_peak_memory_stats()
+    check_grad_distances(f'rl_full grads ({GRAD_CHECK_ROWS} rows)', compare_grads(
+        model, ref, rl_full_loss(index_experience(exp, slice(0, GRAD_CHECK_ROWS))), names,
+        'AxialSpaceTimeTransformer', 'use_flash_attention'))
+    del ref
+    grad_check_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    opt = make_rl_optimizer(model, **RL_LR)
+    full_update = make_rl_update_step(model, opt, DREAM['objective'],
+                                      only_learn_policy_value_heads=False)
+    state = create_rl_state(model, opt)
+    trunk_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if n.startswith('transformer.')}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state, out = full_update(state, exp)
+    torch.cuda.synchronize()
+    launches['rl_full'] = read_counts()
+    variants = read_k1_variants()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_rl_outputs('full-model update', out)
+    trunk_still = [n for n, p in model.named_parameters()
+                   if n in trunk_before and torch.equal(p, trunk_before[n])]
+    del trunk_before
+    if trunk_still:
+        raise SystemExit(f'full-model update: trunk parameters did not move: {trunk_still[:5]}')
+    expect_launches('full-model update', launches['rl_full'], LAUNCHES_PER_RL_FULL_UPDATE)
+    if variants != {'sm90': LAUNCHES_PER_RL_FULL_UPDATE[0]}:
+        raise SystemExit(f'full-model update: K1 ran as {variants}, not all on the wgmma kernel')
+
+    def one_update():
+        nonlocal state
+        state = full_update(state, exp)[0]
+    sec = host_time_s(one_update, reps=3)
+    log(f'rl_full update b{b} T{T} ({b * T * model.tokens_per_frame} tokens): (K1..K5) launches '
+        f'{launches["rl_full"]} (expected {LAUNCHES_PER_RL_FULL_UPDATE}; K1 by variant '
+        f'{variants}, its LSE kept for K2/K3); the trunk moved; {sec * 1e3:.1f} ms/update '
+        f'(mean of 3 after a warm update); peak memory {peak_gib:.2f} GiB (the gradient check '
+        f'on {GRAD_CHECK_ROWS} rows in bf16 and float32: {grad_check_gib:.2f} GiB)')
+    return launches
+
+
 # ---------------------------------------------------------- small kernels
 
 def small_kernel_cases():
@@ -944,7 +1207,7 @@ def small_kernel_cases():
     cases.append(('tok_time_noclamp', bf16, 640, 16, 8, 64, 'causal', None, True))
     for dh in (16, 32, 128):
         for dt in (bf16, f32):
-            cases.append((f'ragged_dh{dh}', dt, 96, 13, 4, dh, 'causal', 30.0, False))
+            cases.append((f'ragged_dh{dh}', dt, 96, 13, 4, dh, 'causal', 30.0, dt == bf16))
     return cases
 
 
@@ -983,19 +1246,22 @@ def from_heads(x):
 
 
 def time_small_library(q, k, v, do, h, mask, cfg, ref, grad_refs, tol, grad_tol):
-    """(forward ms, backward ms, names) of the PyTorch calls that compute
-    K4's and K5's function on the same inputs, in the (B, h, n, dh) views
-    of the flat tensors: SDPA with the boolean mask without a softclamp,
-    compiled `flex_attention` with it; for K5 flex's backward (fwd+bwd less
-    fwd). Device time per call, as the kernels are timed. A yardstick only;
-    the port never calls them. None where no setting compiles or agrees
-    with the plain version."""
+    """The times of the PyTorch calls that compute K4's and K5's function
+    on the same inputs, in the (B, h, n, dh) views of the flat tensors:
+    SDPA with the boolean mask without a softclamp, compiled
+    `flex_attention` with it; for K5 flex's backward (fwd+bwd less fwd).
+    {'fwd', 'bwd'}: device time per call, as the kernels are timed;
+    {'fwd_call', 'bwd_call'}: CUDA-event time per call issued back to back,
+    as the wrappers' `call_ms`; 'name': the forward's call. A yardstick
+    only; the port never calls them. A time is None where no setting
+    compiles or agrees with the plain version."""
     n = mask.shape[0]
     qh, kh, vh = (to_heads(t, h) for t in (q, k, v))
     ref_h = to_heads(ref, h)
-    lib_name, fwd_ms, _, _ = time_library(qh, kh, vh, 0, n, cfg, mask, ref_h, tol,
-                                          timer=device_ms)
-    bwd_ms = None
+    lib_name, fwd_ms, _, fwd_fn = time_library(qh, kh, vh, 0, n, cfg, mask, ref_h, tol,
+                                               timer=device_ms)
+    out = dict(name=lib_name, fwd=fwd_ms, bwd=None, bwd_call=None,
+               fwd_call=None if fwd_fn is None else cuda_time_ms(fwd_fn))
     if cfg['softclamp_value'] is not None:
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         try:
@@ -1004,12 +1270,13 @@ def time_small_library(q, k, v, do, h, mask, cfg, ref, grad_refs, tol, grad_tol)
             grads = lambda: torch.autograd.grad(fwd(), leaves, to_heads(do, h))
             err = max(rel_err(g, r) for g, r in zip(grads(), grad_refs))
             if err <= grad_tol:
-                bwd_ms = device_ms(grads) - device_ms(fwd)
+                out['bwd'] = diff_ms(device_ms(grads), device_ms(fwd))
+                out['bwd_call'] = cuda_time_ms(grads) - cuda_time_ms(fwd)
             else:
                 log(f'#   flex backward: rel err {err:.3e} above {grad_tol:.0e}, not a yardstick')
         except Exception as e:   # the compiler refuses this setting at this shape
             log(f'#   flex backward: does not compile here ({type(e).__name__}: {e})'[:300])
-    return fwd_ms, bwd_ms, lib_name
+    return out
 
 
 def run_small_kernel_phase():
@@ -1072,11 +1339,19 @@ def run_small_kernel_phase():
         row['bwd']['ms'] = device_ms(bwd, 'small_bwd_')
         lib = ''
         if with_library:
-            fwd_lib, bwd_lib, lib_name = time_small_library(*lib_args)
-            row['fwd']['library_ms'], row['bwd']['library_ms'] = fwd_lib, bwd_lib
-            fmt = lambda ms: '-' if ms is None else f'{ms:.4f} ms'
-            lib = (f'   library (device time) fwd {fmt(fwd_lib)} ({lib_name}), bwd '
-                   f'{fmt(bwd_lib)} (flex backward)')
+            t = time_small_library(*lib_args)
+            # the wrappers by CUDA events again, beside the library's, as
+            # the profiler may have left a cost on every launch since
+            # `call_ms` was taken
+            calls = {'fwd': cuda_time_ms(fwd), 'bwd': cuda_time_ms(bwd)}
+            for which in ('fwd', 'bwd'):
+                row[which]['library_ms'] = t[which]
+                row[which]['library_call_ms'] = t[f'{which}_call']
+                row[which]['call_ms_beside_library'] = calls[which]
+            lib = (f'   library (device time) fwd {fmt_ms(t["fwd"])} ({t["name"]}), bwd '
+                   f'{fmt_ms(t["bwd"])} (flex backward); by CUDA events, back to back: K4 '
+                   f'{fmt_ms(calls["fwd"])} vs {fmt_ms(t["fwd_call"])}, K5 '
+                   f'{fmt_ms(calls["bwd"])} vs flex backward {fmt_ms(t["bwd_call"])}')
         log(f'K4/K5 {name:<18} {str(dtype).split(".")[-1]}:')
         for which, label in (('fwd', 'K4'), ('bwd', 'K5')):
             r = row[which]
@@ -1307,8 +1582,8 @@ def main() -> int:
     train_shape = bwd_results[('t1024', torch.bfloat16)]
     if t1024_calls is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
-    launches = {**run_model_phase(), **run_train_phase(), **run_tokenizer_phase(),
-                **run_wm_fused_phase()}
+    launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
+                **run_tokenizer_phase(), **run_wm_fused_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)

@@ -9,7 +9,9 @@ Ported so far: the imagination rollout (`models.generate.generate`) of
 `DynamicsWorldModel`, its training (`train.trainers.BehaviorCloneTrainer`,
 over latents or over video through a tokenizer), and the video tokenizer
 (`models.tokenizer.VideoTokenizer`: encode, flow decode, the training
-forward) with `train.trainers.TokenizerTrainer`. The flash-attention
+forward) with `train.trainers.TokenizerTrainer`, and RL in imagination:
+`models.rl.rl_losses` (PPO, PMPO, SPO; heads-only or full-model) with
+`train.trainers.DreamTrainer`. The flash-attention
 forward and backward (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
 `csrc/flash_attn_bwd_dkv.cu`) and the small-attention forward and backward
 (`csrc/small_attn_fwd.cu`, `csrc/small_attn_bwd.cu`, behind
@@ -24,14 +26,18 @@ from .models.generate import generate
 from .models.tokenizer import VideoTokenizer
 from .models.transformer import AxialSpaceTimeTransformer
 from .models.world_model import DynamicsWorldModel
-from .train.trainers import BehaviorCloneTrainer, TokenizerTrainer
+from .models.rl import ReturnStats, rl_losses
+from .train.trainers import BehaviorCloneTrainer, DreamTrainer, TokenizerTrainer
 
 __all__ = [
     'AxialSpaceTimeTransformer',
     'BehaviorCloneTrainer',
+    'DreamTrainer',
     'DynamicsWorldModel',
     'Experience',
+    'ReturnStats',
     'TokenizerTrainer',
     'VideoTokenizer',
     'generate',
+    'rl_losses',
 ]

@@ -1,10 +1,10 @@
 """Experience — the trajectory record (counterpart of
-`dreamer4_tpu/data/experience.py`, the container only: no replay-buffer
-I/O). Tensors are padded to a static length, with `lens` marking validity.
+`dreamer4_tpu/data/experience.py`: the container and `index_experience`; no
+replay-buffer I/O). Tensors are padded to a static length, with `lens` marking validity.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Any
 
 import torch
@@ -48,3 +48,19 @@ class Experience:
     @property
     def time_steps(self):
         return self.payload.shape[1]
+
+
+def _map_tensors(fn, value):
+    if isinstance(value, torch.Tensor):
+        return fn(value)
+    if isinstance(value, tuple):
+        items = [_map_tensors(fn, v) for v in value]
+        return type(value)(*items) if hasattr(value, '_fields') else tuple(items)
+    return value
+
+
+def index_experience(exp: Experience, idx) -> Experience:
+    """Row-select every tensor (all are batch-first; the static fields pass
+    through): a minibatch, or the rows of a check."""
+    return replace(exp, **{f.name: _map_tensors(lambda t: t[idx], getattr(exp, f.name))
+                           for f in fields(exp)})

@@ -119,6 +119,15 @@ class DynamicsWorldModel(nn.Module):
                  terminal_loss_weight: float = 1.0, terminal_pos_weight: float = 1.0,
                  discrete_action_loss_weight: float = 1.0,
                  continuous_action_loss_weight: float = 1.0, gae_discount_factor: float = 0.997,
+                 gae_lambda: float = 0.95, ppo_eps_clip: float = 0.2,
+                 pmpo_pos_to_neg_weight: float = 0.5, pmpo_reverse_kl: bool = True,
+                 pmpo_kl_div_loss_weight: float = 0.3, use_delight_gating: bool = True,
+                 delight_temperature: float = 1.0, value_clip: float = 0.4,
+                 clip_values: bool = False, policy_entropy_weight: float = 0.01,
+                 agent_policy_gradient_frac: float = 1.0, agent_value_gradient_frac: float = 1.0,
+                 keep_reward_ema_stats: bool = False, reward_ema_decay: float = 0.998,
+                 reward_quantile_filter: tuple[float, float] = (0.05, 0.95),
+                 normalize_advantages: bool | None = None,
                  use_flash_attention: bool = False, flash_min_scores: int = 128 * 128,
                  use_fused_small: bool | None = None, use_attn_pool: bool = True, dtype=None,
                  device=None, **not_ported):
@@ -156,6 +165,23 @@ class DynamicsWorldModel(nn.Module):
                                  continuous_actions=continuous_action_loss_weight)
         self.terminal_pos_weight = terminal_pos_weight
         self.gae_discount_factor = gae_discount_factor
+        # RL hyperparameters, read by models/rl.py
+        self.gae_lambda = gae_lambda
+        self.ppo_eps_clip = ppo_eps_clip
+        self.pmpo_pos_to_neg_weight = pmpo_pos_to_neg_weight
+        self.pmpo_reverse_kl = pmpo_reverse_kl
+        self.pmpo_kl_div_loss_weight = pmpo_kl_div_loss_weight
+        self.use_delight_gating = use_delight_gating
+        self.delight_temperature = delight_temperature
+        self.value_clip = value_clip
+        self.clip_values = clip_values
+        self.policy_entropy_weight = policy_entropy_weight
+        self.agent_policy_gradient_frac = agent_policy_gradient_frac
+        self.agent_value_gradient_frac = agent_value_gradient_frac
+        self.keep_reward_ema_stats = keep_reward_ema_stats
+        self.reward_ema_decay = reward_ema_decay
+        self.reward_quantile_filter = tuple(reward_quantile_filter)
+        self.normalize_advantages = normalize_advantages
         self.predict_terminals = predict_terminals
         self.num_discrete_actions = tuple(num_discrete_actions)
         self.add_action_embed_to_spatial = add_action_embed_to_spatial

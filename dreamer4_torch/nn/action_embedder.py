@@ -1,6 +1,7 @@
 """ActionEmbedder (counterpart of `dreamer4_tpu/nn/action_embedder.py`,
-discrete actions): embedding, multi-token-prediction unembedding, sampling
-and log probs. Continuous actions are not ported yet and are refused.
+discrete actions): embedding, multi-token-prediction unembedding, sampling,
+log probs, entropies and KL divergences. Continuous actions are not ported
+yet and are refused.
 """
 from __future__ import annotations
 
@@ -90,13 +91,40 @@ class ActionEmbedder(nn.Module):
                                                      discrete_temperature)
         return sampled, None
 
-    def log_probs(self, embeds, discrete_targets=None, pred_head_index: int | None = None):
+    def log_probs(self, embeds, discrete_targets=None, continuous_targets=None,
+                  pred_head_index: int | None = None, return_entropies: bool = False,
+                  soft_validate_range: bool = False):
+        """Log probs of the targets, Actions((..., na), None), and with
+        `return_entropies` also the entropies of the distributions in the
+        same layout. `soft_validate_range` clips Beta targets into range in
+        the counterpart; discrete targets need no clipping."""
+        if continuous_targets is not None:
+            raise NotImplementedError('continuous actions are not ported yet')
         discrete_logits, _ = self.unembed(embeds, pred_head_index=pred_head_index)
         multi_head = pred_head_index is None and self.num_unembed_preds > 1
-        log_probs = None
+        log_probs = entropies = None
         if discrete_targets is not None and discrete_logits is not None:
             tgt = discrete_targets
             if multi_head and tgt.ndim == discrete_logits[0].ndim - 1:
                 tgt = tgt[None]
             log_probs = dists.multi_categorical_log_prob(discrete_logits, tgt)
-        return Actions(log_probs, None)
+            if return_entropies:
+                entropies = dists.multi_categorical_entropy(discrete_logits)
+        if not return_entropies:
+            return Actions(log_probs, None)
+        return Actions(log_probs, None), Actions(entropies, None)
+
+    def kl_div(self, src, tgt, reduce_across_num_actions: bool = True):
+        """src, tgt: (discrete_logits_tuple or None, continuous_params or
+        None), as `unembed` returns them. -> (KL(src || tgt) of the discrete
+        part, None), summed over the action types unless
+        `reduce_across_num_actions` is False."""
+        (src_logits, src_params), (tgt_logits, tgt_params) = src, tgt
+        if src_params is not None or tgt_params is not None:
+            raise NotImplementedError('continuous actions are not ported yet')
+        discrete_kl = None
+        if src_logits is not None and tgt_logits is not None:
+            discrete_kl = dists.multi_categorical_kl(src_logits, tgt_logits)
+            if reduce_across_num_actions:
+                discrete_kl = discrete_kl.sum(dim=-1)
+        return discrete_kl, None

@@ -1,5 +1,6 @@
 """Action distributions (counterpart of `dreamer4_tpu/ops/dists.py`,
-discrete part). Continuous distributions are not ported yet.
+discrete part): sampling, log probs, entropies and KL divergences.
+Continuous distributions are not ported yet.
 
 Discrete logits are a tuple of tensors, one per action type, (..., n_i);
 targets are (..., na) integer indices.
@@ -35,5 +36,29 @@ def multi_categorical_log_prob(logits: Sequence[torch.Tensor],
     out = []
     for i, l in enumerate(logits):
         logp = torch.log_softmax(l, dim=-1)
-        out.append(torch.gather(logp, -1, targets[..., i:i + 1].long())[..., 0])
+        idx = targets[..., i:i + 1].long()
+        # targets broadcast against the logits (a leading mtp axis of one)
+        batch = torch.broadcast_shapes(logp.shape[:-1], idx.shape[:-1])
+        out.append(torch.gather(logp.expand(*batch, logp.shape[-1]), -1,
+                                idx.expand(*batch, 1))[..., 0])
+    return torch.stack(out, dim=-1)
+
+
+def multi_categorical_entropy(logits: Sequence[torch.Tensor]) -> torch.Tensor:
+    """-> (..., na) per-action-type entropies."""
+    out = []
+    for l in logits:
+        logp = torch.log_softmax(l, dim=-1)
+        out.append(-(logp.exp() * logp).sum(dim=-1))
+    return torch.stack(out, dim=-1)
+
+
+def multi_categorical_kl(src_logits: Sequence[torch.Tensor],
+                         tgt_logits: Sequence[torch.Tensor]) -> torch.Tensor:
+    """KL(src || tgt) -> (..., na)."""
+    out = []
+    for s, t in zip(src_logits, tgt_logits):
+        sp = torch.log_softmax(s, dim=-1)
+        tp = torch.log_softmax(t, dim=-1)
+        out.append((sp.exp() * (sp - tp)).sum(dim=-1))
     return torch.stack(out, dim=-1)

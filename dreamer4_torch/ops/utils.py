@@ -31,13 +31,22 @@ def lens_to_mask(lens: torch.Tensor, total_len: int) -> torch.Tensor:
 
 def masked_mean(t: torch.Tensor, mask: torch.Tensor | None = None, dim=None) -> torch.Tensor:
     """Mean over `dim` (or all) counting only positions where `mask`
-    (broadcast against t) is True; an all-False mask gives 0."""
+    (broadcast against t) is True, or weighting each by a float mask; the
+    weights' sum is taken as at least 1, so an all-False mask gives 0."""
     if mask is None:
         return t.mean() if dim is None else t.mean(dim=dim)
     maskf = mask.broadcast_to(t.shape).to(t.dtype)
     if dim is None:
         return (t * maskf).sum() / maskf.sum().clamp_min(1.0)
     return (t * maskf).sum(dim=dim) / maskf.sum(dim=dim).clamp_min(1.0)
+
+
+def z_score(t: torch.Tensor, mask: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
+    """Standardize over all positions, or over those `mask` weights (a bool
+    or float mask, as in `masked_mean`)."""
+    mean = masked_mean(t, mask)
+    var = masked_mean((t - mean).square(), mask)
+    return (t - mean) / var.clamp_min(eps).sqrt()
 
 
 def ramp_weight(times: torch.Tensor, slope: float = 0.9, intercept: float = 0.1) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Trainers (counterpart of `dreamer4_tpu/train/trainers.py`): the train
-steps and `TokenizerTrainer` and `BehaviorCloneTrainer`.
+steps, `TokenizerTrainer` and `BehaviorCloneTrainer`, and RL in imagination:
+the RL optimizer and update step and `DreamTrainer`.
 
 The counterpart's train steps are pure jitted functions of an immutable
 TrainState. Here a step runs eagerly and updates the model's parameters
@@ -23,7 +24,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..data.experience import Experience
 from ..device import resolve_device
+from ..models.generate import generate
+from ..models.rl import ReturnStats, RLLossOutputs, rl_losses
 from ..models.tokenizer import TokenizerLosses, VideoTokenizer
 from ..models.world_model import DynamicsWorldModel, WorldModelLosses
 from .checkpoint import load_train_state, save_model, save_train_state
@@ -241,3 +245,141 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
         self.ts, loss, losses = self._train_step(self.ts, batch, shortcut_train=shortcut,
                                                  generator=self.generator)
         return loss, losses
+
+
+# ---------------------------------------------------------------------- RL
+
+def rl_param_labels(model: DynamicsWorldModel, full_model: bool = False) -> dict[str, str]:
+    """Parameter name -> 'policy' (the policy head and the action
+    unembedding), 'value' (the value head), or the rest: 'frozen' in
+    heads-only RL, 'trunk' when fine-tuning the whole model."""
+    rest = 'trunk' if full_model else 'frozen'
+
+    def label(name: str) -> str:
+        top, _, sub = name.partition('.')
+        if top == 'policy_head':
+            return 'policy'
+        if top == 'value_head':
+            return 'value'
+        if top == 'action_embedder' and 'unembed' in sub.partition('.')[0]:
+            return 'policy'
+        return rest
+
+    return {name: label(name) for name, _ in model.named_parameters()}
+
+
+# optax.adamw's defaults
+ADAMW = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+def make_rl_optimizer(model: DynamicsWorldModel, policy_lr: float = 1e-4,
+                      value_lr: float = 1e-4, trunk_lr: float | None = None
+                      ) -> torch.optim.AdamW:
+    """AdamW over the labelled groups of `rl_param_labels`, each group at
+    its own rate. trunk_lr=None: heads-only RL, the frozen parameters are in
+    no group, so they neither move nor decay; a float fine-tunes the whole
+    model at that rate (pair it with
+    `make_rl_update_step(only_learn_policy_value_heads=False)`)."""
+    labels = rl_param_labels(model, full_model=trunk_lr is not None)
+    lrs = {'policy': policy_lr, 'value': value_lr, 'trunk': trunk_lr}
+    groups = []
+    for group, lr in lrs.items():
+        params = [p for name, p in model.named_parameters() if labels[name] == group]
+        if params and lr is not None:
+            groups.append(dict(params=params, lr=lr, name=group))
+    return torch.optim.AdamW(groups, **ADAMW)
+
+
+class RLState(NamedTuple):
+    """The counterpart's RLState: `model` holds the parameters, `optimizer`
+    their optimizer state."""
+    model: DynamicsWorldModel
+    optimizer: torch.optim.Optimizer
+    return_stats: ReturnStats
+    step: int
+
+
+def create_rl_state(model: DynamicsWorldModel, optimizer: torch.optim.Optimizer) -> RLState:
+    return RLState(model=model, optimizer=optimizer,
+                   return_stats=ReturnStats.create(device=model.device), step=0)
+
+
+def make_rl_update_step(model: DynamicsWorldModel, optimizer: torch.optim.Optimizer,
+                        objective: str = 'ppo', only_learn_policy_value_heads: bool = True,
+                        **rl_loss_kwargs):
+    """-> update_step(rl_state, experience) returning (rl_state, outputs):
+    the RL losses, their gradients and one optimizer update. Pass
+    `only_learn_policy_value_heads=False`, with an optimizer built with
+    `trunk_lr`, for full-model RL: the loss then re-forwards the trunk with
+    gradients."""
+
+    def update_step(rl_state: RLState, experience: Experience):
+        optimizer.zero_grad(set_to_none=True)
+        out = rl_losses(model, experience, objective=objective,
+                        only_learn_policy_value_heads=only_learn_policy_value_heads,
+                        return_stats=rl_state.return_stats, **rl_loss_kwargs)
+        (out.policy_loss + out.value_loss).backward()
+        # a parameter the loss does not reach has a zero gradient in the
+        # counterpart and still decays; AdamW would skip it at None
+        for group in optimizer.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        optimizer.step()
+        out = RLLossOutputs(out.policy_loss.detach(), out.value_loss.detach(), out.stats,
+                            ReturnStats(*(x.detach() for x in out.return_stats)))
+        return RLState(model, optimizer, out.return_stats, rl_state.step + 1), out
+
+    return update_step
+
+
+class DreamTrainer:
+    """RL purely in imagination: per step, `generate` dreams a batch of
+    experience from the model, then `update_epochs` heads-only updates learn
+    from it (the importance ratio of the objective handles the drift of
+    reused dreams). Runs on CUDA unless `device='cpu'` is given, and the
+    model must live there.
+
+    `prompt_fn(generator)` returns a dict of `prompt_*` tensors (fixed
+    shapes) to start the dreams from real experience; `generate_kwargs`
+    pass through to `generate` (e.g. `terminal_logit_offset`,
+    `min_dream_length`). The dreams' draws come from a `torch.Generator`
+    seeded with `seed`."""
+
+    def __init__(self, model: DynamicsWorldModel, *, time_steps: int = 16, num_steps: int = 4,
+                 batch_size: int = 8, objective: str = 'ppo', policy_lr: float = 1e-4,
+                 value_lr: float = 1e-4, update_epochs: int = 1, prompt_fn=None,
+                 generate_kwargs: dict | None = None, seed: int = 0, device=None):
+        device = _check_device(model, device)
+        self.model = model
+        self.time_steps = time_steps
+        self.num_steps = num_steps
+        self.batch_size = batch_size
+        self.objective = objective
+        self.update_epochs = update_epochs
+        self.prompt_fn = prompt_fn
+        self.generate_kwargs = dict(generate_kwargs or {})
+        self.optimizer = make_rl_optimizer(model, policy_lr, value_lr)
+        self.rl_state = create_rl_state(model, self.optimizer)
+        self._update = make_rl_update_step(model, self.optimizer, objective)
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def dream(self) -> Experience:
+        prompt = self.prompt_fn(self.generator) if self.prompt_fn is not None else {}
+        return generate(self.model, self.generator, time_steps=self.time_steps,
+                        num_steps=self.num_steps, batch_size=self.batch_size, **prompt,
+                        **self.generate_kwargs)
+
+    def step(self) -> tuple[Experience, RLLossOutputs]:
+        experience = self.dream()
+        for _ in range(self.update_epochs):
+            self.rl_state, out = self._update(self.rl_state, experience)
+        return experience, out
+
+    def __call__(self, num_steps: int) -> list[dict[str, float]]:
+        """`num_steps` steps; one dict of float stats per step."""
+        logs = []
+        for _ in range(num_steps):
+            _, out = self.step()
+            logs.append({k: float(v) for k, v in out.stats.items()})
+        return logs

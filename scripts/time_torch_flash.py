@@ -259,12 +259,13 @@ def time_library():
         bias = sa.build_interleaved_bias(n, h, mask, device='cuda')
         ref = sa.small_attend_flat_reference(q, k, v, bias, softclamp)
         grad_refs = sa.small_attend_flat_bwd_reference(q, k, v, do, bias, softclamp)
-        fwd_ms, bwd_ms, lib = cs.time_small_library(
+        t = cs.time_small_library(
             q, k, v, do, h, mask, cs.small_flex_cfg(kind, n, softclamp), ref, grad_refs,
             cs.KERNEL_TOL[dtype], cs.GRAD_TOL[dtype])
-        fmt = lambda ms: '-' if ms is None else f'{ms:.4f} ms'
         print(f'K4/K5 {name} {str(dtype).split(".")[-1]} B{B} n{n} h{h} dh{dh}: (device time) '
-              f'fwd {fmt(fwd_ms)} ({lib}), bwd {fmt(bwd_ms)} (flex backward)', flush=True)
+              f'fwd {cs.fmt_ms(t["fwd"])} ({t["name"]}), bwd {cs.fmt_ms(t["bwd"])} (flex '
+              f'backward); CUDA events fwd {cs.fmt_ms(t["fwd_call"])}, bwd '
+              f'{cs.fmt_ms(t["bwd_call"])}', flush=True)
 
 
 def main() -> int:
