@@ -19,9 +19,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
                on the exponential unit, 16 per clock per SM at the card's
                maximum SM clock; the line says which binds. Each K1 line
                names the kernel `k1_variant` chose (f32, mma or sm90); the
-               bf16 cases at t1024, s=144, the prefill and the full-model
+               bf16 cases at t1024, s=144, the prefill, the full-model
                RL replay (`rl_full`: 432 rows, N = M = 192, with the LSE;
-               K2 and K3 at the same shape) must take the wgmma kernel.
+               K2 and K3 at the same shape) and the sim phase's dynamics
+               step (`sim`: 432 rows, N = M = 151, with the LSE; K2 and K3
+               too) must take the wgmma kernel.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -67,7 +69,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
                a plain and a shortcut step through `BehaviorCloneTrainer`,
                every space and time layer on K4/K5, the gradients held
                against float32 as in phase 4.
-  8. small   — K4 and K5 (the small-attention forward and backward) against
+  8. sim     — RL against an environment at the bench world model's width,
+               with the CartPole recipe's RL settings (float32 master
+               weights, bf16 compute): `SimTrainer` on MockStateEnv (b16,
+               up to 150 steps), two heads-only steps, then one full-model
+               step (`rl_trunk_lr`). Each step's rollout, dynamics step and
+               RL epochs are counted, timed and checked apart: the rollout
+               launches nothing (one query per frame), the dynamics step
+               on the rollouts padded to 151 frames runs K1 (with its LSE),
+               K2 and K3 on both time layers (16 x 27 rows, N = M = 151),
+               a shortcut step 4 more K1, and a full-model update as many
+               again per epoch; every K1 on the wgmma kernel. Prints ms per
+               part, env-steps/s (the sum of lens over the step's time) and
+               peak memory; the trunk must not move in a heads-only update.
+  9. pixel   — one `EnvInteractor` rollout on MockEnv 64 x 64 pixels (b16,
+               16 frames): the bench tokenizer's streaming encode in front
+               of the bench world model; the streamed latents held against
+               one uncached encode of the recorded video. Prints ms per
+               frame and env-steps/s.
+ 10. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
@@ -84,8 +104,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                later launch of the process, so this phase runs last, after
                every timed model phase.
 Launch counts (K1 to K5, and K1's by variant) are set to 0 just before
-each rollout, dream step, RL update, encode, decode and train step and read
-just after.
+each rollout, dream step, RL update, encode, decode, train step and part of
+a sim step and read just after.
 
 The last three lines of standard output are a JSON line with one entry per
 kernel, the card's name and power limit, and the result line
@@ -168,6 +188,47 @@ GRAD_CHECK_ROWS = 4
 RL_FULL_ATTENTION = dict(B=DREAM['batch_size'] * 27, Hq=8, H=8, N=DREAM['time_steps'],
                          M=DREAM['time_steps'], D=64, causal=True, offset=0,
                          kv_len=DREAM['time_steps'], softclamp=50.0)
+
+# RL against an environment: the bench world model with the CartPole
+# recipe's RL settings (examples/train_cartpole_with_dynamics_rl.py:108-128,
+# its defaults: no delight gating, reward range +-1.2 x 150), float32 master
+# weights and bf16 compute, on MockStateEnv batches of 16 for up to 150 steps
+SIM_MODEL = dict(BENCH_MODEL, num_discrete_actions=(2,), predict_terminals=True, dim_state=4,
+                 dim_critic_state=4, keep_reward_ema_stats=True, reward_range=(-180.0, 180.0),
+                 use_delight_gating=False)
+SIM_ENV = dict(dim_state=4, num_actions=2, batch=16, max_steps=150)
+# the recipe's SimTrainer (examples/train_cartpole_with_dynamics_rl.py:136-142
+# and its argument defaults); the full-model step's trunk rate is the dream
+# phase's
+SIM_TRAINER = dict(max_timesteps=150, num_steps=4, update_epochs=4, dynamics_lr=1e-4,
+                   policy_lr=3e-4, value_lr=3e-4, objective='ppo')
+SIM_TRUNK_LR = RL_LR['trunk_lr']
+# the time attention of the dynamics step and of a full-model update: every
+# rollout is padded to max_timesteps + 1 = 151 frames, 16 x 27 rows
+SIM_ATTENTION = dict(B=SIM_ENV['batch'] * 27, Hq=8, H=8, N=SIM_TRAINER['max_timesteps'] + 1,
+                     M=SIM_TRAINER['max_timesteps'] + 1, D=64, causal=True, offset=0,
+                     kv_len=SIM_TRAINER['max_timesteps'] + 1, softclamp=50.0)
+# (K1..K5) launches of each part of a sim step: the rollout runs no kernel
+# (one query per frame over at most 151 keys, under the flash gate); the
+# dynamics step is a train step (LAUNCHES_PER_STEP); a full-model update
+# replays the trunk as in the dream phase, once per epoch
+SIM_ROLLOUT_LAUNCHES = (0, 0, 0, 0, 0)
+SIM_UPDATE_LAUNCHES = {False: (0, 0, 0, 0, 0),
+                       True: tuple(n * SIM_TRAINER['update_epochs']
+                                   for n in LAUNCHES_PER_RL_FULL_UPDATE)}
+SIM_HEADS_ONLY_STEPS = 2
+
+# pixels: the bench tokenizer's streaming encode in front of the bench world
+# model, on MockEnv 64 x 64 RGB frames, b16, up to 16 frames
+PIXEL_ENV = dict(image_size=(64, 64), num_actions=4, batch=16)
+PIXEL_STEPS = 16
+# the streamed latents (plain attention over the bf16 KV cache) vs one
+# uncached bf16 encode of the recorded video (K4 in the time layer): both
+# round the trunk's activations to bf16 through 4 layers, in other orders
+# (other GEMM shapes, K4 against the plain attention), so they may differ
+# by at most this multiple of the uncached encode's own distance from the
+# same encode in float32
+PIXEL_TOL_FACTOR = PREFILL_TOL_FACTOR
 
 # bench.py:516-521: the bench tokenizer, here with the small-attention path
 # on. 80 tokens per frame: space attention (n*h = 640 > 512) stays on the
@@ -390,6 +451,9 @@ def kernel_cases():
     # the full-model RL update's trunk replay: the b16 x T192 dream's time
     # attention, 16*27 rows, N = M = 192, with the LSE kept for K2/K3
     cases.append(('rl_full', bf16, dict(RL_FULL_ATTENTION, lse=True)))
+    # the sim phase's dynamics step and full-model update: b16 rollouts
+    # padded to 151 frames, 16*27 rows, with the LSE
+    cases.append(('sim', bf16, dict(SIM_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -480,7 +544,7 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
 # K1 cases that must take the wgmma kernel in bf16, and whose device time
 # is taken beside flex_attention's in the last phase
 K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only_itself=True',
-                 'prefill', 'rl_full')
+                 'prefill', 'rl_full', 'sim')
 
 
 def run_kernel_phase():
@@ -582,6 +646,7 @@ def bwd_kernel_cases():
                  softclamp=50.0)
     cases = [('t1024', dt, t1024) for dt in (bf16, f32)]
     cases.append(('rl_full', bf16, RL_FULL_ATTENTION))
+    cases.append(('sim', bf16, SIM_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -655,6 +720,10 @@ def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
     return cuda_time_ms(grads) - cuda_time_ms(fwd), err, (grads, fwd)
 
 
+# backward cases timed beside flex_attention's backward (with a float32 one)
+BWD_LIBRARY_CASES = ('t1024', 'rl_full', 'sim')
+
+
 def run_backward_kernel_phase():
     """K2 and K3 against `bwd_dq_reference` / `bwd_dkv_reference` on every
     case, from the same q, k, v, o, dO and LSE, K3 from the delta K2 wrote
@@ -709,7 +778,7 @@ def run_backward_kernel_phase():
                               bound_by=bound_by, bound_unit=unit, bounds_ms=terms,
                               library_ms=None)
         lib = ''
-        if name in ('t1024', 'rl_full') or (name == 'space_special_only_itself=False'
+        if name in BWD_LIBRARY_CASES or (name == 'space_special_only_itself=False'
                                             and dtype == torch.float32):
             lib_ms, lib_err, lib_calls = time_library_backward(q, k, v, do, off, kvl, cfg,
                                                                (ref_dq, ref_dk, ref_dv), tol)
@@ -1542,6 +1611,180 @@ def run_wm_fused_phase(seed: int = 0) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- sim
+
+def check_moved(label, model, before, names, moved: bool):
+    """Fails unless every parameter in `names` moved (`moved`) or none did."""
+    wrong = [n for n, p in model.named_parameters()
+             if n in names and torch.equal(p, before[n]) == moved]
+    if wrong:
+        raise SystemExit(f'{label}: parameters that {"did not move" if moved else "moved"}: '
+                         f'{wrong[:5]} ({len(wrong)} in all)')
+
+
+def timed(fn):
+    """(fn(), wall seconds), synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(fn):
+    """(fn(), seconds, (K1..K5) launches, K1 launches by variant)."""
+    zero_counts()
+    out, sec = timed(fn)
+    return out, sec, read_counts(), read_k1_variants()
+
+
+def expect_sm90(label, launches, variants):
+    if variants != ({'sm90': launches[0]} if launches[0] else {}):
+        raise SystemExit(f'{label}: K1 ran as {variants}, not all on the wgmma kernel')
+
+
+def run_sim_step(trainer, label, full_model: bool) -> dict:
+    """One `SimTrainer` step, its three parts (`step` runs exactly these:
+    the rollout, the dynamics training, the RL epochs) each counted, timed
+    and checked; returns their launches by path."""
+    from dreamer4_torch.train.trainers import rl_param_labels
+
+    model = trainer.model
+    labels = rl_param_labels(model, full_model=full_model)
+    torch.cuda.reset_peak_memory_stats()
+    exp, roll_s, roll_n, roll_v = counted(trainer.rollout)
+    b, t = exp.batch_size, exp.time_steps
+    if (b * model.tokens_per_frame, t) != (SIM_ATTENTION['B'], SIM_ATTENTION['N']):
+        raise SystemExit(f'{label}: the experience is b{b} x T{t} ({b * model.tokens_per_frame} '
+                         f'time-attention rows), not the {SIM_ATTENTION["B"]} rows x '
+                         f'{SIM_ATTENTION["N"]} of the sim kernel cases')
+    for name in ('latents', 'values', 'agent_embed', 'critic_state', 'rewards'):
+        if not bool(torch.isfinite(getattr(exp, name)).all()):
+            raise SystemExit(f'{label}: experience.{name} is not finite')
+    env_steps = int(exp.lens.sum())
+    frames_run = int(exp.lens.max())
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    shortcut_draws = trainer.rng.bit_generator.state
+    wm_loss, wm_s, wm_n, wm_v = counted(lambda: trainer.train_dynamics_on(exp))
+    # the step's shortcut flag, drawn again from the generator's state before it
+    rng = np.random.default_rng()
+    rng.bit_generator.state = shortcut_draws
+    shortcut = bool(rng.random() < model.prob_shortcut_train)
+    if wm_loss is None or not bool(torch.isfinite(wm_loss)):
+        raise SystemExit(f'{label}: dynamics loss {wm_loss}')
+    # every parameter with a gradient moved, the trunk's among them
+    with_grad = {n for n, p in model.named_parameters() if p.grad is not None and p.grad.any()}
+    if not any(n.startswith('transformer.') for n in with_grad):
+        raise SystemExit(f'{label} dynamics step: no gradient reached the trunk')
+    check_moved(f'{label} dynamics step', model, before, with_grad, moved=True)
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    outs, upd_s, upd_n, upd_v = counted(lambda: trainer.update(exp))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for i, out in enumerate(outs):
+        check_rl_outputs(f'{label} update {i}', out)
+    # heads-only: the heads moved, nothing else; full-model: the trunk too
+    heads = {n for n, l in labels.items() if l in ('policy', 'value')}
+    trunk = {n for n in labels if n.startswith('transformer.')}
+    check_moved(f'{label} RL update', model, before, heads | (trunk if full_model else set()),
+                moved=True)
+    if not full_model:
+        check_moved(f'{label} RL update', model, before, set(labels) - heads, moved=False)
+    del before
+
+    want = {'rollout': SIM_ROLLOUT_LAUNCHES, 'dynamics': LAUNCHES_PER_STEP[shortcut],
+            'update': SIM_UPDATE_LAUNCHES[full_model]}
+    got = {'rollout': roll_n, 'dynamics': wm_n, 'update': upd_n}
+    for part, variants in (('rollout', roll_v), ('dynamics', wm_v), ('update', upd_v)):
+        expect_launches(f'{label} {part}', got[part], want[part])
+        expect_sm90(f'{label} {part}', got[part], variants)
+    total_s = roll_s + wm_s + upd_s
+    log(f'{label} b{b} T{t} ({"full-model" if full_model else "heads-only"} '
+        f'{SIM_TRAINER["objective"]}, {len(outs)} updates): rollout {roll_s * 1e3:.1f} ms '
+        f'({frames_run} frames, {roll_s * 1e3 / frames_run:.2f} ms/frame), dynamics '
+        f'{"shortcut" if shortcut else "plain"} step {wm_s * 1e3:.1f} ms (loss '
+        f'{wm_loss.item():.4f}), update {upd_s * 1e3:.1f} ms, total {total_s * 1e3:.1f} ms; '
+        f'{env_steps} env steps (sum of lens), {env_steps / total_s:.1f} env-steps/s; '
+        f'mean episode return {exp.episode_return.mean().item():.3f}; peak memory '
+        f'{peak_gib:.2f} GiB; (K1..K5) launches rollout {roll_n}, dynamics {wm_n}, update '
+        f'{upd_n} (expected {want["rollout"]}, {want["dynamics"]}, {want["update"]}; every '
+        f'K1 on sm90); {"the trunk" if full_model else "only the heads"} moved in the update')
+    return {f'{label}_rollout': roll_n, f'{label}_dynamics': wm_n, f'{label}_update': upd_n}
+
+
+def run_sim_phase(seed: int = 0) -> dict:
+    """RL against an environment at the bench world model's width:
+    `SimTrainer` steps on MockStateEnv, heads-only then full-model; returns
+    the (K1..K5) launches of each part of each step."""
+    from dreamer4_torch import DynamicsWorldModel, SimTrainer
+    from dreamer4_torch.envs.mocks import MockStateEnv
+
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**SIM_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    log(f'# sim: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, '
+        f'{model.tokens_per_frame} tokens/frame, MockStateEnv b{SIM_ENV["batch"]} up to '
+        f'{SIM_ENV["max_steps"]} steps')
+    env = MockStateEnv(**SIM_ENV, seed=seed)
+    launches = {}
+    trainer = SimTrainer(model, env, **SIM_TRAINER, seed=seed)
+    for i in range(SIM_HEADS_ONLY_STEPS):
+        launches.update(run_sim_step(trainer, f'sim_heads_{i}', full_model=False))
+    trainer = SimTrainer(model, env, **SIM_TRAINER, rl_trunk_lr=SIM_TRUNK_LR, seed=seed + 1)
+    launches.update(run_sim_step(trainer, 'sim_full', full_model=True))
+    return launches
+
+
+# -------------------------------------------------------------------- pixel
+
+def run_pixel_phase(seed: int = 0) -> dict:
+    """One `EnvInteractor` rollout on pixels: the bench tokenizer's streaming
+    encode in front of the bench world model; the streamed latents held
+    against one uncached encode of the recorded video. Returns the
+    rollout's (K1..K5) launches."""
+    from dreamer4_torch import DynamicsWorldModel, EnvInteractor, VideoTokenizer
+    from dreamer4_torch.envs.mocks import MockEnv
+
+    torch.manual_seed(seed)
+    tok = VideoTokenizer(**BENCH_TOKENIZER, dtype=torch.bfloat16)
+    model = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+    if model.latent_shape != tok.latent_shape:
+        raise SystemExit(f'latent shapes differ: {model.latent_shape} vs {tok.latent_shape}')
+    interactor = EnvInteractor(model, tokenizer=tok)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    run = lambda: interactor(MockEnv(**PIXEL_ENV, seed=seed), gen, max_timesteps=PIXEL_STEPS,
+                             num_steps=4)
+    run()   # warm
+    exp, sec, launches, _ = counted(run)
+    expect_launches('pixel rollout', launches, (0, 0, 0, 0, 0))
+    frames = exp.time_steps
+    env_steps = int(exp.lens.sum())
+    with torch.no_grad():
+        uncached = tok.encode(exp.video)
+        ref = VideoTokenizer(**{**BENCH_TOKENIZER, 'use_fused_small': False})
+        ref.load_state_dict(tok.state_dict())
+        f32 = ref.encode(exp.video)
+        del ref
+    streamed = exp.latents[:, :exp.video.shape[2]]
+    err = (streamed - uncached).abs().max().item()
+    err_f32 = {'streamed': (streamed - f32).abs().max().item(),
+               'uncached': (uncached - f32).abs().max().item()}
+    tol = PIXEL_TOL_FACTOR * err_f32['uncached']
+    ok = err <= tol and bool(torch.isfinite(exp.values).all())
+    log(f'pixel rollout b{PIXEL_ENV["batch"]} {frames} frames ({exp.video.shape[2]} observed, '
+        f'64 x 64 RGB): {sec * 1e3:.1f} ms, {sec * 1e3 / frames:.2f} ms/frame, '
+        f'{env_steps / sec:.1f} env-steps/s (sum of lens {env_steps}; second run); (K1..K5) '
+        f'launches {launches}; streamed latents vs one uncached encode: max |diff| {err:.3e} '
+        f'(tol {tol:.3e}: {PIXEL_TOL_FACTOR} x the uncached bf16 encode\'s distance from '
+        f'float32, {err_f32["uncached"]:.3e}); the streamed latents\' distance from float32 '
+        f'{err_f32["streamed"]:.3e}' + ('' if ok else '  FAIL'))
+    if not ok:
+        raise SystemExit('pixel: the streamed latents disagree with the uncached encode')
+    return {'pixel_rollout': launches}
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1583,7 +1826,8 @@ def main() -> int:
     if t1024_calls is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
-                **run_tokenizer_phase(), **run_wm_fused_phase()}
+                **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
+                **run_pixel_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)
@@ -1596,6 +1840,10 @@ def main() -> int:
     k1_at = {name: {x: kernel_results[(name, torch.bfloat16)][x]
                     for x in ('ms', 'device_ms', 'library_ms', 'library_device_ms', 'bound_ms')}
              for name in K1_SM90_CASES}
+    bwd_at = {which: {name: {x: bwd_results[(name, torch.bfloat16)][which][x]
+                             for x in ('ms', 'library_ms', 'bound_ms')}
+                      for name in BWD_LIBRARY_CASES if name != 't1024'}
+              for which in ('dq', 'dkv')}
     kernels = [dict(name='K1 flash_attn_fwd', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:86',
@@ -1605,12 +1853,14 @@ def main() -> int:
                     source='dreamer4_torch/csrc/flash_attn_bwd_dq.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:269',
                     launches=totals[1], launches_by_path=by_path(1), **train_shape['dq'],
-                    library_covers='flex_attention backward: dq, dk and dv together'),
+                    library_covers='flex_attention backward: dq, dk and dv together',
+                    at_other_shapes=bwd_at['dq']),
                dict(name='K3 flash_attn_bwd_dkv', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_bwd_dkv.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:309',
                     launches=totals[2], launches_by_path=by_path(2), **train_shape['dkv'],
-                    library_covers='flex_attention backward: dq, dk and dv together'),
+                    library_covers='flex_attention backward: dq, dk and dv together',
+                    at_other_shapes=bwd_at['dkv']),
                dict(name='K4 small_attn_fwd', route='cuda',
                     source='dreamer4_torch/csrc/small_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/small_attention.py:77',

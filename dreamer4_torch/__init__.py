@@ -11,7 +11,12 @@ over latents or over video through a tokenizer), and the video tokenizer
 (`models.tokenizer.VideoTokenizer`: encode, flow decode, the training
 forward) with `train.trainers.TokenizerTrainer`, and RL in imagination:
 `models.rl.rl_losses` (PPO, PMPO, SPO; heads-only or full-model) with
-`train.trainers.DreamTrainer`. The flash-attention
+`train.trainers.DreamTrainer`, and RL against an environment: the actor
+loop `envs.interact.EnvInteractor` (`interact_with_env` for one rollout)
+over state-vector observations (`state_to_latents`, a critic state) or
+pixels (the tokenizer's streaming, cached `encode`), and
+`train.trainers.SimTrainer` (rollouts, interleaved dynamics training, RL
+epochs). The flash-attention
 forward and backward (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
 `csrc/flash_attn_bwd_dkv.cu`) and the small-attention forward and backward
 (`csrc/small_attn_fwd.cu`, `csrc/small_attn_bwd.cu`, behind
@@ -22,22 +27,26 @@ unless the caller passes `device='cpu'`.
 __version__ = '0.1.0'
 
 from .data.experience import Experience
+from .envs.interact import EnvInteractor, interact_with_env
 from .models.generate import generate
 from .models.tokenizer import VideoTokenizer
 from .models.transformer import AxialSpaceTimeTransformer
 from .models.world_model import DynamicsWorldModel
 from .models.rl import ReturnStats, rl_losses
-from .train.trainers import BehaviorCloneTrainer, DreamTrainer, TokenizerTrainer
+from .train.trainers import BehaviorCloneTrainer, DreamTrainer, SimTrainer, TokenizerTrainer
 
 __all__ = [
     'AxialSpaceTimeTransformer',
     'BehaviorCloneTrainer',
     'DreamTrainer',
     'DynamicsWorldModel',
+    'EnvInteractor',
     'Experience',
     'ReturnStats',
+    'SimTrainer',
     'TokenizerTrainer',
     'VideoTokenizer',
     'generate',
+    'interact_with_env',
     'rl_losses',
 ]

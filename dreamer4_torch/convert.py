@@ -5,7 +5,9 @@ The port keeps flax's submodule names, so conversion is a walk over names:
 kernels are (in, out) in flax and (out, in) in torch; `nn.Embed`'s
 `embedding` is `nn.Embedding`'s `weight`; every other leaf (the pools' raw
 `_Kernel` / `_Scale` / `_Gamma` holders, ensemble kernels, learned tokens)
-keeps its name and layout. Leaves of flax's `state` collection (the loss
+keeps its name and layout. A flax submodule named like a method of the
+port's module (`DynamicsWorldModel.state_to_latents`) has another name
+here, which the parent's `flax_names` gives. Leaves of flax's `state` collection (the loss
 normalizers' `exp_avg_sq`) are the torch module's buffers of the same
 names. A leftover or missing key raises.
 """
@@ -41,19 +43,21 @@ def flax_params_to_torch(params: Mapping[str, Any], model: nn.Module,
     if state is not None:
         leaves += list(_flatten(state).items())
     for path, value in leaves:
-        module = model
+        module, names = model, []
         for name in path[:-1]:
+            name = getattr(module, 'flax_names', {}).get(name, name)
             child = module._modules.get(name)
             if child is None:
                 raise KeyError(f'flax parameter {"/".join(path)} has no torch module '
                                f'(no submodule {name!r})')
             module = child
+            names.append(name)
         leaf = path[-1]
         if isinstance(module, nn.Linear) and leaf == 'kernel':
             leaf, value = 'weight', value.T
         elif isinstance(module, nn.Embedding) and leaf == 'embedding':
             leaf = 'weight'
-        key = '.'.join((*path[:-1], leaf))
+        key = '.'.join((*names, leaf))
         if key not in target:
             raise KeyError(f'flax parameter {"/".join(path)} maps to {key}, which the torch '
                            'model does not have')

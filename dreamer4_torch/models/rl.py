@@ -7,9 +7,10 @@ Experiences are padded buffers with `lens` / `is_truncated` marking
 validity; bootstrap nodes are left out by masks. The EMA return statistics
 are explicit state, passed in and returned.
 
-Not ported yet, and refused when reached: continuous actions, a critic
-state, proprioception, and the options the world model refuses
-(`actor_critic_latent_input`, `actor_spr`, `dim_critic_state`).
+A critic state (an environment's privileged state, `dim_critic_state`) is
+embedded and added to the value head's input. Not ported yet, and refused
+when reached: continuous actions, proprioception, and the options the world
+model refuses (`actor_critic_latent_input`, `actor_spr`).
 """
 from __future__ import annotations
 
@@ -57,8 +58,6 @@ def _refuse_unported(experience: Experience):
     if ((actions is not None and actions.continuous is not None)
             or (log_probs is not None and log_probs.continuous is not None)):
         raise NotImplementedError('continuous actions are not ported yet')
-    if experience.critic_state is not None:
-        raise NotImplementedError('a critic state (dim_critic_state) is not ported yet')
     if experience.proprio is not None:
         raise NotImplementedError('proprioception (dim_proprio) is not ported yet')
 
@@ -250,7 +249,10 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
 
     # ------------------------------------------------------------- value
     # distributional cross entropy against the return's HL-Gauss bins
-    value_bins = model.value_head(frac_gradient(agent_embeds, model.agent_value_gradient_frac))
+    value_embeds = frac_gradient(agent_embeds, model.agent_value_gradient_frac)
+    if experience.critic_state is not None and model.dim_critic_state is not None:
+        value_embeds = value_embeds + model.critic_state_embedder(experience.critic_state)
+    value_bins = model.value_head(value_embeds)
     values = model.value_encoder.decode(value_bins)
     return_bins = model.value_encoder.encode(returns.detach())
     value_loss_t = -(return_bins * torch.log_softmax(value_bins, dim=-1)).sum(dim=-1)

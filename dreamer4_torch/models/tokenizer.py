@@ -19,8 +19,13 @@ parameters. The public video layout is (b, c, t, h, w), the internal one
 (b, t, h, w, c). Every random draw goes through the module-level `draw`,
 so a test can replay the counterpart's draws. Options the counterpart
 leaves off by default and the port does not have yet raise when set
-(`_NOT_PORTED`); LPIPS waits for VGG16 weights in the repository, and the
-streaming, cached encode comes with serving.
+(`_NOT_PORTED`); LPIPS waits for VGG16 weights in the repository.
+
+`encode` also streams: frame by frame over the encoder trunk's KV cache
+(`cache=`, `max_time=`, `return_cache=`), as an environment's frames
+arrive. Its `TokenizerCache` carries the trunk's cache only; the
+shifted-patch and causal-conv caches of the counterpart belong to options
+the port does not have, and stay None.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from ..nn.loss_normalizer import LossNormalizer
 from ..nn.mlp import MLP
 from ..nn.norms import LayerNorm
 from ..ops.utils import frac_gradient, lens_to_mask, masked_mean
-from .transformer import AxialSpaceTimeTransformer
+from .transformer import AxialSpaceTimeTransformer, TransformerCache
 
 
 class TokenizerLosses(NamedTuple):
@@ -58,6 +63,16 @@ class TokenizerIntermediates(NamedTuple):
     losses: TokenizerLosses
     recon: torch.Tensor
     latents: torch.Tensor
+
+
+class TokenizerCache(NamedTuple):
+    """The streaming encode's cache, in the counterpart's four parts: the
+    encoder trunk's KV cache, and the shifted-patch and causal-conv caches,
+    None here (options not ported)."""
+    spt: torch.Tensor | None
+    pre_conv: torch.Tensor | None
+    transformer: TransformerCache
+    post_conv: torch.Tensor | None
 
 
 # options of the counterpart, with their defaults, that the port does not
@@ -253,13 +268,19 @@ class VideoTokenizer(nn.Module):
     # -------------------------------------------------------------- encode
 
     def encode(self, video, mask_patches: bool = False, patch_mask=None,
-               generator: torch.Generator | None = None, **unported):
+               generator: torch.Generator | None = None, cache: TokenizerCache | None = None,
+               max_time: int | None = None, return_cache: bool = False, **unported):
         """video (b, c, t, h, w) or (b, c, h, w) -> latents (b, t, n,
         d_latent) (or (b, n, d_latent) for an image), in [-1, 1]. With
         `mask_patches`, patches are replaced by the mask token at a random
         per-frame rate; `patch_mask` (b, t, hp, wp) masks given patches.
-        The streaming cache arguments (`cache`, `max_time`, `return_cache`)
-        and aug conditioning are not ported."""
+
+        Streaming: `return_cache=True` returns (latents, TokenizerCache),
+        the encoder trunk's KV cache holding these frames, allocated for
+        `max_time` frames when no `cache` is given; a later call with
+        `cache=` encodes its newest frame against it (the trunk's cached
+        path, on the plain attention). `max_time` counts only with
+        `return_cache`. Aug conditioning is not ported."""
         for name, value in unported.items():
             if value is not None and value is not False:
                 raise NotImplementedError(f'encode({name}=...) is not ported to dreamer4_torch yet')
@@ -282,10 +303,17 @@ class VideoTokenizer(nn.Module):
         tokens = tokens.reshape(b, t, hp * wp, self.dim)
 
         latents = self.latent_tokens.expand(b, t, *self.latent_tokens.shape)
-        tokens, _ = self.encoder_transformer(torch.cat([tokens, latents], dim=2))
+        tokens, trunk_cache = self.encoder_transformer(
+            torch.cat([tokens, latents], dim=2),
+            cache=cache.transformer if cache is not None else None,
+            max_time=max_time if return_cache else None)
 
         latents = torch.tanh(self.encoded_to_latents(tokens[:, :, -self.num_latent_tokens:]))
-        return latents[:, 0] if is_image else latents
+        if is_image:
+            latents = latents[:, 0]
+        if return_cache:
+            return latents, TokenizerCache(None, None, trunk_cache, None)
+        return latents
 
     # -------------------------------------------------------------- decode
 

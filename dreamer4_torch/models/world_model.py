@@ -7,7 +7,9 @@ with the agent tokens as the trunk's special tokens. Ported: the heads,
 of the forward (`latent_is_noised=True` with given signal levels) and the
 training branch: diffusion-forcing signal levels, noising, the shortcut
 self-consistency pass, the ramp weight, var-len masks, and the flow,
-shortcut, reward MTP, terminal and discrete-action MTP losses. The options
+shortcut, reward MTP, terminal and discrete-action MTP losses; and the
+state-vector inputs of a real environment: `state_to_latents`
+(`dim_state`) and `critic_state_embedder` (`dim_critic_state`). The options
 listed in `_NOT_PORTED` come with later slices; setting one of them raises.
 
 Every random draw of the training forward goes through the module-level
@@ -74,12 +76,19 @@ class DynamicsCache(NamedTuple):
 # options of the counterpart that are off by default and not ported yet
 _NOT_PORTED = (
     'num_tasks', 'num_latent_genes', 'actor_depth', 'critic_depth',
-    'spatial_pre_encoder_depth', 'action_pre_encoder_depth', 'dim_proprio', 'dim_state',
-    'dim_critic_state', 'num_continuous_actions', 'actor_critic_latent_input',
-    'add_state_pred_head', 'agent_predicts_state', 'latent_ar', 'has_aug_conditioning',
+    'spatial_pre_encoder_depth', 'action_pre_encoder_depth', 'dim_proprio',
+    'num_continuous_actions', 'actor_critic_latent_input', 'add_state_pred_head',
+    'state_entropy_bonus_weight', 'agent_predicts_state', 'latent_ar', 'has_aug_conditioning',
     'ssl_lapo', 'ssl_tem', 'actor_spr', 'use_loss_normalization',
     'time_attention_use_pope', 'use_time_rnn', 'mot_temporal', 'h_net_layer',
 )
+
+# why an option is refused, where more than "not ported yet" is known
+_WHY_NOT_PORTED = {
+    'dim_proprio': ': the counterpart\'s EnvInteractor never passes proprio to the model, '
+                   'whose forward asserts it (dreamer4_tpu/envs/interact.py, policy_step), so '
+                   'no working path holds a port; it comes with continuous actions',
+}
 
 
 def draw(kind: str, shape, *, generator: torch.Generator | None, device, low: int = 0,
@@ -129,7 +138,8 @@ class DynamicsWorldModel(nn.Module):
                  reward_quantile_filter: tuple[float, float] = (0.05, 0.95),
                  normalize_advantages: bool | None = None,
                  use_flash_attention: bool = False, flash_min_scores: int = 128 * 128,
-                 use_fused_small: bool | None = None, use_attn_pool: bool = True, dtype=None,
+                 use_fused_small: bool | None = None, use_attn_pool: bool = True,
+                 dim_state: int | None = None, dim_critic_state: int | None = None, dtype=None,
                  device=None, **not_ported):
         # the constructor's arguments, for checkpoints (train/checkpoint.py)
         config = {k: v for k, v in locals().items()
@@ -140,7 +150,8 @@ class DynamicsWorldModel(nn.Module):
             if name not in _NOT_PORTED:
                 raise TypeError(f'unexpected argument {name}')
             if value:
-                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
+                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet'
+                                          + _WHY_NOT_PORTED.get(name, ''))
         if num_video_views != 1:
             raise NotImplementedError('multi-view world models are not ported yet')
         if max_steps & (max_steps - 1) != 0:
@@ -186,6 +197,7 @@ class DynamicsWorldModel(nn.Module):
         self.num_discrete_actions = tuple(num_discrete_actions)
         self.add_action_embed_to_spatial = add_action_embed_to_spatial
         self.multi_token_pred_len = multi_token_pred_len
+        self.dim_state, self.dim_critic_state = dim_state, dim_critic_state
         self.dtype = dtype
         self.reward_encoder = get_reward_encoder(reward_encoder_type, reward_range=reward_range,
                                                  num_bins=reward_num_bins)
@@ -250,6 +262,18 @@ class DynamicsWorldModel(nn.Module):
             flash_min_scores=flash_min_scores, use_fused_small=use_fused_small,
             use_attn_pool=use_attn_pool, dtype=dtype, device=device)
 
+        # state-vector environments: the state as the frame's latents, and
+        # the privileged critic state added to the value head's input
+        if dim_state is not None:
+            self.state_to_latents_proj = Dense(dim_state, num_latent_tokens * dim_latent,
+                                               bias=False, device=device)
+        if dim_critic_state is not None:
+            self.critic_state_embedder = Dense(dim_critic_state, dim, device=device)
+
+    # the counterpart's name of a submodule, where the port's differs (a
+    # method of that name here), for convert.py
+    flax_names = {'state_to_latents': 'state_to_latents_proj'}
+
     # ------------------------------------------------------------ properties
 
     @property
@@ -280,6 +304,12 @@ class DynamicsWorldModel(nn.Module):
         return (1 + self.num_spatial_tokens * self.num_video_views + self.num_register_tokens
                 + int(self.has_actions) + int(self.add_reward_embed_to_agent_token)
                 + self.num_agents)
+
+    def state_to_latents(self, state):
+        """(..., dim_state) -> (..., n, d_latent), the latents of a
+        state-vector observation."""
+        out = self.state_to_latents_proj(state)
+        return out.reshape(*state.shape[:-1], self.num_latent_tokens, self.dim_latent)
 
     def init_cache(self, batch: int, max_time: int, dtype=None) -> DynamicsCache:
         """KV caches default to the trunk's compute dtype."""

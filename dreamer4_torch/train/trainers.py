@@ -1,6 +1,7 @@
 """Trainers (counterpart of `dreamer4_tpu/train/trainers.py`): the train
-steps, `TokenizerTrainer` and `BehaviorCloneTrainer`, and RL in imagination:
-the RL optimizer and update step and `DreamTrainer`.
+steps, `TokenizerTrainer` and `BehaviorCloneTrainer`, RL in imagination (the
+RL optimizer and update step and `DreamTrainer`) and RL against an
+environment (`SimTrainer`).
 
 The counterpart's train steps are pure jitted functions of an immutable
 TrainState. Here a step runs eagerly and updates the model's parameters
@@ -24,8 +25,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..data.experience import Experience
+from ..data.experience import (Experience, combine_experiences, index_experience,
+                               pad_experience_time)
 from ..device import resolve_device
+from ..envs.interact import EnvInteractor
 from ..models.generate import generate
 from ..models.rl import ReturnStats, RLLossOutputs, rl_losses
 from ..models.tokenizer import TokenizerLosses, VideoTokenizer
@@ -251,15 +254,16 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
 
 def rl_param_labels(model: DynamicsWorldModel, full_model: bool = False) -> dict[str, str]:
     """Parameter name -> 'policy' (the policy head and the action
-    unembedding), 'value' (the value head), or the rest: 'frozen' in
-    heads-only RL, 'trunk' when fine-tuning the whole model."""
+    unembedding), 'value' (the value head and the critic state's
+    embedding), or the rest: 'frozen' in heads-only RL, 'trunk' when
+    fine-tuning the whole model."""
     rest = 'trunk' if full_model else 'frozen'
 
     def label(name: str) -> str:
         top, _, sub = name.partition('.')
         if top == 'policy_head':
             return 'policy'
-        if top == 'value_head':
+        if top in ('value_head', 'critic_state_embedder'):
             return 'value'
         if top == 'action_embedder' and 'unembed' in sub.partition('.')[0]:
             return 'policy'
@@ -383,3 +387,112 @@ class DreamTrainer:
             _, out = self.step()
             logs.append({k: float(v) for k, v in out.stats.items()})
         return logs
+
+
+class SimTrainer:
+    """Online RL against a real environment: per step, rollouts through an
+    `EnvInteractor`, combined and padded to `max_timesteps + 1` frames (one
+    shape, whatever the longest episode), then (with `train_dynamics`) the
+    world model's training on them, and `update_epochs` epochs of RL
+    updates, each over the whole batch or over minibatches of a fresh
+    permutation (a tail short of a minibatch is dropped). Runs on CUDA
+    unless `device='cpu'` is given, and the models must live there.
+
+    The RL updates are heads-only, or full-model with `rl_trunk_lr` (the
+    policy and value losses re-forward the trunk, which a third optimizer
+    group fine-tunes at that rate). The dynamics training keeps its own
+    `MuonAdamAtan2` (`dynamics_lr`, gradients clipped at norm 1) over all
+    parameters; only the parameters it moves are shared with the RL
+    optimizer. As in the counterpart, the shortcut flag of a dynamics step
+    and the minibatch permutations come from one numpy `default_rng(seed)`;
+    the rollouts' draws come from a `torch.Generator` seeded with `seed`,
+    the training forward's from one seeded with `seed + 13`."""
+
+    def __init__(self, model: DynamicsWorldModel, env, *, tokenizer: VideoTokenizer | None = None,
+                 objective: str = 'ppo', policy_lr: float = 1e-4, value_lr: float = 1e-4,
+                 rl_trunk_lr: float | None = None, num_steps: int = 4, max_timesteps: int = 16,
+                 num_rollouts_per_step: int = 1, update_epochs: int = 2,
+                 minibatch_size: int | None = None, train_dynamics: bool = True,
+                 dynamics_lr: float = 3e-4, dynamics_epochs: int = 1, seed: int = 0,
+                 device=None):
+        device = _check_device(model, device)
+        self.model = model
+        self.env = env
+        self.num_steps = num_steps
+        self.max_timesteps = max_timesteps
+        self.num_rollouts_per_step = num_rollouts_per_step
+        self.update_epochs = update_epochs
+        self.minibatch_size = minibatch_size
+        self.optimizer = make_rl_optimizer(model, policy_lr, value_lr, trunk_lr=rl_trunk_lr)
+        self.rl_state = create_rl_state(model, self.optimizer)
+        self.interactor = EnvInteractor(model, tokenizer=tokenizer, device=device)
+        self._update = make_rl_update_step(model, self.optimizer, objective,
+                                           only_learn_policy_value_heads=rl_trunk_lr is None)
+        self.rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.train_dynamics = train_dynamics
+        self.dynamics_epochs = dynamics_epochs
+        if train_dynamics:
+            self.wm_optimizer = MuonAdamAtan2(model, learning_rate=dynamics_lr,
+                                              clip_grad_norm=1.0)
+            self._wm_step = make_world_model_train_step(model, self.wm_optimizer)
+            self.wm_generator = torch.Generator(device=device).manual_seed(seed + 13)
+
+    def rollout(self) -> Experience:
+        """The step's rollouts, combined and padded to `max_timesteps + 1`
+        frames (the `+ 1` holds the bootstrap frame)."""
+        exps = [self.interactor(self.env, self.generator, num_steps=self.num_steps,
+                                max_timesteps=self.max_timesteps)
+                for _ in range(self.num_rollouts_per_step)]
+        experience = combine_experiences(exps) if len(exps) > 1 else exps[0]
+        return pad_experience_time(experience, self.max_timesteps + 1)
+
+    def train_dynamics_on(self, experience: Experience):
+        """The world model's training on the experience; -> the last loss,
+        or None where there is nothing to train on. The step takes the RL
+        state's step count, and only the parameters it moves come back."""
+        if not self.train_dynamics or experience.time_steps <= 1:
+            return None
+        batch = dict(latents=experience.latents, rewards=experience.rewards,
+                     terminals=experience.terminals, lens=experience.lens)
+        if experience.actions is not None and experience.actions.discrete is not None:
+            batch['discrete_actions'] = experience.actions.discrete
+        ts = TrainState(model=self.model, optimizer=self.wm_optimizer, ema_params=None,
+                        step=self.rl_state.step)
+        loss = None
+        for _ in range(self.dynamics_epochs):
+            shortcut = bool(self.rng.random() < self.model.prob_shortcut_train)
+            ts, loss, _ = self._wm_step(ts, batch, shortcut_train=shortcut,
+                                        generator=self.wm_generator)
+        return loss
+
+    def update(self, experience: Experience) -> list[RLLossOutputs]:
+        """`update_epochs` epochs of RL updates; -> the outputs of each."""
+        b = experience.batch_size
+        mb = min(max(self.minibatch_size or b, 1), b)
+        outs = []
+        for _ in range(self.update_epochs):
+            if mb == b:
+                self.rl_state, out = self._update(self.rl_state, experience)
+                outs.append(out)
+                continue
+            perm = self.rng.permutation(b)
+            for s in range(0, b - mb + 1, mb):
+                idx = torch.as_tensor(perm[s:s + mb], device=self.model.device)
+                self.rl_state, out = self._update(self.rl_state,
+                                                  index_experience(experience, idx))
+                outs.append(out)
+        return outs
+
+    def step(self) -> tuple[Experience, list[RLLossOutputs]]:
+        experience = self.rollout()
+        self.train_dynamics_on(experience)
+        return experience, self.update(experience)
+
+    def __call__(self, num_steps: int) -> list[float]:
+        """`num_steps` steps; the mean episode return of each."""
+        returns = []
+        for _ in range(num_steps):
+            experience, _ = self.step()
+            returns.append(float(np.mean(experience.episode_return.cpu().numpy())))
+        return returns

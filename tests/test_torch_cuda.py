@@ -23,6 +23,7 @@ K4 takes K1's tolerances and K5 those of K2/K3, for the same reasons.
 import pytest
 import torch
 
+from dreamer4_torch.models.tokenizer import VideoTokenizer
 from dreamer4_torch.models.transformer import AxialSpaceTimeTransformer
 from dreamer4_torch.ops import flash_attention as fa
 from dreamer4_torch.ops import small_attention as sa
@@ -128,6 +129,9 @@ K1_SM90_CASES = {
                               dict(causal=True, num_special=2, special_seq_len=9)),
     'prefill': ((8, 8, 8, 96, 192, 64, 0, 96), dict(causal=True)),
     'decode': ((8, 8, 8, 1, 192, 64, 4, 5), dict(causal=True)),
+    # SimTrainer's dynamics step at the bench width: b16 rollouts padded to
+    # 151 frames, 16 x 27 rows
+    'sim': ((432, 8, 8, 151, 151, 64, 0, 151), dict(causal=True)),
     'few_queries_gqa': ((3, 8, 4, 13, 200, 128, 150, 163), dict(causal=True)),
     'no_softclamp': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True, softclamp_value=None)),
 }
@@ -279,6 +283,7 @@ BWD_CASES = {
     'head_dim_128_gqa_t512': ((2, 8, 2, 512, 512, 128, 0, 512), dict(causal=True)),
     'head_dim_128_special': ((4, 8, 8, 144, 144, 128, 0, 144),
                              dict(num_special=1, special_seq_len=144)),
+    'sim': ((432, 8, 8, 151, 151, 64, 0, 151), dict(causal=True)),
 }
 
 
@@ -495,3 +500,29 @@ def test_small_wrapper_refuses_what_the_kernels_do_not_take(gen):
         sa.small_attend_flat(q.half(), k.half(), v.half(), None, 2)
     with pytest.raises(ValueError):
         sa.small_attend_flat(q, k.cpu(), v, None, 2)
+
+
+@pytest.mark.cuda
+def test_streaming_encode_matches_parallel_on_the_card(gen):
+    """The tokenizer's frame-by-frame encode over its KV cache (the plain
+    attention) against the whole video at once (K4 in the time layer), in
+    float32: K4's tolerance, 1e-4, as the two differ by K4 against the
+    plain attention and the order of their sums."""
+    torch.manual_seed(0)
+    tok = VideoTokenizer(dim=64, dim_latent=16, patch_size=8, image_height=32, image_width=32,
+                         num_latent_tokens=4, encoder_depth=2, decoder_depth=1,
+                         time_block_every=2, attn_dim_head=32, attn_heads=2,
+                         use_fused_small=True)
+    video = torch.rand((2, 3, 6, 32, 32), generator=gen, device='cuda')
+    with torch.no_grad():
+        before = sa.FWD_LAUNCHES
+        parallel = tok.encode(video)
+        launched = sa.FWD_LAUNCHES
+        assert launched > before
+        cache, frames = None, []
+        for i in range(6):
+            kw = dict(max_time=6) if cache is None else dict(cache=cache)
+            latents, cache = tok.encode(video[:, :, i:i + 1], return_cache=True, **kw)
+            frames.append(latents)
+        assert sa.FWD_LAUNCHES == launched      # the cached path is the plain one
+    assert (torch.cat(frames, dim=1) - parallel).abs().max().item() <= TOL[torch.float32]

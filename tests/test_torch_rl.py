@@ -818,13 +818,12 @@ def test_torch_dream_trainer_prompt_fn():
 def test_rl_losses_refuses_unported_inputs(model_and_experience):
     model, exp = model_and_experience
     cont = Actions(exp.actions.discrete, torch.zeros(2, 6, 1))
-    for change in (dict(actions=cont), dict(critic_state=torch.zeros(2, 6, 4)),
-                   dict(proprio=torch.zeros(2, 6, 3))):
+    for change in (dict(actions=cont), dict(proprio=torch.zeros(2, 6, 3))):
         with pytest.raises(NotImplementedError):
             rl_losses(model, Experience(**{**vars(exp), **change}))
     with pytest.raises(ValueError, match='objective'):
         rl_losses(model, exp, objective='a2c')
-    for name in ('actor_critic_latent_input', 'actor_spr', 'dim_critic_state'):
+    for name in ('actor_critic_latent_input', 'actor_spr', 'dim_proprio'):
         with pytest.raises(NotImplementedError):
             DynamicsWorldModel(**SMALL, **{name: 4 if name.startswith('dim') else True},
                                device='cpu')

@@ -415,7 +415,7 @@ def test_unported_tokenizer_options_raise():
         VideoTokenizer(**SMALL, no_such_option=1, device='cpu')
     tm = VideoTokenizer(**SMALL, device='cpu')
     with pytest.raises(NotImplementedError):
-        tm.encode(torch.zeros(1, 3, 2, 32, 32), max_time=4)
+        tm.encode(torch.zeros(1, 3, 2, 32, 32), aug_id=torch.zeros(1, dtype=torch.long))
     with pytest.raises(NotImplementedError):
         tm(torch.zeros(1, 3, 2, 32, 32), lpips_fn=lambda *a: 0.0)
     with pytest.raises(NotImplementedError):
