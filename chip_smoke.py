@@ -97,7 +97,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
                too, in bf16). K4 and K5 run for tens
                of microseconds, so their times (and the library's) are
                device times under torch.profiler, with the library's
-               CUDA-event times beside them. Then the device times of
+               CUDA-event times beside them. Each case prints the kernels'
+               launch plans (`small_plan`: heads per item, stages, shared
+               memory, blocks per SM) and each time's share of its bound;
+               the three main cases also the L2-cold time (inputs rotated
+               over more than 100 MB), the ragged ones an empty kernel's
+               device time beside K4's and flex's. Then the device times of
                K1 and flex_attention at the bf16 `K1_SM90_CASES`,
                and of K2, K3 and flex's backward at t1024 bf16, beside phase 2's
                CUDA-event times. The profiler can leave a cost on every
@@ -1348,6 +1353,46 @@ def time_small_library(q, k, v, do, h, mask, cfg, ref, grad_refs, tol, grad_tol)
     return out
 
 
+# the cases timed also with their inputs rotated over more than the L2
+SMALL_MAIN_CASES = ('tok_time', 'wm_space', 'wm_time')
+COLD_BYTES = 100e6    # twice the card's 50 MB L2
+
+
+def small_cold_ms(sa, B, n, h, dh, dtype, mask, softclamp):
+    """L2-cold device times (K4, K5): each call on another of enough input
+    sets (q, k, v, dO) to exceed COLD_BYTES, as a caller whose inputs were
+    written long before finds them."""
+    import itertools
+    import math
+
+    set_bytes = 4 * B * n * h * dh * torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    sets = [[torch.randn((B, n * h, dh), generator=gen, device='cuda').to(dtype)
+             for _ in range(4)] for _ in range(max(2, math.ceil(COLD_BYTES / set_bytes)))]
+    fwd = itertools.cycle([functools.partial(sa.small_attend_flat, q, k, v, mask, h,
+                                             softclamp_value=softclamp) for q, k, v, _ in sets])
+    bwd = itertools.cycle([functools.partial(sa.small_attend_flat_bwd, q, k, v, do, mask, h,
+                                             softclamp_value=softclamp) for q, k, v, do in sets])
+    return (device_ms(lambda: next(fwd)(), 'small_fwd_'),
+            device_ms(lambda: next(bwd)(), 'small_bwd_'))
+
+
+def small_plan_line(sa, B, n, h, dh, dtype):
+    """Each kernel's launch plan at this shape: heads per item, stages,
+    dynamic shared memory, blocks per SM, and for K5 in bf16 whether it
+    stores from registers (its grid holds every item at once)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = []
+    for which, label in (('fwd', 'K4'), ('bwd', 'K5')):
+        G, stages = sa.small_plan(n, h, dh, dtype, which)
+        smem = sa.small_smem_bytes(n, dh, dtype, which, G, stages)
+        resident = sa.resident_blocks(which, n, h, dh, dtype)
+        direct = (which == 'bwd' and dtype == torch.bfloat16 and B * h // G <= resident)
+        parts.append(f'{label} G {G} stages {stages} smem {smem} B {resident / sms:g} blocks/SM'
+                     + (' (stores from registers)' if direct else ''))
+    return '; '.join(parts)
+
+
 def run_small_kernel_phase():
     """K4 against `small_attend_flat_reference` and K5 against
     `small_attend_flat_bwd_reference` on every case, from the same q, k, v
@@ -1355,7 +1400,9 @@ def run_small_kernel_phase():
     checks and the CUDA-event times come first; the device times under
     torch.profiler after them, as the profiler can leave a cost on every
     later launch of the process (this phase runs last for the same
-    reason)."""
+    reason). Each case prints its launch plan and each time its share of
+    the bound; the main cases also their L2-cold times, the ragged ones an
+    empty kernel's device time (a one-element fill) beside K4 and flex."""
     from dreamer4_torch.ops import small_attention as sa
     from dreamer4_torch.ops.masks import build_attend_mask
 
@@ -1403,9 +1450,19 @@ def run_small_kernel_phase():
     if failures:
         raise SystemExit(f'small kernel phase failed: {failures}')
 
+    fill = torch.zeros(1, device='cuda')
+    empty_ms = device_ms(lambda: fill.fill_(0.0))
     for name, dtype, row, fwd, bwd, with_library, lib_args in timed:
         row['fwd']['ms'] = device_ms(fwd, 'small_fwd_')
         row['bwd']['ms'] = device_ms(bwd, 'small_bwd_')
+        q, _, _, _, h, mask, cfg = lib_args[:7]
+        B, NH, dh = q.shape
+        n = NH // h
+        log(f'K4/K5 {name:<18} {str(dtype).split(".")[-1]} plan: '
+            + small_plan_line(sa, B, n, h, dh, dtype))
+        if name in SMALL_MAIN_CASES:
+            cold = small_cold_ms(sa, B, n, h, dh, dtype, mask, cfg['softclamp_value'])
+            row['fwd']['l2_cold_ms'], row['bwd']['l2_cold_ms'] = cold
         lib = ''
         if with_library:
             t = time_small_library(*lib_args)
@@ -1424,8 +1481,15 @@ def run_small_kernel_phase():
         log(f'K4/K5 {name:<18} {str(dtype).split(".")[-1]}:')
         for which, label in (('fwd', 'K4'), ('bwd', 'K5')):
             r = row[which]
-            log(f'   {label} kernel {r["ms"]:.4f} ms (a wrapper call {r["call_ms"]:.4f} ms) plain '
-                f'{r["plain_ms"]:.4f} ms bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+            cold = ('' if 'l2_cold_ms' not in r else
+                    f', L2-cold {r["l2_cold_ms"]:.4f} ms ({r["bound_ms"] / r["l2_cold_ms"]:.0%})')
+            log(f'   {label} kernel {r["ms"]:.4f} ms ({r["bound_ms"] / r["ms"]:.0%} of its bound'
+                f'{cold}; a wrapper call {r["call_ms"]:.4f} ms) plain {r["plain_ms"]:.4f} ms '
+                f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+        if name.startswith('ragged'):
+            flex = row['fwd']['library_ms']
+            log(f'   K4 {row["fwd"]["ms"]:.4f} ms vs flex {fmt_ms(flex)} vs an empty kernel '
+                f'{fmt_ms(empty_ms)} (device time, this run)')
         if lib:
             log(lib)
     return results

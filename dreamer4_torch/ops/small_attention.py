@@ -17,6 +17,12 @@ bias that is -1e30 across heads and where the (n, n) mask forbids a pair.
 A wrapper computes them only for tensors on the CPU: on a CUDA tensor it
 launches the kernel or raises. The kernels compute each (row, head) on its
 own from the (n, n) mask, without the h-fold redundant scores.
+
+Both kernels are persistent: a block walks items of one batch row and G
+heads, fed through a ring of shared-memory stages by bulk-async copies
+(`csrc/small_attn_common.cuh`). `small_plan` picks G and the number of
+stages per call from the shape alone, a pure function cached per shape, so
+the wrapper adds no host work per call.
 """
 from __future__ import annotations
 
@@ -37,6 +43,75 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TOKENS = 64
 # the counterpart's efficiency cap on the flat rows n * heads
 MAX_NH = 512
+
+
+# csrc/small_attn_common.cuh: consumer warps per block, the ring's barrier
+# bytes, and a block's shared-memory limit on sm_90
+MAX_CONSUMER_WARPS = 8
+_BARRIER_BYTES = 128
+SMEM_LIMIT = 232448
+# staged inputs per item, and output tiles (K5 in bf16 only: K4 and the
+# float32 kernels store from registers) of K4 ('fwd') and K5 ('bwd')
+_TENSORS = {'fwd': (3, 0), 'bwd': (4, 3)}
+# The plan's choices, measured on an NVIDIA H100 80GB HBM3 at 700 W by
+# `scripts/time_torch_small.py sweep` (PERF.md §6): with 2 stages, 2
+# heads per item in bf16 and 1 in float32 were the fastest plan at the
+# tokenizer's and the world model's shapes or within 3% of it (3 stages in
+# float32 at the world-model shapes), and within 0.0008 ms of it at the
+# ragged n = 13 shapes.
+HEADS_PER_ITEM = {torch.bfloat16: 2, torch.float32: 1}
+STAGES = 2
+
+
+def _npad(n: int) -> int:
+    return 16 if n <= 16 else 32 if n <= 32 else 64
+
+
+def consumer_warps(n: int, heads_per_item: int, dtype: torch.dtype) -> int:
+    """Consumer warps of a block: per head, one per 16 query rows (bf16) or
+    one per 8 rows at four threads a row (float32)."""
+    return heads_per_item * _npad(n) // (16 if dtype == torch.bfloat16 else 8)
+
+
+def small_smem_bytes(n: int, dim_head: int, dtype: torch.dtype, which: str,
+                     heads_per_item: int, stages: int) -> int:
+    """Dynamic shared memory of a launch, as the kernels size it
+    (`smem_bytes` in csrc/small_attn_fwd.cu and small_attn_bwd.cu): the
+    ring's stages of NPAD-row tiles (rows of G * dh elements and 16 bytes
+    of pad), K5's bf16 output tiles (which a launch whose grid holds every
+    item at once leaves out), and K5's (K4's in float32) p / ds tiles."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    npad, G = _npad(n), heads_per_item
+    tile = npad * (G * dim_head + 16 // elem) * elem
+    ins, outs = _TENSORS[which]
+    if elem == 4:
+        outs = 0
+    total = _BARRIER_BYTES + (stages * ins + outs) * tile
+    if which == 'bwd':
+        total += 2 * G * npad * (npad + 16 // elem) * elem
+    elif elem == 4:
+        total += G * npad * (npad + 4) * 4
+    return total
+
+
+@functools.lru_cache(maxsize=256)
+def small_plan(n: int, heads: int, dim_head: int, dtype: torch.dtype,
+               which: str) -> tuple[int, int]:
+    """(heads per item G, ring stages) of K4 (`which='fwd'`) or K5
+    ('bwd') at this shape: the largest G up to `HEADS_PER_ITEM[dtype]`
+    that divides `heads`, gives at most `MAX_CONSUMER_WARPS` consumer warps
+    and fits in `SMEM_LIMIT` with one stage (G = 1 at least); the stages
+    are `STAGES` where they fit, else as many as fit."""
+    G = 1
+    for g in range(min(heads, HEADS_PER_ITEM[dtype]), 0, -1):
+        if (heads % g == 0 and consumer_warps(n, g, dtype) <= MAX_CONSUMER_WARPS
+                and small_smem_bytes(n, dim_head, dtype, which, g, 1) <= SMEM_LIMIT):
+            G = g
+            break
+    for stages in range(STAGES, 0, -1):
+        if small_smem_bytes(n, dim_head, dtype, which, G, stages) <= SMEM_LIMIT:
+            return G, stages
+    raise ValueError(f'no plan fits n {n}, dh {dim_head}, {dtype} in shared memory')
 
 
 def kernels_take(n: int, dim_head: int, dtype: torch.dtype) -> bool:
@@ -219,14 +294,35 @@ class _SmallAttend(torch.autograd.Function):
 def _kernel_entry(name: str):
     """The entry point `name` of the built `csrc/<name>.cu`, its C signature
     declared once: n_ptr pointers (the mask pointer may be null), then B, n,
-    h, dh, dtype, scale, softclamp and the stream."""
+    h, dh, dtype, heads per item, stages, scale, softclamp and the
+    stream."""
     from .cuda_build import load
+    return declare_entry(getattr(load(name), name), name)
+
+
+def declare_entry(fn, name: str):
+    """`fn`, a ctypes function of the C entry point `name`, with its
+    signature declared."""
     n_ptr = {'small_attn_fwd': 5, 'small_attn_bwd': 8}[name]
-    fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     return fn
+
+
+def resident_blocks(which: str, n: int, heads: int, dim_head: int, dtype: torch.dtype,
+                    plan: tuple[int, int] | None = None) -> int:
+    """The persistent grid of K4 (`which='fwd'`) or K5 ('bwd') at `plan`
+    (default: `small_plan`'s): the blocks the card holds at once, as the
+    kernel's launch queries them (once per configuration). -1 where the
+    plan does not launch. For the record; the wrapper never calls it."""
+    from .cuda_build import load
+    name = f'small_attn_{which}'
+    fn = getattr(load(name), f'{name}_resident')
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6
+    plan = plan or small_plan(n, heads, dim_head, dtype, which)
+    return fn(n, heads, dim_head, _DTYPE_CODES[dtype], *plan)
 
 
 def _check_cuda(heads, named: dict):
@@ -257,10 +353,14 @@ def _mask_table(mask, device):
     return mask.to(device=device).contiguous()
 
 
-def _launch(name, pointers, q, heads, softclamp_value, scale):
+def _launch(which, pointers, q, heads, softclamp_value, scale):
+    """One launch of K4 (`which='fwd'`) or K5 ('bwd') at its plan."""
+    name = f'small_attn_{which}'
     B, NH, D = q.shape
+    n = NH // heads
     err = _kernel_entry(name)(
-        *pointers, B, NH // heads, heads, D, _DTYPE_CODES[q.dtype], float(scale),
+        *pointers, B, n, heads, D, _DTYPE_CODES[q.dtype],
+        *small_plan(n, heads, D, q.dtype, which), float(scale),
         float(softclamp_value) if softclamp_value is not None else 0.0,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -273,9 +373,8 @@ def _fwd_cuda(q, k, v, mask, cfg):
     _check_cuda(heads, dict(q=q, k=k, v=v))
     table = _mask_table(mask, q.device)
     out = torch.empty_like(v)
-    _launch('small_attn_fwd', (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               table.data_ptr() if table is not None else None,
-                               out.data_ptr()),
+    _launch('fwd', (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    table.data_ptr() if table is not None else None, out.data_ptr()),
             q, heads, softclamp_value, scale)
     FWD_LAUNCHES += 1
     return out
@@ -287,9 +386,9 @@ def _bwd_cuda(q, k, v, do, mask, cfg):
     _check_cuda(heads, dict(q=q, k=k, v=v, do=do))
     table = _mask_table(mask, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch('small_attn_bwd', (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                               table.data_ptr() if table is not None else None,
-                               dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+    _launch('bwd', (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    table.data_ptr() if table is not None else None,
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, heads, softclamp_value, scale)
     BWD_LAUNCHES += 1
     return dq, dk, dv

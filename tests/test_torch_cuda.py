@@ -526,3 +526,129 @@ def test_streaming_encode_matches_parallel_on_the_card(gen):
             frames.append(latents)
         assert sa.FWD_LAUNCHES == launched      # the cached path is the plain one
     assert (torch.cat(frames, dim=1) - parallel).abs().max().item() <= TOL[torch.float32]
+
+
+# K4 / K5 as persistent kernels: items of one batch row and G heads through
+# a ring of bulk-async stages (`sa.small_plan`), at today's tolerances
+
+
+def check_small(gen, B, n, h, dh, dtype, kind, softclamp=50.0, inputs=None):
+    """Both kernels against their plain versions; returns (out, grads)."""
+    q, k, v, do = inputs if inputs is not None else small_inputs(gen, B, n, h, dh, dtype)
+    mask = small_mask(kind, n)
+    bias = sa.build_interleaved_bias(n, h, mask, device='cuda')
+    out = sa.small_attend_flat(q, k, v, mask, h, softclamp_value=softclamp)
+    grads = sa.small_attend_flat_bwd(q, k, v, do, mask, h, softclamp_value=softclamp)
+    torch.cuda.synchronize()
+    ref = sa.small_attend_flat_reference(q, k, v, bias, softclamp)
+    refs = sa.small_attend_flat_bwd_reference(q, k, v, do, bias, softclamp)
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        assert rel_err(g, r) <= GRAD_TOL[dtype]
+    return out, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B', [5000, 1])
+def test_small_kernels_more_and_fewer_items_than_blocks(gen, dtype, B):
+    """B = 5000 at n = 16, h = 8 gives each persistent block many items
+    (the ring wraps many times); B = 1 leaves most of the grid unused."""
+    check_small(gen, B, 16, 8, 64, dtype, 'causal')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n, h', [(1, 8), (17, 8), (64, 8), (33, 2)])
+def test_small_kernels_edge_token_counts(gen, dtype, n, h):
+    """n = 1 (one valid row of 16), n = 17 (padding inside a 32-row tile),
+    n = 64 with h = 8 (n*h = 512, the gate's edge), n = 33 (a 64-row tile
+    mostly padding)."""
+    check_small(gen, 6, n, h, 64, dtype, 'causal')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dh', sa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize('n', [16, 27, 64])
+def test_small_kernels_every_head_dim(gen, dtype, dh, n):
+    check_small(gen, 7, n, 8 if n < 64 else 4, dh, dtype, 'special')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['none', 'causal', 'special', 'special_only_itself'])
+def test_small_kernels_every_mask_kind(gen, dtype, kind):
+    check_small(gen, 9, 27, 8, 64, dtype, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n, h, dh', [(16, 8, 64), (13, 4, 128), (27, 8, 32), (64, 8, 16)])
+def test_small_kernels_never_read_the_next_batch_row(gen, dtype, n, h, dh):
+    """The tensors sit inside buffers whose rows before and after them (the
+    neighbouring batch rows) hold NaN: no copy of an item reads past its
+    rows, so no output or gradient sees them."""
+    B = 5
+    bufs = [torch.full((B + 2, n * h, dh), float('nan'), device='cuda', dtype=dtype)
+            for _ in range(4)]
+    for t, src in zip(bufs, small_inputs(gen, B, n, h, dh, dtype)):
+        t[1:B + 1] = src
+    check_small(gen, B, n, h, dh, dtype, 'causal', inputs=tuple(t[1:B + 1] for t in bufs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['tok_time', 'wm_space', 'n64'])
+def test_small_kernels_are_bitwise_reproducible(gen, dtype, case):
+    """Each head's gradients are written by its own warps (no atomics), so
+    K5's dq, dk, dv and K4's output are the same bits from run to run."""
+    B, n, h, dh, kind = SMALL_CASES[case]
+    q, k, v, do = small_inputs(gen, B * 4, n, h, dh, dtype)
+    mask = small_mask(kind, n)
+    runs = [(sa.small_attend_flat(q, k, v, mask, h),
+             *sa.small_attend_flat_bwd(q, k, v, do, mask, h)) for _ in range(3)]
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
+
+
+def small_plans(n, h, dh, dtype, which):
+    """Every plan the kernels take at this shape: G dividing h within the
+    consumer-warp limit, 1-3 stages where they fit in shared memory."""
+    return [(g, s) for g in range(1, h + 1) if h % g == 0
+            and sa.consumer_warps(n, g, dtype) <= sa.MAX_CONSUMER_WARPS
+            for s in (1, 2, 3)
+            if sa.small_smem_bytes(n, dh, dtype, which, g, s) <= sa.SMEM_LIMIT]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n, h, dh', [(16, 8, 64), (27, 4, 32)])
+def test_small_kernels_agree_at_every_plan(gen, monkeypatch, dtype, n, h, dh):
+    """Forced through every plan (heads per item, stages) at a shape, both
+    kernels match their plain versions: the ring is right whatever
+    `small_plan` picks."""
+    q, k, v, do = small_inputs(gen, 300, n, h, dh, dtype)
+    routed = sa.small_plan
+    for which in ('fwd', 'bwd'):
+        for plan in small_plans(n, h, dh, dtype, which):
+            monkeypatch.setattr(sa, 'small_plan', lambda *a, plan=plan, which=which: (
+                plan if a[-1] == which else routed(*a)))
+            check_small(gen, 300, n, h, dh, dtype, 'causal', inputs=(q, k, v, do))
+            monkeypatch.undo()
+
+
+@pytest.mark.cuda
+def test_small_kernels_refuse_a_plan_they_do_not_take(gen):
+    """A plan whose G does not divide h, or that needs more threads or
+    shared memory than the kernels are built for, fails the launch: the
+    wrapper raises, nothing falls back."""
+    q, k, v, _ = small_inputs(gen, 2, 16, 8, 64, torch.bfloat16)
+    for plan in [(3, 2), (16, 2), (8, 9)]:
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(sa, 'small_plan', lambda *a, plan=plan: plan)
+            with pytest.raises(RuntimeError):
+                sa.small_attend_flat(q, k, v, None, 8)

@@ -193,8 +193,10 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     assert names == ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd',
                      'small_attn_bwd', 'small_attn_fwd']
     for name in names:
+        # the small kernels' header includes both flash headers (the bf16
+        # fragments, the mbarriers of their bulk-async ring)
         headers = (['small_attn_common.cuh'] if name.startswith('small') else []) + [
-            'flash_attn_common.cuh'] + (['flash_attn_sm90.cuh'] if name.startswith('flash') else [])
+            'flash_attn_common.cuh', 'flash_attn_sm90.cuh']
         assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu', *headers]
     before = {name: cuda_build.library_path(name) for name in names}
     assert before == {name: cuda_build.library_path(name) for name in names}

@@ -12,6 +12,10 @@ against the JAX package at float32, with converted weights.
 - The gate admits every shape of the slice's paths, and every mask the
   trunk builds on them lets each query row see at least one key (a fully
   masked row is where K4 and the TPU kernel would differ).
+- `small_plan`, the kernels' launch plan (heads per item, ring stages): its
+  choices at the slice's main shapes and the gate's edge, and a plan the
+  kernels take (G divides h, at most 8 consumer warps, the shared memory
+  within the card's) at every shape the gate admits.
 """
 import jax
 import jax.numpy as jnp
@@ -247,3 +251,43 @@ def test_every_trunk_mask_row_sees_a_key(special, only_itself, s, t, monkeypatch
     assert masks.keys() == {s, t}
     for mask in masks.values():
         assert mask is not None and bool(mask.any(dim=1).all())
+
+
+# ---------------------------------------------------------------- the plan
+
+# (which kernel, dtype, n, heads, dim_head) -> (heads per item, stages): the
+# tokenizer's time layer, the world model's space and time layers at b8 x
+# T32, the gate's edge n * h = 512 at head dims 64 and 128, a ragged shape
+PLAN_PINS = [
+    ('fwd', torch.bfloat16, 16, 8, 64, (2, 2)), ('fwd', torch.bfloat16, 27, 8, 64, (2, 2)),
+    ('fwd', torch.bfloat16, 32, 8, 64, (2, 2)), ('fwd', torch.bfloat16, 64, 8, 64, (2, 2)),
+    ('fwd', torch.float32, 16, 8, 64, (1, 2)), ('fwd', torch.float32, 64, 8, 128, (1, 2)),
+    ('bwd', torch.bfloat16, 16, 8, 64, (2, 2)), ('bwd', torch.bfloat16, 27, 8, 64, (2, 2)),
+    ('bwd', torch.bfloat16, 32, 8, 64, (2, 2)), ('bwd', torch.bfloat16, 64, 8, 128, (1, 2)),
+    ('bwd', torch.float32, 27, 8, 64, (1, 2)), ('bwd', torch.float32, 64, 8, 128, (1, 1)),
+    ('fwd', torch.bfloat16, 13, 4, 32, (2, 2)),
+]
+
+
+@pytest.mark.parametrize('which, dtype, n, heads, dh, plan', PLAN_PINS)
+def test_small_plan_at_the_slice_shapes(which, dtype, n, heads, dh, plan):
+    assert sa.small_plan(n, heads, dh, dtype, which) == plan
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('which', ['fwd', 'bwd'])
+def test_small_plan_fits_every_admitted_shape(which, dtype):
+    """At every (n, heads, dh) the gate admits (on a grid of n and heads),
+    the plan is one the kernels launch: G divides heads, the block has at
+    most MAX_CONSUMER_WARPS consumer warps and fits the card's shared
+    memory, with at least one stage."""
+    for n in (1, 2, 13, 16, 17, 27, 31, 32, 33, 48, 63, 64):
+        for heads in (1, 2, 3, 4, 5, 6, 8, 12, 16, 32):
+            for dh in sa.SUPPORTED_HEAD_DIMS:
+                if not sa.small_attention_viable(n, heads, dh, dtype):
+                    continue
+                G, stages = sa.small_plan(n, heads, dh, dtype, which)
+                assert heads % G == 0 and stages >= 1, (n, heads, dh)
+                assert sa.consumer_warps(n, G, dtype) <= sa.MAX_CONSUMER_WARPS
+                assert sa.small_smem_bytes(n, dh, dtype, which, G, stages) <= sa.SMEM_LIMIT
+
