@@ -87,7 +87,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
                of the bench world model; the streamed latents held against
                one uncached encode of the recorded video. Prints ms per
                frame and env-steps/s.
- 10. small   — K4 and K5 (the small-attention forward and backward) against
+ 10. cli     — the data plane, the CLI and serving at the CLI's default
+               widths (the bench tokenizer, float32; a dim-512, depth-8
+               world model with 16 spatial tokens), as a user runs them:
+               16 Snake episodes (4 x 4 grid, 64 x 64 frames, seeded random
+               actions) recorded into a `ReplayBuffer` through
+               `RecordToReplayBufferEnvWrapper`; the native prefetch library
+               built into `dreamer4_torch/build/` and its `PrefetchSampler`
+               held against `sample_batch` and timed beside the synchronous
+               path; `inspect-replay-buffer` in a subprocess, its JSON held
+               against the buffer; `train-video-tokenizer` (2 steps of 2
+               micro-batches, then resumed to 3) and `train-dynamics` (2
+               steps, sampling on) in this process through
+               `dreamer4_torch.cli.main`; `serve-world-model` on those
+               checkpoints in a subprocess, answering `/reset`, 16 `/step`s
+               (each frame a 64 x 64 PNG, rewards finite) and `/`, then the
+               same command on Snake, then `inspect-replay-buffer --serve`.
+               The served world model's environment is also built here
+               (`cli.world_model_env`) and stepped 16 times, counted. The
+               CLI builds its models as the JAX CLI does, with the flash
+               and small paths off, so K1-K5 launch 0 times. Prints seconds
+               per tokenizer and dynamics step (from the step times in
+               `metrics.jsonl`), ms per `/reset` and the median and max ms
+               per `/step`, peak memory and whether the native library
+               loaded. Its files go to `smoke_work/` (gitignored), which it
+               removes at its end.
+ 11. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
@@ -109,8 +134,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                later launch of the process, so this phase runs last, after
                every timed model phase.
 Launch counts (K1 to K5, and K1's by variant) are set to 0 just before
-each rollout, dream step, RL update, encode, decode, train step and part of
-a sim step and read just after.
+each rollout, dream step, RL update, encode, decode, train step, part of
+a sim step and CLI command run in this process, and read just after.
 
 The last three lines of standard output are a JSON line with one entry per
 kernel, the card's name and power limit, and the result line
@@ -118,12 +143,21 @@ kernel, the card's name and power limit, and the result line
 """
 from __future__ import annotations
 
+import base64
+import contextlib
 import functools
+import gc
+import io
 import json
 import re
+import shutil
+import socket
+import struct
 import subprocess
 import sys
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -254,6 +288,19 @@ TOK_LAUNCHES = {'tok_encode': (0, 0, 0, 1, 0), 'tok_decode': (0, 0, 0, 4, 0),
 # K4/K5; a shortcut step adds two no-grad passes of K4 only
 WM_FUSED = dict(batch_size=8, time_steps=32)
 WM_FUSED_LAUNCHES = {False: (0, 0, 0, 8, 8), True: (0, 0, 0, 24, 8)}
+
+# the cli phase: Snake recorded as examples/train_snake_ppo.py:51-55 does,
+# at 64 x 64 frames; the CLI commands at their default widths
+# (dreamer4_tpu/cli.py:21-30, :141-147), with short runs
+CLI_SNAKE = dict(grid_size=4, max_steps=20, image_size=64)
+CLI_EPISODES = 16
+CLI_TOKENIZER_ARGS = ['--grad-accum', '2', '--log-every', '1', '--checkpoint-every', '2',
+                      '--sample-every', '2']
+CLI_DYNAMICS_ARGS = ['--num-discrete-actions', '4', '--num-steps', '2', '--log-every', '1',
+                     '--checkpoint-every', '2', '--sample-every', '2']
+CLI_SERVE_STEPS = 16
+CLI_PREFETCH = dict(batch_size=8, seq_len=8, batches=20)
+CLI_WORK_DIR = Path(__file__).resolve().parent / 'smoke_work'
 
 
 def log(msg: str) -> None:
@@ -1849,6 +1896,288 @@ def run_pixel_phase(seed: int = 0) -> dict:
     return {'pixel_rollout': launches}
 
 
+# ---------------------------------------------------------------------- cli
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def run_cli(*args, timeout=300) -> str:
+    """`python -m dreamer4_torch.cli <args>` in a subprocess; its output."""
+    proc = subprocess.run([sys.executable, '-m', 'dreamer4_torch.cli', *args],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=timeout, check=False)
+    if proc.returncode != 0:
+        raise SystemExit(f'cli {args[0]} failed:\n{proc.stdout}\n{proc.stderr}')
+    return proc.stdout
+
+
+class CliServer:
+    """A `python -m dreamer4_torch.cli` server in a subprocess, for the
+    block: started, waited for on its port, stopped at the end."""
+
+    def __init__(self, *args, log_path: Path):
+        self.port = free_port()
+        self.args, self.log_path = [*args, '--port', str(self.port)], log_path
+        self.url = f'http://127.0.0.1:{self.port}'
+
+    def __enter__(self):
+        self.log_file = open(self.log_path, 'w')
+        self.proc = subprocess.Popen([sys.executable, '-m', 'dreamer4_torch.cli', *self.args],
+                                     cwd=Path(__file__).resolve().parent, stdout=self.log_file,
+                                     stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                self.__exit__()
+                raise SystemExit(f'cli {self.args[0]} exited with {self.proc.returncode}:\n'
+                                 + self.log_path.read_text())
+            try:
+                with socket.create_connection(('127.0.0.1', self.port), timeout=1):
+                    return self
+            except OSError:
+                time.sleep(0.5)
+        self.__exit__()
+        raise SystemExit(f'cli {self.args[0]} did not open port {self.port}')
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.log_file.close()
+
+    def request(self, path, payload=None):
+        """(answer, ms): JSON for a POST or an `/api` path, else text."""
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(self.url + path, data=data,
+                                     method='GET' if data is None else 'POST',
+                                     headers={'Content-Type': 'application/json'})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = r.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (body.decode() if data is None and not path.startswith('/api')
+                else json.loads(body)), ms
+
+
+def png_size(frame_b64: str) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk."""
+    data = base64.b64decode(frame_b64)
+    if data[:8] != b'\x89PNG\r\n\x1a\n' or data[12:16] != b'IHDR':
+        raise SystemExit('served frame is not a PNG')
+    return struct.unpack('>II', data[16:24])
+
+
+def check_served_steps(server, label, size, steps, rng):
+    """`/reset`, `steps` x `/step` and `/`: every frame a PNG of `size` x
+    `size`, rewards finite, `done` and `steps_left` present. Returns the
+    ms of the reset and of each step."""
+    out, reset_ms = server.request('/reset', {})
+    if png_size(out['frame']) != (size, size) or 'steps_left' not in out:
+        raise SystemExit(f'{label}: /reset answered {sorted(out)}, frame {png_size(out["frame"])}')
+    step_ms = []
+    for _ in range(steps):
+        out, ms = server.request('/step', {'action': int(rng.integers(4))})
+        step_ms.append(ms)
+        missing = {'frame', 'reward', 'terminated', 'truncated', 'done', 'steps_left'} - set(out)
+        if missing or png_size(out['frame']) != (size, size) or not np.isfinite(out['reward']):
+            raise SystemExit(f'{label}: /step answered {out.keys()} (missing {missing}), '
+                             f'reward {out.get("reward")}')
+    page, _ = server.request('/')
+    if "post('/step'" not in page:
+        raise SystemExit(f'{label}: / does not serve the play page')
+    return reset_ms, step_ms
+
+
+def step_seconds(logdir: Path) -> list[float]:
+    """Seconds between consecutive step records of one run's
+    `metrics.jsonl` (each logged right after its optimizer step, before
+    any sample or checkpoint)."""
+    records = [json.loads(line) for line in (logdir / 'metrics.jsonl').read_text().splitlines()]
+    return [b['time'] - a['time'] for a, b in zip(records, records[1:])
+            if b['step'] == a['step'] + 1]
+
+
+def record_snake(folder: Path, seed: int):
+    from dreamer4_torch.data.replay_buffer import ReplayBuffer
+    from dreamer4_torch.envs.snake import SnakeEnv
+    from dreamer4_torch.envs.wrappers import RecordToReplayBufferEnvWrapper
+
+    env = SnakeEnv(**CLI_SNAKE, seed=seed)
+    h = env.image_size
+    buf = ReplayBuffer(folder, max_episodes=CLI_EPISODES,
+                       max_timesteps=CLI_SNAKE['max_steps'] + 1,
+                       fields=dict(video=('uint8', (3, h, h)), rewards='float',
+                                   terminated='bool', discrete_actions='int'))
+    wrapped = RecordToReplayBufferEnvWrapper(env, buf)
+    rng = np.random.default_rng(seed)
+    for ep in range(CLI_EPISODES):
+        wrapped.reset(seed=seed + ep)
+        while True:
+            out = wrapped.step(int(rng.integers(4)))
+            if out[2] or out[3]:
+                break
+    wrapped.close()
+    return buf
+
+
+def run_prefetch_check(buf, seed: int) -> dict:
+    """The native `PrefetchSampler` against `sample_batch` under the same
+    draws, and the ms the consumer waits in `next` per batch natively
+    (the next batch is assembled while this one is checked) and on the
+    synchronous path."""
+    from dreamer4_torch.data import prefetch
+
+    if not prefetch.available():
+        raise SystemExit(f'the native prefetch library did not load: {prefetch.load_error()}')
+    cfg = CLI_PREFETCH
+    ms = {}
+    for path in ('native', 'sync'):
+        sampler = prefetch.PrefetchSampler(buf, cfg['batch_size'], cfg['seq_len'],
+                                           rng=np.random.default_rng(seed),
+                                           convert_uint8_fields=('video',))
+        if path == 'sync':
+            sampler.engine.close()   # no pool: the numpy path assembles each batch
+        ref_rng = np.random.default_rng(seed)
+        waited = 0.0
+        for _ in range(cfg['batches']):
+            t0 = time.perf_counter()
+            got = next(sampler)
+            waited += time.perf_counter() - t0
+            ref = buf.sample_batch(ref_rng, cfg['batch_size'], cfg['seq_len'])
+            ref['video'] = ref['video'].astype(np.float32) / 255.0
+            for k, v in ref.items():
+                if not np.allclose(got[k], v, rtol=1e-6, atol=0):
+                    raise SystemExit(f'prefetch ({path}): {k} differs from sample_batch')
+        ms[path] = waited * 1e3 / cfg['batches']
+        sampler.close()
+    return ms
+
+
+def run_cli_phase(seed: int = 0) -> dict:
+    """The data plane, the CLI and serving at the CLI's default widths;
+    returns the (K1..K5) launches of its in-process parts."""
+    import dreamer4_torch.cli as cli
+    from dreamer4_torch.data import prefetch
+
+    work = CLI_WORK_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # the servers below are processes of their own on this card: hand back
+    # what earlier phases left in this process's allocator cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    buffer_dir, tok_dir, dyn_dir = work / 'snake_buffer', work / 'tokenizer', work / 'dynamics'
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    buf, sec = timed(lambda: record_snake(buffer_dir, seed))
+    lengths = [buf.episode_length(i) for i in range(buf.num_episodes)]
+    log(f'cli: recorded {buf.num_episodes} Snake episodes ({CLI_SNAKE}) in {sec:.2f} s, '
+        f'lengths {lengths}')
+    ms = run_prefetch_check(buf, seed)
+    log(f'cli: native prefetch library {prefetch.library_path().name} loaded '
+        f'(available() {prefetch.available()}); PrefetchSampler b{CLI_PREFETCH["batch_size"]} x '
+        f'T{CLI_PREFETCH["seq_len"]} (uint8 -> float32) equal to sample_batch: '
+        f'the consumer waits {ms["native"]:.3f} ms per batch native, {ms["sync"]:.3f} ms '
+        'synchronous')
+
+    stats = json.loads(run_cli('inspect-replay-buffer', '--buffer', str(buffer_dir)))
+    want = dict(num_episodes=CLI_EPISODES, max_timesteps=CLI_SNAKE['max_steps'] + 1,
+                mean_episode_length=float(np.mean(lengths)),
+                fields={k: [str(np.dtype(d)), list(s)] for k, (d, s) in buf.fields.items()})
+    if any(stats[k] != v for k, v in want.items()):
+        raise SystemExit(f'inspect-replay-buffer printed {stats}, the buffer holds {want}')
+    log(f'cli: inspect-replay-buffer: {stats["num_episodes"]} episodes, mean length '
+        f'{stats["mean_episode_length"]}, fields {sorted(stats["fields"])}')
+
+    launches = {}
+    tok_args = ['train-video-tokenizer', '--dataset', str(buffer_dir), '--output', str(tok_dir),
+                *CLI_TOKENIZER_ARGS]
+    for steps in ('2', '3'):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _, sec, counts, _ = counted(lambda: cli.main([*tok_args, '--num-steps', steps]))
+        launches[f'cli_tokenizer_{steps}'] = counts
+        log(f'cli: train-video-tokenizer --num-steps {steps}: {sec:.2f} s in all, (K1..K5) '
+            f'launches {counts}; it printed: {printed.getvalue().splitlines()}')
+        if steps == '2':   # the resumed run logs one step only
+            tok_step_s = step_seconds(tok_dir / 'logs')
+    if f'resumed from {tok_dir} at step 2' not in printed.getvalue():
+        raise SystemExit('the second train-video-tokenizer run did not resume at step 2')
+    steps_logged = [json.loads(line)['step'] for line in
+                    (tok_dir / 'logs' / 'metrics.jsonl').read_text().splitlines()]
+    if steps_logged != [1, 2, 3] or not (tok_dir / 'ckpt-3' / 'ema' / 'config.json').exists():
+        raise SystemExit(f'the tokenizer logged steps {steps_logged}, or no EMA checkpoint at 3')
+
+    _, sec, counts, _ = counted(lambda: cli.main([
+        'train-dynamics', '--dataset', str(buffer_dir), '--tokenizer-checkpoint', str(tok_dir),
+        '--output', str(dyn_dir), *CLI_DYNAMICS_ARGS]))
+    launches['cli_dynamics'] = counts
+    dyn_step_s = step_seconds(dyn_dir / 'logs')
+    gifs = sorted(p.name for d in (tok_dir, dyn_dir) for p in (d / 'logs').glob('*.gif'))
+    losses = [json.loads(line)['loss'] for line in
+              (dyn_dir / 'logs' / 'metrics.jsonl').read_text().splitlines()]
+    if not np.isfinite(losses).all() or gifs != ['dream_00000002.gif', 'recon_00000002.gif']:
+        raise SystemExit(f'train-dynamics: losses {losses}, sample gifs {gifs}')
+    log(f'cli: train-dynamics --num-steps 2: {sec:.2f} s in all, (K1..K5) launches {counts}, '
+        f'losses {losses}; sample gifs written {gifs}')
+    log(f'cli: s per optimizer step: tokenizer (b8 x T8, 2 micro-batches) {tok_step_s}, '
+        f'dynamics (b8 x T8) {dyn_step_s} (from metrics.jsonl: step 1 -> 2 of one run)')
+
+    # the served environment, built here as the server builds it, counted
+    size = CLI_SNAKE['image_size']
+    env = cli.world_model_env(str(dyn_dir), str(tok_dir))
+    rng = np.random.default_rng(seed)
+    env.reset()
+    zero_counts()
+    step_ms = []
+    for _ in range(CLI_SERVE_STEPS):
+        out, sec = timed(lambda: env.step(int(rng.integers(4))))
+        step_ms.append(sec * 1e3)
+    launches['cli_wrapper'] = read_counts()
+    if out[0].shape != (1, 3, size, size) or not np.isfinite(out[0]).all():
+        raise SystemExit(f'world-model env step gave {out[0].shape}')
+    log(f'cli: DynamicsWorldModelWrapper step in this process: median '
+        f'{np.median(step_ms):.2f} ms, max {max(step_ms):.2f} ms over {CLI_SERVE_STEPS}, '
+        f'(K1..K5) launches {launches["cli_wrapper"]}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del env
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with CliServer('serve-world-model', '--checkpoint', str(dyn_dir), '--tokenizer-checkpoint',
+                   str(tok_dir), log_path=work / 'serve_world_model.log') as server:
+        reset_ms, served_ms = check_served_steps(server, 'serve-world-model', size,
+                                                 CLI_SERVE_STEPS, rng)
+    log(f'cli: serve-world-model over HTTP: /reset {reset_ms:.2f} ms, /step median '
+        f'{np.median(served_ms):.2f} ms, max {max(served_ms):.2f} ms over {CLI_SERVE_STEPS} '
+        '(a dreamed frame, the tokenizer decode and the PNG; first requests included)')
+    with CliServer('serve-world-model', log_path=work / 'serve_snake.log') as server:
+        check_served_steps(server, 'serve-world-model (Snake)', 8, 4, rng)
+    with CliServer('inspect-replay-buffer', '--buffer', str(buffer_dir), '--serve',
+                   log_path=work / 'inspect.log') as server:
+        served_stats, _ = server.request('/api/stats')
+        episode, _ = server.request('/api/episode/0')
+    if (served_stats != {k: v for k, v in stats.items() if k != 'folder'}
+            or episode['length'] != lengths[0]
+            or [png_size(f) for f in episode['frames']] != [(size, size)] * lengths[0]):
+        raise SystemExit(f'inspect-replay-buffer --serve: {served_stats}, episode 0 length '
+                         f'{episode["length"]}')
+    log(f'cli: serve-world-model on Snake and inspect-replay-buffer --serve answered; '
+        f'phase {time.perf_counter() - t_phase:.1f} s, peak memory in this process '
+        f'{peak:.2f} GiB')
+    for label, counts in launches.items():
+        expect_launches(label, counts, (0, 0, 0, 0, 0))
+    shutil.rmtree(work)
+    return launches
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1891,7 +2220,7 @@ def main() -> int:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
-                **run_pixel_phase()}
+                **run_pixel_phase(), **run_cli_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)

@@ -16,7 +16,12 @@ loop `envs.interact.EnvInteractor` (`interact_with_env` for one rollout)
 over state-vector observations (`state_to_latents`, a critic state) or
 pixels (the tokenizer's streaming, cached `encode`), and
 `train.trainers.SimTrainer` (rollouts, interleaved dynamics training, RL
-epochs). The flash-attention
+epochs), and the data plane, the CLI and serving: the memmapped
+`data.replay_buffer.ReplayBuffer`, the video datasets, the native prefetch
+library (`native/prefetch.cpp`), Snake and the record wrappers,
+`envs.world_model_env.DynamicsWorldModelWrapper`, the HTTP servers
+(`serve.server`) and `python -m dreamer4_torch.cli` with its four commands.
+The flash-attention
 forward and backward (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
 `csrc/flash_attn_bwd_dkv.cu`) and the small-attention forward and backward
 (`csrc/small_attn_fwd.cu`, `csrc/small_attn_bwd.cu`, behind
@@ -26,8 +31,10 @@ unless the caller passes `device='cpu'`.
 
 __version__ = '0.1.0'
 
-from .data.experience import Experience
+from .data.experience import Experience, combine_experiences
+from .data.replay_buffer import ReplayBuffer
 from .envs.interact import EnvInteractor, interact_with_env
+from .envs.world_model_env import DynamicsWorldModelWrapper
 from .models.generate import generate
 from .models.tokenizer import VideoTokenizer
 from .models.transformer import AxialSpaceTimeTransformer
@@ -40,12 +47,15 @@ __all__ = [
     'BehaviorCloneTrainer',
     'DreamTrainer',
     'DynamicsWorldModel',
+    'DynamicsWorldModelWrapper',
     'EnvInteractor',
     'Experience',
+    'ReplayBuffer',
     'ReturnStats',
     'SimTrainer',
     'TokenizerTrainer',
     'VideoTokenizer',
+    'combine_experiences',
     'generate',
     'interact_with_env',
     'rl_losses',

@@ -19,4 +19,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {device} requested but CUDA is not available')
+    if device.type == 'cuda' and device.index is None:
+        # 'cuda' names the current card, as the device of a tensor made there does
+        device = torch.device('cuda', torch.cuda.current_device())
     return device

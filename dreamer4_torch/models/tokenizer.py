@@ -336,17 +336,19 @@ class VideoTokenizer(nn.Module):
         return self.decoder(latent_tokens, height, width, noised_image_tokens=image_tokens)
 
     def decode(self, latents, height: int | None = None, width: int | None = None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
         """Euler flow sampling from noise: latents (b, t, n, d_latent) ->
-        video (b, c, t, h, w)."""
+        video (b, c, t, h, w). The starting noise (b, t, h, w, c) is drawn
+        from `generator`, or given as `noise` by a caller that draws it."""
         height = height if height is not None else self.image_height
         width = width if width is not None else self.image_width
         b, t = latents.shape[:2]
         if not self.has_flow:
             return video_to_external(self.decode_step(latents, height=height, width=width))
 
-        video = draw('noise', (b, t, height, width, self.channels), generator=generator,
-                     device=latents.device)
+        video = noise if noise is not None else draw(
+            'noise', (b, t, height, width, self.channels), generator=generator,
+            device=latents.device)
         steps = self.decoder_flow_steps
         delta = 1.0 / steps
         for i in range(steps):

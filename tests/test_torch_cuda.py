@@ -652,3 +652,81 @@ def test_small_kernels_refuse_a_plan_they_do_not_take(gen):
             m.setattr(sa, 'small_plan', lambda *a, plan=plan: plan)
             with pytest.raises(RuntimeError):
                 sa.small_attend_flat(q, k, v, None, 8)
+
+
+# the data plane and serving on the card: no kernel of their own, the models
+# they drive run on the card as on the CPU
+
+
+@pytest.mark.cuda
+def test_experience_from_batch_on_the_card(gen, tmp_path):
+    """A replay-buffer batch read into an Experience on the card equals
+    the same batch read on the CPU."""
+    import numpy as np
+
+    from dreamer4_torch.data.experience import (Experience, add_experience_to_buffer,
+                                                create_experience_replay_buffer,
+                                                experience_from_batch)
+    from dreamer4_torch.nn.action_embedder import Actions
+
+    rng = np.random.default_rng(0)
+    exp = Experience(latents=torch.from_numpy(rng.standard_normal((3, 5, 4, 6)).astype('f4')),
+                     rewards=torch.from_numpy(rng.standard_normal((3, 5)).astype('f4')),
+                     actions=Actions(torch.from_numpy(rng.integers(0, 4, (3, 5, 1))), None),
+                     lens=torch.tensor([5, 2, 4]), terminals=torch.tensor([False, True, True]),
+                     step_size=16)
+    buf = create_experience_replay_buffer(exp, tmp_path / 'buf', 4, 6)
+    add_experience_to_buffer(exp, buf)
+    batch = buf.sample_batch(np.random.default_rng(1), 4, 6)
+    on_card, on_cpu = (experience_from_batch(batch, device=d) for d in ('cuda', 'cpu'))
+    for name in ('latents', 'rewards', 'lens', 'terminals'):
+        got, want = getattr(on_card, name), getattr(on_cpu, name)
+        assert got.device.type == 'cuda' and torch.equal(got.cpu(), want), name
+    assert torch.equal(on_card.actions.discrete.cpu(), on_cpu.actions.discrete)
+    assert on_card.step_size == 16
+
+
+@pytest.mark.cuda
+def test_world_model_wrapper_on_the_card_matches_the_cpu(gen, monkeypatch):
+    """`DynamicsWorldModelWrapper` over a world model and tokenizer on the
+    card against the same wrapper on the CPU, with the same draws (made on
+    the host from a seed per kind and frame): float32, 1e-4 absolute on
+    pixels and rewards (five world-model passes and a decoder pass, summed
+    in other orders), equal flags."""
+    import numpy as np
+
+    from dreamer4_torch.envs import world_model_env
+    from dreamer4_torch.envs.world_model_env import DynamicsWorldModelWrapper
+    from dreamer4_torch.models.world_model import DynamicsWorldModel
+
+    def host_draw(kind, frame, shape, *, generator, device):
+        rng = np.random.default_rng([('noise', 'terminal', 'decode').index(kind), frame])
+        x = rng.uniform(size=shape) if kind == 'terminal' else rng.standard_normal(shape)
+        return torch.from_numpy(x.astype('f4')).to(device)
+
+    monkeypatch.setattr(world_model_env, 'draw', host_draw)
+    torch.manual_seed(0)
+    cfg = dict(dim=64, dim_latent=16, num_latent_tokens=4, max_steps=8, depth=2,
+               time_block_every=2, num_spatial_tokens=4, num_discrete_actions=(4,),
+               attn_dim_head=32, attn_heads=2, num_register_tokens=2)
+    tok_cfg = dict(dim=64, dim_latent=16, patch_size=8, image_height=32, image_width=32,
+                   num_latent_tokens=4, encoder_depth=1, decoder_depth=1, time_block_every=1,
+                   attn_dim_head=32, attn_heads=2)
+    torch.manual_seed(0)
+    models = {'cuda': (DynamicsWorldModel(**cfg, device='cuda'),
+                       VideoTokenizer(**tok_cfg, device='cuda')),
+              'cpu': (DynamicsWorldModel(**cfg, device='cpu'),
+                      VideoTokenizer(**tok_cfg, device='cpu'))}
+    for cpu_module, card_module in zip(models['cpu'], models['cuda']):
+        cpu_module.load_state_dict({k: v.cpu() for k, v in card_module.state_dict().items()})
+    out = {}
+    for device, (model, tok) in models.items():
+        env = DynamicsWorldModelWrapper(model, tokenizer=tok, num_steps=2, max_timesteps=6,
+                                        device=device)
+        out[device] = [env.reset()[0]] + [env.step(a) for a in (1, 3, 0, 2)]
+    assert out['cuda'][0].shape == (1, 3, 32, 32)
+    np.testing.assert_allclose(out['cuda'][0], out['cpu'][0], atol=1e-4, rtol=0)
+    for card, cpu in zip(out['cuda'][1:], out['cpu'][1:]):
+        np.testing.assert_allclose(card[0], cpu[0], atol=1e-4, rtol=0)
+        assert abs(card[1] - cpu[1]) <= 1e-4
+        assert card[2:4] == cpu[2:4]
