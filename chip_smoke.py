@@ -23,7 +23,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                RL replay (`rl_full`: 432 rows, N = M = 192, with the LSE;
                K2 and K3 at the same shape) and the sim phase's dynamics
                step (`sim`: 432 rows, N = M = 151, with the LSE; K2 and K3
-               too) must take the wgmma kernel.
+               too) must take the wgmma kernel, and so must the continuous
+               phase's train step (`cont_train`: 29 rows, N = M = 1024) and
+               full-model update (`cont_rl_full`: 232 rows, N = M = 192),
+               each with the LSE, K2 and K3 at the same shapes.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -112,7 +115,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
                per `/step`, peak memory and whether the native library
                loaded. Its files go to `smoke_work/` (gitignored), which it
                removes at its end.
- 11. small   — K4 and K5 (the small-attention forward and backward) against
+ 11. continuous — the bench world model with the reacher recipe's
+               continuous actions and proprio (6 Beta actions in [-1, 1],
+               4-dim proprio, the action embedding on the spatial tokens)
+               and the state-prediction head, 29 tokens per frame, float32
+               master weights and bf16 compute, on the recipe's arm
+               trajectories made on the card from the seed (frames mapped
+               to latents by a fixed seeded projection): a. a plain and a
+               shortcut `BehaviorCloneTrainer` step at b1 x T1024 (K1 2 / 6,
+               K2 2, K3 2 at B = 29, N = M = 1024); b. the prompted
+               b16 x T192 dream (96-frame prompt with continuous actions
+               and proprio), sampled, then with +-0.9 forced actions, whose
+               latents must diverge by 1% of their scale (K1 2 each, B =
+               464); c. a heads-only PMPO `DreamTrainer` step (K1 2);
+               d. a full-model update over b8 rows of that dream (K1 2, K2
+               2, K3 2 at B = 232, N = M = 192); e. a heads-only
+               `SimTrainer` step on the sim phase's environment with 6
+               continuous actions, the state head and its entropy bonus,
+               no proprio (the dynamics step runs K1-K3 at B = 448, N = M
+               = 151); f. 8 frames of `DynamicsWorldModelWrapper` with
+               continuous actions (no kernel). Each part counted by
+               kernel, timed, checked finite (proprio, the continuous log
+               probs and the state-prediction loss among them) and its
+               peak memory printed.
+ 12. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
@@ -301,6 +327,37 @@ CLI_DYNAMICS_ARGS = ['--num-discrete-actions', '4', '--num-steps', '2', '--log-e
 CLI_SERVE_STEPS = 16
 CLI_PREFETCH = dict(batch_size=8, seq_len=8, batches=20)
 CLI_WORK_DIR = Path(__file__).resolve().parent / 'smoke_work'
+
+# the continuous phase: the bench world model with what the reacher recipe
+# sets (examples/train_reacher_proprio_dynamics.py:130-136: 6 Beta actions
+# in [-1, 1], 4-dim proprio, the action embedding added to the spatial
+# tokens) and the state-prediction head: 29 tokens per frame
+CONT_MODEL = dict(BENCH_MODEL, num_discrete_actions=(), num_continuous_actions=6,
+                  continuous_dist_type='beta', continuous_target_action_range=(-1.0, 1.0),
+                  dim_proprio=4, add_action_embed_to_spatial=True, add_state_pred_head=True)
+CONT_TOKENS = 29
+# a. the b1 x T1024 train step's time attention; d. the full-model update
+# over b8 rows of the b16 x T192 dream (b16 at 27 tokens peaked at 65.07 GiB)
+CONT_TRAIN_ATTENTION = dict(B=TRAIN['batch_size'] * CONT_TOKENS, Hq=8, H=8,
+                            N=TRAIN['time_steps'], M=TRAIN['time_steps'], D=64, causal=True,
+                            offset=0, kv_len=TRAIN['time_steps'], softclamp=50.0)
+CONT_RL_ROWS = 8
+CONT_RL_FULL_ATTENTION = dict(RL_FULL_ATTENTION, B=CONT_RL_ROWS * CONT_TOKENS)
+# e. SimTrainer with continuous actions and the state head's entropy bonus,
+# no proprio (the interactor refuses it: the JAX one cannot drive it), on
+# the sim phase's environment and trainer: 28 tokens per frame
+CONT_SIM_MODEL = dict(SIM_MODEL, num_discrete_actions=(), num_continuous_actions=6,
+                      continuous_dist_type='beta', continuous_target_action_range=(-1.0, 1.0),
+                      add_action_embed_to_spatial=True, add_state_pred_head=True,
+                      state_entropy_bonus_weight=0.01)
+CONT_SIM_ATTENTION = dict(SIM_ATTENTION, B=SIM_ENV['batch'] * (CONT_TOKENS - 1))
+# b. the forced-action dreams: constant +-0.9 on every action dimension, whose
+# latents must diverge after the prompt by the recipe's bound
+# (examples/train_reacher_proprio_dynamics.py:176-191)
+CONT_FORCED = 0.9
+CONT_DIVERGENCE = 0.01
+CONT_DREAM_LAUNCHES = (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0)
+CONT_WRAPPER_FRAMES = 8
 
 
 def log(msg: str) -> None:
@@ -506,6 +563,10 @@ def kernel_cases():
     # the sim phase's dynamics step and full-model update: b16 rollouts
     # padded to 151 frames, 16*27 rows, with the LSE
     cases.append(('sim', bf16, dict(SIM_ATTENTION, lse=True)))
+    # the continuous phase's train step (b1 x 29 rows at T1024) and
+    # full-model update (b8 x 29 rows at T192), with the LSE
+    cases.append(('cont_train', bf16, dict(CONT_TRAIN_ATTENTION, lse=True)))
+    cases.append(('cont_rl_full', bf16, dict(CONT_RL_FULL_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -597,6 +658,8 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
 # is taken beside flex_attention's in the last phase
 K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only_itself=True',
                  'prefill', 'rl_full', 'sim')
+# bf16 K1 cases of the continuous phase's paths: the wgmma kernel too
+K1_SM90_ONLY_CASES = ('cont_train', 'cont_rl_full')
 
 
 def run_kernel_phase():
@@ -649,8 +712,9 @@ def run_kernel_phase():
                f'library {library_ms:.4f} ms ({lib_name}, its err {lib_err:.1e})')
         bound_ms, bound_by, unit, _ = attention_bound_ms(q, k, mask, cfg['softclamp_value'],
                                                          want_lse)
-        if dtype == torch.bfloat16 and name in K1_SM90_CASES:
+        if dtype == torch.bfloat16 and name in K1_SM90_CASES + K1_SM90_ONLY_CASES:
             ok = ok and variant == 'sm90'
+        if dtype == torch.bfloat16 and name in K1_SM90_CASES:
             device_calls[name] = (kernel, lib_fn)
         log(f'K1 {name:<34} {str(dtype).split(".")[-1]:<8} {variant:<5} max_abs_err {err:.3e} '
             f'(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms {lib} '
@@ -699,6 +763,8 @@ def bwd_kernel_cases():
     cases = [('t1024', dt, t1024) for dt in (bf16, f32)]
     cases.append(('rl_full', bf16, RL_FULL_ATTENTION))
     cases.append(('sim', bf16, SIM_ATTENTION))
+    cases.append(('cont_train', bf16, CONT_TRAIN_ATTENTION))
+    cases.append(('cont_rl_full', bf16, CONT_RL_FULL_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -1034,6 +1100,56 @@ def read_k1_variants() -> dict[str, int]:
 
 
 # -------------------------------------------------------------------- train
+
+# examples/train_reacher_proprio_dynamics.py:28-75: a procedural 2-joint arm
+# on 32 x 32 frames, 6 continuous actions in [-1, 1] of which dims 0-1 turn
+# the joints (by 0.35 each), proprio the sin and cos of both joint angles
+REACHER_IMAGE = 32
+
+
+def render_arms(theta: torch.Tensor) -> torch.Tensor:
+    """The recipe's `render_arm` for a batch of joint angles (..., 2), on
+    their device -> frames (..., 3, 32, 32) in [0, 1]: each link a line of
+    24 Gaussian stamps (width 1.1) in the red and green channel, the tip a
+    stamp of width 1.5 in blue."""
+    size = REACHER_IMAGE
+    c = size / 2
+    l1, l2 = size * 0.28, size * 0.22
+    t1, t2 = theta[..., 0].float(), theta[..., 1].float()
+    x1, y1 = c + l1 * torch.cos(t1), c + l1 * torch.sin(t1)
+    x2, y2 = x1 + l2 * torch.cos(t1 + t2), y1 + l2 * torch.sin(t1 + t2)
+    grid = torch.arange(size, dtype=torch.float32, device=theta.device)
+    yy, xx = grid[:, None], grid[None, :]
+    steps = torch.linspace(0.0, 1.0, 24, device=theta.device)
+
+    def stamp(px, py, width):   # px, py (..., n) -> (..., size, size)
+        d2 = (xx - px[..., None, None]).square() + (yy - py[..., None, None]).square()
+        return torch.exp(-d2 / (2 * width ** 2)).sum(dim=-3)
+
+    def line(x0, y0, x1, y1):
+        x0, y0 = (torch.as_tensor(v, device=theta.device).expand_as(x1) for v in (x0, y0))
+        return stamp(x0[..., None] + (x1 - x0)[..., None] * steps,
+                     y0[..., None] + (y1 - y0)[..., None] * steps, 1.1)
+
+    img = torch.stack([line(c, c, x1, y1), line(x1, y1, x2, y2),
+                       stamp(x2[..., None], y2[..., None], 1.5)], dim=-3)
+    return img.clamp(0.0, 1.0)
+
+
+def reacher_trajectories(b: int, t: int, generator: torch.Generator) -> dict:
+    """The recipe's `make_dataset` for b trajectories of t frames, drawn from
+    `generator` on its device: video (b, 3, t, 32, 32), continuous actions
+    (b, t - 1, 6) uniform in [-1, 1], proprio (b, t, 4), zero rewards."""
+    device = generator.device
+    theta0 = torch.rand((b, 1, 2), generator=generator, device=device) * 2 * np.pi - np.pi
+    actions = torch.rand((b, t, 6), generator=generator, device=device) * 2 - 1
+    turns = torch.cumsum(0.35 * actions[:, :-1, :2], dim=1)
+    theta = theta0 + torch.cat([torch.zeros_like(turns[:, :1]), turns], dim=1)   # (b, t, 2)
+    return dict(video=render_arms(theta).transpose(1, 2),
+                continuous_actions=actions[:, :-1].contiguous(),
+                proprio=torch.cat([torch.sin(theta), torch.cos(theta)], dim=-1),
+                rewards=torch.zeros((b, t), device=device))
+
 
 def train_batch(device, seed):
     """bench.py:437-442 at b1 x T1024."""
@@ -1754,10 +1870,11 @@ def expect_sm90(label, launches, variants):
         raise SystemExit(f'{label}: K1 ran as {variants}, not all on the wgmma kernel')
 
 
-def run_sim_step(trainer, label, full_model: bool) -> dict:
+def run_sim_step(trainer, label, full_model: bool, attention=SIM_ATTENTION) -> dict:
     """One `SimTrainer` step, its three parts (`step` runs exactly these:
     the rollout, the dynamics training, the RL epochs) each counted, timed
-    and checked; returns their launches by path."""
+    and checked; the experience must give the time attention `attention`'s
+    rows and length. Returns the parts' launches by path."""
     from dreamer4_torch.train.trainers import rl_param_labels
 
     model = trainer.model
@@ -1765,13 +1882,16 @@ def run_sim_step(trainer, label, full_model: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     exp, roll_s, roll_n, roll_v = counted(trainer.rollout)
     b, t = exp.batch_size, exp.time_steps
-    if (b * model.tokens_per_frame, t) != (SIM_ATTENTION['B'], SIM_ATTENTION['N']):
+    if (b * model.tokens_per_frame, t) != (attention['B'], attention['N']):
         raise SystemExit(f'{label}: the experience is b{b} x T{t} ({b * model.tokens_per_frame} '
-                         f'time-attention rows), not the {SIM_ATTENTION["B"]} rows x '
-                         f'{SIM_ATTENTION["N"]} of the sim kernel cases')
-    for name in ('latents', 'values', 'agent_embed', 'critic_state', 'rewards'):
-        if not bool(torch.isfinite(getattr(exp, name)).all()):
-            raise SystemExit(f'{label}: experience.{name} is not finite')
+                         f'time-attention rows), not the {attention["B"]} rows x '
+                         f'{attention["N"]} of its kernel cases')
+    fields = {name: getattr(exp, name) for name in
+              ('latents', 'values', 'agent_embed', 'critic_state', 'rewards')}
+    for pair in ('actions', 'log_probs'):
+        fields.update({f'{pair}.{half}': x for half, x in getattr(exp, pair)._asdict().items()
+                       if x is not None})
+    check_finite(label, {f'experience.{name}': x for name, x in fields.items()})
     env_steps = int(exp.lens.sum())
     frames_run = int(exp.lens.max())
 
@@ -2178,6 +2298,240 @@ def run_cli_phase(seed: int = 0) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- continuous
+
+def reacher_latents(video: torch.Tensor, seed: int) -> torch.Tensor:
+    """Latents (b, t, 16, 32) of reacher frames (b, 3, t, 32, 32) for the
+    bench world model: a fixed projection drawn from `seed`, squashed into
+    (-1, 1) by tanh. It stands in for a tokenizer, which this phase would
+    only run untrained (the bench tokenizer takes 64 x 64 frames)."""
+    b, c, t, h, w = video.shape
+    g = torch.Generator(device=video.device).manual_seed(seed)
+    proj = torch.randn((c * h * w, 16 * 32), generator=g, device=video.device)
+    frames = video.transpose(1, 2).reshape(b, t, c * h * w)
+    return torch.tanh(frames @ proj * (4.0 / (c * h * w) ** 0.5)).reshape(b, t, 16, 32)
+
+
+def reacher_prompt(b: int, seed: int, device) -> dict:
+    """A `PROMPT_LEN`-frame prompt of b reacher trajectories: latents, the
+    actions taken from each frame, proprio."""
+    data = reacher_trajectories(b, PROMPT_LEN + 1, torch.Generator(device=device).manual_seed(seed))
+    return dict(prompt_latents=reacher_latents(data['video'][:, :, :PROMPT_LEN], seed),
+                prompt_continuous_actions=data['continuous_actions'][:, :PROMPT_LEN],
+                prompt_proprio=data['proprio'][:, :PROMPT_LEN])
+
+
+def check_finite(label: str, named: dict):
+    bad = [k for k, v in named.items() if v is not None and not bool(torch.isfinite(v.float()).all())]
+    if bad:
+        raise SystemExit(f'{label}: not finite: {bad}')
+
+
+def check_continuous_experience(label, exp, b, T, prompt, model):
+    """A continuous dream's record: shapes, finite values (proprio and the
+    continuous log probs among them), Beta actions in (0, 1) after the
+    prompt, the prompt kept."""
+    P = PROMPT_LEN
+    expect = dict(latents=(b, T, *model.latent_shape), proprio=(b, T, model.dim_proprio),
+                  rewards=(b, T), values=(b, T), agent_embed=(b, T, model.dim))
+    for name, shape in expect.items():
+        if tuple(getattr(exp, name).shape) != shape:
+            raise SystemExit(f'{label}: experience.{name} shape {tuple(getattr(exp, name).shape)}')
+    check_finite(label, {**{n: getattr(exp, n) for n in expect},
+                         'actions.continuous': exp.actions.continuous,
+                         'log_probs.continuous': exp.log_probs.continuous[:, P:],
+                         'old_action_unembeds': exp.old_action_unembeds[1]})
+    if exp.actions.discrete is not None or tuple(exp.actions.continuous.shape) != (b, T, 6):
+        raise SystemExit(f'{label}: experience.actions are not 6 continuous actions')
+    if not torch.equal(exp.actions.continuous[:, :P], prompt['prompt_continuous_actions']):
+        raise SystemExit(f'{label}: experience.actions do not keep the prompt actions')
+    if not torch.equal(exp.proprio[:, :P], prompt['prompt_proprio']):
+        raise SystemExit(f'{label}: experience.proprio does not keep the prompt')
+
+
+def run_continuous_phase(seed: int = 0) -> dict:
+    """Continuous actions, proprioception and the state-prediction head at
+    the bench world model's width (29 tokens per frame), float32 master
+    weights and bf16 compute: a. `BehaviorCloneTrainer` steps on reacher
+    trajectories at b1 x T1024; b. the prompted b16 x T192 dream, sampled
+    and with +-0.9 forced actions; c. a heads-only PMPO `DreamTrainer`
+    step; d. a full-model update over b8 rows of the dream; e. a heads-only
+    `SimTrainer` step with continuous actions and the state-entropy bonus;
+    f. `DynamicsWorldModelWrapper` frames. Each part counted, timed and
+    checked; returns the (K1..K5) launches by path."""
+    from dreamer4_torch import (BehaviorCloneTrainer, DreamTrainer, DynamicsWorldModel,
+                                SimTrainer, generate)
+    from dreamer4_torch.data.experience import index_experience
+    from dreamer4_torch.envs.mocks import MockStateEnv
+    from dreamer4_torch.envs.world_model_env import DynamicsWorldModelWrapper
+    from dreamer4_torch.train.trainers import (create_rl_state, make_rl_optimizer,
+                                               make_rl_update_step, make_world_model_train_step,
+                                               rl_param_labels)
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**CONT_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    if model.tokens_per_frame != CONT_TOKENS:
+        raise SystemExit(f'{model.tokens_per_frame} tokens per frame, not {CONT_TOKENS}')
+    dev = model.device
+    log(f'# continuous ({gpu_name_and_power_limit()}): '
+        f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, '
+        f'{model.tokens_per_frame} tokens/frame (proprio and state-prediction tokens)')
+    launches = {}
+
+    def part(label, fn, want, expect_sm90_k1=True):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, want)
+        if expect_sm90_k1:
+            expect_sm90(label, got, variants)
+        launches[label] = got
+        return out, sec, got, torch.cuda.max_memory_allocated() / 2**30
+
+    # a. behaviour cloning at b1 x T1024: continuous actions, proprio, rewards
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    data = reacher_trajectories(TRAIN['batch_size'], TRAIN['time_steps'], g)
+    batch = dict(latents=reacher_latents(data['video'], seed + 3),
+                 continuous_actions=data['continuous_actions'], proprio=data['proprio'],
+                 rewards=data['rewards'])
+    del data
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=True, seed=seed)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+    for shortcut in (False, True):
+        label = f'cont_train_{"shortcut" if shortcut else "plain"}'
+
+        def one_step():
+            trainer.ts, loss, losses = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                               generator=trainer.generator)
+            return loss, losses
+        (loss, losses), sec, got, peak = part(label, one_step, LAUNCHES_PER_STEP[shortcut])
+        check_finite(label, {'loss': loss, **losses._asdict()})
+        if not (losses.state_pred > 0 and losses.continuous_actions.abs().sum() > 0):
+            raise SystemExit(f'{label}: the state-prediction or action loss is not on')
+        sec_warm = host_time_s(lambda: one_step(), reps=1)
+        log(f'{label} b{TRAIN["batch_size"]} T{TRAIN["time_steps"]}: loss {loss.item():.4f} '
+            f'(flow {losses.flow.item():.4f}, state_pred {losses.state_pred.item():.4f}, '
+            f'continuous actions {losses.continuous_actions.sum().item():.4f}); '
+            f'{sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms warm; (K1..K5) {got}; '
+            f'peak memory {peak:.2f} GiB')
+    del batch
+
+    # b. the prompted dream: sampled, then with +-0.9 forced actions
+    b, T = PROMPTED['batch_size'], PROMPTED['time_steps']
+    prompt = reacher_prompt(b, seed + 4, dev)
+    gen = torch.Generator(device=dev)
+    dreams = {}
+    for label, forced in (('cont_dream', None), ('cont_dream_forced_pos', CONT_FORCED),
+                          ('cont_dream_forced_neg', -CONT_FORCED)):
+        kw = {} if forced is None else dict(
+            forced_continuous_actions=torch.full((b, T, 6), forced, device=dev))
+        gen.manual_seed(seed + 5)
+        exp, sec, got, peak = part(label, lambda: generate(
+            model, gen, num_steps=PROMPTED['num_steps'], batch_size=b, time_steps=T, **prompt,
+            **kw), CONT_DREAM_LAUNCHES)
+        check_continuous_experience(label, exp, b, T, prompt, model)
+        acts = exp.actions.continuous[:, PROMPT_LEN:]
+        if forced is not None and not bool((acts == forced).all()):
+            raise SystemExit(f'{label}: the forced actions were not taken')
+        if forced is None and not bool(((acts > 0) & (acts < 1)).all()):
+            raise SystemExit(f'{label}: Beta samples outside (0, 1)')
+        dreams[label] = exp
+        log(f'{label} b{b} T{T} P{PROMPT_LEN}: {sec * 1e3:.1f} ms, '
+            f'{b * (T - PROMPT_LEN) / sec:.1f} dreamed env-steps/s; (K1..K5) {got}; '
+            f'peak memory {peak:.2f} GiB')
+    pos, neg = (dreams[f'cont_dream_forced_{x}'].latents[:, PROMPT_LEN:] for x in ('pos', 'neg'))
+    lat_div, lat_scale = (pos - neg).abs().mean().item(), pos.abs().mean().item()
+    prop_div = (dreams['cont_dream_forced_pos'].proprio
+                - dreams['cont_dream_forced_neg'].proprio)[:, PROMPT_LEN:].abs().mean().item()
+    log(f'forced +-{CONT_FORCED} dreams: latent divergence {lat_div:.4f} (scale {lat_scale:.4f}, '
+        f'bound {CONT_DIVERGENCE} x scale), proprio divergence {prop_div:.4f}')
+    if not lat_div > CONT_DIVERGENCE * max(lat_scale, 1e-6):
+        raise SystemExit('the forced-action dreams do not diverge')
+    del dreams
+
+    # c. a heads-only PMPO step of DreamTrainer over that dream
+    dream_trainer = DreamTrainer(model, time_steps=T, num_steps=PROMPTED['num_steps'],
+                                 batch_size=b, objective='pmpo',
+                                 prompt_fn=lambda generator: prompt, seed=seed)
+    labels = rl_param_labels(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    (exp, out), sec, got, peak = part('cont_dream_trainer', dream_trainer.step,
+                                      CONT_DREAM_LAUNCHES)
+    check_continuous_experience('cont_dream_trainer', exp, b, T, prompt, model)
+    check_rl_outputs('cont_dream_trainer', out)
+    check_moved('cont_dream_trainer', model, before,
+                {n for n, l in labels.items() if l != 'frozen'}, moved=True)
+    check_moved('cont_dream_trainer', model, before,
+                {n for n, l in labels.items() if l == 'frozen'}, moved=False)
+    del before
+    log(f'cont_dream_trainer b{b} T{T} (heads-only pmpo): {sec * 1e3:.1f} ms/step; (K1..K5) '
+        f'{got}; stats {", ".join(f"{k} {v.item():.4f}" for k, v in out.stats.items())}; '
+        f'peak memory {peak:.2f} GiB; only the heads and the unembeddings moved')
+
+    # d. a full-model update over b8 rows of the dream, proprio replayed
+    rows = index_experience(exp, slice(0, CONT_RL_ROWS))
+    del exp
+    if CONT_RL_ROWS * model.tokens_per_frame != CONT_RL_FULL_ATTENTION['B']:
+        raise SystemExit('the full-model update does not give the cont_rl_full kernel case')
+    opt = make_rl_optimizer(model, **RL_LR)
+    full_update = make_rl_update_step(model, opt, 'pmpo', only_learn_policy_value_heads=False)
+    state = create_rl_state(model, opt)
+    trunk_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if n.startswith('transformer.')}
+    torch.cuda.empty_cache()
+    (state, out), sec, got, peak = part('cont_rl_full', lambda: full_update(state, rows),
+                                        LAUNCHES_PER_RL_FULL_UPDATE)
+    check_rl_outputs('cont_rl_full', out)
+    check_moved('cont_rl_full', model, trunk_before, set(trunk_before), moved=True)
+    del trunk_before, rows, opt, state
+    log(f'cont_rl_full b{CONT_RL_ROWS} T{T} ({CONT_RL_ROWS * T * CONT_TOKENS} tokens, pmpo): '
+        f'{sec * 1e3:.1f} ms/update (first); (K1..K5) {got}; the trunk moved; peak memory '
+        f'{peak:.2f} GiB')
+    del trainer, dream_trainer, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # e. a heads-only SimTrainer step: continuous actions toward the env,
+    # the state-entropy bonus in the rewards
+    torch.manual_seed(seed + 6)
+    sim_model = DynamicsWorldModel(**CONT_SIM_MODEL, dtype=torch.bfloat16)
+    sim = SimTrainer(sim_model, MockStateEnv(**SIM_ENV, seed=seed), **SIM_TRAINER, seed=seed)
+    if not sim_model.add_state_entropy_bonus:
+        raise SystemExit('the sim model has no state-entropy bonus')
+    for name, n in run_sim_step(sim, 'cont_sim', full_model=False,
+                                attention=CONT_SIM_ATTENTION).items():
+        launches[name] = n
+
+    # f. the world model as an environment, 8 frames of continuous actions
+    wrapper = DynamicsWorldModelWrapper(sim_model, batch_size=1,
+                                        max_timesteps=CONT_WRAPPER_FRAMES, seed=seed)
+    actions = torch.rand((CONT_WRAPPER_FRAMES, 6), generator=g, device=dev).cpu().numpy() * 2 - 1
+
+    def frames():
+        obs = [wrapper.reset()[0]]
+        rewards = []
+        for a in actions:
+            o, r, _, _, _ = wrapper.step(a)
+            obs.append(o)
+            rewards.append(r)
+        return np.stack(obs), np.asarray(rewards)
+    (obs, rewards), sec, got, peak = part('cont_wrapper', frames, (0, 0, 0, 0, 0))
+    if obs.shape != (CONT_WRAPPER_FRAMES + 1, 1, *sim_model.latent_shape) or not (
+            np.isfinite(obs).all() and np.isfinite(rewards).all()):
+        raise SystemExit(f'cont_wrapper: observations {obs.shape} or rewards not finite')
+    log(f'cont_wrapper b1: reset and {CONT_WRAPPER_FRAMES} continuous steps {sec * 1e3:.1f} ms, '
+        f'{sec * 1e3 / (CONT_WRAPPER_FRAMES + 1):.1f} ms/frame; (K1..K5) {got}; peak memory '
+        f'{peak:.2f} GiB')
+    del sim, sim_model, wrapper
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# continuous phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2220,7 +2574,7 @@ def main() -> int:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
-                **run_pixel_phase(), **run_cli_phase()}
+                **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)

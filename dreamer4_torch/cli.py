@@ -217,7 +217,6 @@ def cmd_train_dynamics(argv):
     logger = MetricLogger(Path(args.output) / 'logs')
 
     torch.manual_seed(args.seed)
-    # a nonzero --num-continuous-actions is refused by the model: not ported yet
     model = DynamicsWorldModel(
         dim=args.dim,
         dim_latent=tokenizer.dim_latent,
@@ -278,6 +277,8 @@ def cmd_train_dynamics(argv):
             gen_kwargs = dict(prompt_latents=batch['latents'][:4, :prompt_t])
             if 'discrete_actions' in batch:
                 gen_kwargs['prompt_discrete_actions'] = batch['discrete_actions'][:4, :prompt_t]
+            if 'continuous_actions' in batch:
+                gen_kwargs['prompt_continuous_actions'] = batch['continuous_actions'][:4, :prompt_t]
             exp = generate(model, torch.Generator(device=device).manual_seed(step),
                            time_steps=batch['latents'].shape[1],
                            num_steps=4, batch_size=min(4, batch['latents'].shape[0]),

@@ -6,15 +6,20 @@ device once (as float32 tensors) and the sampled action once back; on the
 device, one eager step tokenizes the frame (the tokenizer's streaming encode,
 or `state_to_latents` for a state vector), runs the world model over its KV
 cache, and reads the value, the policy sample and its log probs off the
-agent token. Everything the experience keeps per frame (latents, values,
-embeddings, actions, log probs) is written in place into buffers on the
-device; only the environment's rewards and episode flags live on the host.
+agent token. Continuous actions are stored in the distribution's native
+range and sent to the environment rescaled to its range. With a state
+prediction head and `state_entropy_bonus_weight`, the mean entropy of the
+predicted Beta state is added to the environment's reward. Everything the
+experience keeps per frame (latents, values, embeddings, actions, log
+probs) is written in place into buffers on the device; only the
+environment's rewards and episode flags live on the host.
 
 Every random draw goes through the module-level `draw`, so a test can
 replace it to replay the counterpart's draws.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import numpy as np
@@ -28,14 +33,21 @@ from ..ops import dists
 
 
 def draw(kind: str, step: int, shape, *, generator: torch.Generator, device,
-         part: int = 0) -> torch.Tensor:
+         part: int = 0, concentration=None) -> torch.Tensor:
     """One random draw of the rollout.
 
-    kind: 'action' — Gumbel noise of discrete action type `part` at frame
-          `step`.
+    kind: 'action'            — Gumbel noise of discrete action type `part`
+                                at frame `step`;
+          'continuous_action' — standard normal noise of the Gaussian
+                                actions, or Beta draws where `concentration`
+                                gives (alpha, beta).
     """
     if kind == 'action':
         return dists.gumbel(shape, generator=generator, device=device)
+    if kind == 'continuous_action':
+        if concentration is not None:
+            return dists.beta_sample(*concentration, generator=generator)
+        return torch.randn(shape, generator=generator, device=device)
     raise ValueError(f'unknown draw {kind}')
 
 
@@ -70,11 +82,21 @@ class EnvInteractor:
     observation as a dict of float32 tensors on the device and returns
     (latents (b, 1, n, d), its cache). `aux_image_encoder_fn(frame)` maps
     the frame (b, c, 1, h, w) to extra latent tokens, concatenated after the
-    tokenizer's (size them into the model's `num_latent_tokens`)."""
+    tokenizer's (size them into the model's `num_latent_tokens`).
+
+    A model with `dim_proprio` is refused: the counterpart's per-frame step
+    never passes the observation's proprio to the model, whose forward then
+    fails (`dreamer4_tpu/envs/interact.py`, `policy_step`), so there is no
+    behaviour to port."""
 
     def __init__(self, model: DynamicsWorldModel, tokenizer=None,
                  obs_to_latents_fn: Callable | None = None,
                  aux_image_encoder_fn: Callable | None = None, device=None):
+        if model.has_proprio:
+            raise NotImplementedError(
+                'EnvInteractor does not take a model with dim_proprio: the counterpart\'s '
+                'policy_step (dreamer4_tpu/envs/interact.py) never passes proprio to the model, '
+                'whose forward asserts it')
         device = resolve_device(device)
         for name, m in (('model', model), ('tokenizer', tokenizer)):
             if m is not None and m.device != device:
@@ -85,6 +107,7 @@ class EnvInteractor:
         self.aux_image_encoder_fn = aux_image_encoder_fn
         self.device = device
         self.na_d = len(model.action_embedder.discrete_sizes)
+        self.na_c = model.num_continuous_actions
 
     # ------------------------------------------------------------ per frame
 
@@ -110,26 +133,38 @@ class EnvInteractor:
             raise ValueError('state observations need a model with dim_state')
         return self.model.state_to_latents(obs['state'])[:, None], tok_cache
 
-    def policy_step(self, latents, prev_disc, prev_reward, critic_state, cache, step: int, *,
-                    first: bool, num_steps: int, agent_index: int, generator: torch.Generator,
-                    sample: bool = True) -> dict:
+    def policy_step(self, latents, prev_disc, prev_cont, prev_reward, critic_state, cache,
+                    step: int, *, first: bool, num_steps: int, agent_index: int,
+                    generator: torch.Generator, sample: bool = True) -> dict:
         """One frame: the world model over its cache at the clean signal
-        level, then the value (with the critic state's embedding) and, with
-        `sample`, an action drawn from the policy and its log probs."""
+        level, then the value (with the critic state's embedding), the state
+        entropy bonus where the model has one and, with `sample`, actions
+        drawn from the policy, their log probs and the continuous ones in
+        the environment's range."""
         model = self.model
         b = latents.shape[0]
-        valid = torch.full((b, 1), 0.0 if first else 1.0, device=latents.device)
+        device = latents.device
+        valid = torch.full((b, 1), 0.0 if first else 1.0, device=device)
         kwargs = {}
+        if self.na_d > 0:
+            kwargs['discrete_actions'] = prev_disc
+        if self.na_c > 0:
+            kwargs['continuous_actions'] = prev_cont
         if model.has_actions:
-            kwargs.update(discrete_actions=prev_disc, action_token_mask=valid)
+            kwargs['action_token_mask'] = valid
         if model.add_reward_embed_to_agent_token:
             kwargs.update(rewards=prev_reward, reward_token_mask=valid)
-        _, (embeds, new_cache) = model(
+        pred, (embeds, new_cache) = model(
             latents=latents, signal_levels=model.max_steps - 1,
             step_sizes=model.max_steps // num_steps, cache=cache, latent_is_noised=True,
             is_training=False, return_pred_only=True, return_intermediates=True,
             agent_index=agent_index, **kwargs)
         agent_embed = embeds.agent[:, -1, agent_index]                      # (b, dim)
+
+        state_entropy = None
+        if model.add_state_entropy_bonus and pred.state is not None:
+            ent = dists.continuous_entropy(pred.state[:, -1], 'beta')
+            state_entropy = ent.reshape(b, -1).mean(dim=-1)                 # (b,)
 
         value_embed = agent_embed
         if model.dim_critic_state is not None and critic_state is not None:
@@ -137,16 +172,24 @@ class EnvInteractor:
         value = model.value_encoder.decode(model.value_head(value_embed))
         policy_embed = model.policy_head(agent_embed)
 
-        sampled = log_probs = None
+        sampled_d = sampled_c = env_cont = log_probs = None
         if sample and model.has_actions:
-            sizes = model.action_embedder.discrete_sizes
-            gumbels = [draw('action', step, (b, size), generator=generator,
-                            device=latents.device, part=j) for j, size in enumerate(sizes)]
-            sampled, _ = model.action_embedder.sample(policy_embed, gumbels)
-            log_probs = model.action_embedder.log_probs(policy_embed, discrete_targets=sampled,
-                                                        pred_head_index=0).discrete
+            embedder = model.action_embedder
+            rnd = lambda kind, shape, **kw: draw(kind, step, shape, generator=generator,
+                                                 device=device, **kw)
+            gumbels = [rnd('action', (b, size), part=j)
+                       for j, size in enumerate(embedder.discrete_sizes)]
+            noise = (embedder.continuous_noise(partial(rnd, 'continuous_action'), (b, self.na_c))
+                     if self.na_c > 0 else None)
+            sampled_d, sampled_c = embedder.sample(policy_embed, gumbels, noise)
+            log_probs = embedder.log_probs(policy_embed, discrete_targets=sampled_d,
+                                           continuous_targets=sampled_c, pred_head_index=0)
+            if self.na_c > 0:
+                env_cont = (embedder.rescale_for_env(sampled_c)
+                            if embedder.target_action_range is not None else sampled_c)
         return dict(value=value, agent_embed=agent_embed, policy_embed=policy_embed,
-                    sampled=sampled, log_probs=log_probs, cache=new_cache)
+                    sampled_d=sampled_d, sampled_c=sampled_c, env_cont=env_cont,
+                    log_probs=log_probs, state_entropy=state_entropy, cache=new_cache)
 
     # ------------------------------------------------------------------ run
 
@@ -184,12 +227,14 @@ class EnvInteractor:
         b = next(iter(obs.values())).shape[0]
 
         n, d_lat = model.latent_shape
-        na = max(self.na_d, 1)
+        na, na_c = max(self.na_d, 1), max(self.na_c, 1)
         f32 = dict(dtype=torch.float32, device=device)
         latents_buf = torch.zeros((b, T + 1, n, d_lat), **f32)
         values_buf = torch.zeros((b, T + 1), **f32)
         disc_buf = torch.zeros((b, T + 1, na), dtype=torch.long, device=device)
         d_lp_buf = torch.zeros((b, T + 1, na), **f32)
+        cont_buf = torch.zeros((b, T + 1, na_c), **f32)
+        c_lp_buf = torch.zeros((b, T + 1, na_c), **f32)
         agent_embed_buf = torch.zeros((b, T + 1, model.dim), **f32)
         policy_embed_buf = torch.zeros((b, T + 1, model.dim * 4), **f32)
         critic_state_buf = (torch.zeros((b, T + 1, model.dim_critic_state), **f32)
@@ -205,6 +250,7 @@ class EnvInteractor:
         cache = model.init_cache(b, T + 1)
         tok_cache = None
         prev_disc = torch.zeros((b, 1, na), dtype=torch.long, device=device)
+        prev_cont = torch.zeros((b, 1, na_c), **f32)
         prev_reward = torch.zeros((b, 1), **f32)
 
         def record_obs(i, obs, latents):
@@ -223,26 +269,37 @@ class EnvInteractor:
             if 'image' in obs:
                 video_frames.append(obs['image'])
 
-            out = self.policy_step(latents, prev_disc, prev_reward, critic_state_of(obs), cache,
-                                   step_idx, first=step_idx == 0, **step_kw)
+            out = self.policy_step(latents, prev_disc, prev_cont, prev_reward,
+                                   critic_state_of(obs), cache, step_idx, first=step_idx == 0,
+                                   **step_kw)
             cache = out['cache']
             values_buf[:, step_idx] = out['value']
             agent_embed_buf[:, step_idx] = out['agent_embed']
             policy_embed_buf[:, step_idx] = out['policy_embed']
 
-            # the device-to-host crossing: the sampled action
+            # the device-to-host crossing: the sampled actions, a
+            # (discrete, continuous) pair where the model has both
             env_action = None
             if self.na_d > 0:
-                disc_buf[:, step_idx] = out['sampled']
-                d_lp_buf[:, step_idx] = out['log_probs']
-                env_action = out['sampled'].cpu().numpy()
-                if not env_is_vectorized:
-                    env_action = env_action[0]
-                    if self.na_d == 1:
-                        env_action = int(env_action.reshape(-1)[0])
+                disc_buf[:, step_idx] = out['sampled_d']
+                d_lp_buf[:, step_idx] = out['log_probs'].discrete
+                env_action = out['sampled_d'].cpu().numpy()
+            if self.na_c > 0:
+                cont_buf[:, step_idx] = out['sampled_c']
+                c_lp_buf[:, step_idx] = out['log_probs'].continuous
+                env_cont = out['env_cont'].cpu().numpy()
+                env_action = env_cont if env_action is None else (env_action, env_cont)
+            if not env_is_vectorized and env_action is not None:
+                env_action = (tuple(a[0] for a in env_action) if isinstance(env_action, tuple)
+                              else env_action[0])
+                if self.na_d == 1 and self.na_c == 0:
+                    env_action = int(env_action.reshape(-1)[0])
 
             next_obs, reward, terminated, truncated = _parse_step_out(env.step(env_action), b)
             reward = np.asarray(reward, np.float32).reshape(b)
+            if out['state_entropy'] is not None:
+                reward = reward + (out['state_entropy'].cpu().numpy().reshape(b)
+                                   * model.state_entropy_bonus_weight)
             terminated = np.asarray(terminated).reshape(b).astype(bool)
             truncated = np.asarray(truncated).reshape(b).astype(bool)
 
@@ -258,6 +315,8 @@ class EnvInteractor:
                 prev_reward = torch.tensor(rewards_buf[:, step_idx:step_idx + 1], device=device)
             if self.na_d > 0:
                 prev_disc = disc_buf[:, step_idx:step_idx + 1]
+            if self.na_c > 0:
+                prev_cont = cont_buf[:, step_idx:step_idx + 1]
             obs = to_device(_normalize_obs(next_obs))
             step_idx += 1
 
@@ -267,8 +326,9 @@ class EnvInteractor:
         time_dim = step_idx
         if need_bootstrap.any():
             latents, tok_cache = self.obs_to_latents(obs, tok_cache, max_time=T + 1)
-            out = self.policy_step(latents, prev_disc, prev_reward, critic_state_of(obs), cache,
-                                   step_idx, first=False, sample=False, **step_kw)
+            out = self.policy_step(latents, prev_disc, prev_cont, prev_reward,
+                                   critic_state_of(obs), cache, step_idx, first=False,
+                                   sample=False, **step_kw)
             record_obs(step_idx, obs, latents)
             values_buf[:, step_idx] = out['value']
             agent_embed_buf[:, step_idx] = out['agent_embed']
@@ -288,14 +348,15 @@ class EnvInteractor:
                                                                 pred_head_index=0)
         video = torch.stack(video_frames, dim=2)[:, :, :time_dim] if video_frames else None
         host = lambda x: torch.tensor(x, device=device)
-        with_actions = self.na_d > 0
+        pick = lambda d, c: Actions(cut(d) if self.na_d > 0 else None,
+                                    cut(c) if self.na_c > 0 else None)
         return Experience(
             latents=cut(latents_buf),
             video=video,
             critic_state=cut(critic_state_buf),
             rewards=host(rewards_buf[:, :time_dim]),
-            actions=Actions(cut(disc_buf) if with_actions else None, None),
-            log_probs=Actions(cut(d_lp_buf) if with_actions else None, None),
+            actions=pick(disc_buf, cont_buf),
+            log_probs=pick(d_lp_buf, c_lp_buf),
             values=cut(values_buf),
             agent_embed=cut(agent_embed_buf) if store_agent_embed else None,
             old_action_unembeds=old_action_unembeds,

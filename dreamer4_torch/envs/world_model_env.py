@@ -41,13 +41,23 @@ class DynamicsWorldModelWrapper:
     frame into pixels) as an environment. Runs on CUDA unless
     `device='cpu'` is given, and the models must live there. Observations
     are pixels (b, c, h, w) with a tokenizer, else latents (b, n, d); with
-    `batch_size` 1, step returns a float reward and bool flags. The model
-    refuses continuous actions at construction (not ported yet), so an
-    action is the discrete action per batch row."""
+    `batch_size` 1, step returns a float reward and bool flags. An action is
+    the discrete actions per batch row, or the continuous ones for a model
+    with continuous actions only, or a (discrete, continuous) pair.
+
+    A model with `dim_proprio` is refused: the counterpart's dream step
+    never passes proprio to the model, whose forward then fails
+    (`dreamer4_tpu/envs/world_model_env.py`, `dream_frame`), so there is no
+    behaviour to port."""
 
     def __init__(self, model: DynamicsWorldModel, tokenizer=None, *, batch_size: int = 1,
                  num_steps: int = 4, max_timesteps: int = 64,
                  return_latents_obs: bool | None = None, seed: int = 0, device=None):
+        if model.has_proprio:
+            raise NotImplementedError(
+                'DynamicsWorldModelWrapper does not take a model with dim_proprio: the '
+                'counterpart\'s dream_frame (dreamer4_tpu/envs/world_model_env.py) never passes '
+                'proprio to the model, whose forward asserts it')
         device = resolve_device(device)
         for name, m in (('model', model), ('tokenizer', tokenizer)):
             if m is not None and m.device != device:
@@ -65,12 +75,13 @@ class DynamicsWorldModelWrapper:
                                    else tokenizer is None)
         self.step_size = K // num_steps
         self.na_d = len([n for n in model.num_discrete_actions if n > 0])
+        self.na_c = model.num_continuous_actions
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
     def _draw(self, kind: str, shape) -> torch.Tensor:
         return draw(kind, self._t, shape, generator=self.generator, device=self.device)
 
-    def _dream_frame(self, prev_disc, prev_reward, first: bool):
+    def _dream_frame(self, prev_disc, prev_cont, prev_reward, first: bool):
         """One dreamed frame over the cache -> (latents (b, 1, n, d) in
         [-1, 1], reward (b,), terminated (b,)); commits it to the cache."""
         model, b, device = self.model, self.batch_size, self.device
@@ -80,8 +91,11 @@ class DynamicsWorldModelWrapper:
 
         valid = torch.full((b, 1), 0.0 if first else 1.0, device=device)
         cond = {}
-        if model.has_actions:
+        if self.na_d > 0:
             cond['discrete_actions'] = prev_disc
+        if self.na_c > 0:
+            cond['continuous_actions'] = prev_cont
+        if model.has_actions:
             cond['action_token_mask'] = valid
         if model.add_reward_embed_to_agent_token:
             cond['rewards'] = prev_reward
@@ -129,8 +143,9 @@ class DynamicsWorldModelWrapper:
         self.cache = self.model.init_cache(b, self.max_timesteps + 1)
         self._t = 0
         zero_d = torch.zeros((b, 1, max(self.na_d, 1)), dtype=torch.long, device=self.device)
+        zero_c = torch.zeros((b, 1, max(self.na_c, 1)), device=self.device)
         zero_r = torch.zeros((b, 1), device=self.device)
-        latents, reward, _ = self._dream_frame(zero_d, zero_r, first=True)
+        latents, reward, _ = self._dream_frame(zero_d, zero_c, zero_r, first=True)
         self._last_reward = reward
         return self._obs(latents), {}
 
@@ -138,13 +153,17 @@ class DynamicsWorldModelWrapper:
     def step(self, action):
         b = self.batch_size
         self._t += 1
-        if isinstance(action, tuple):   # (discrete, continuous): the model has no continuous
-            action = action[0]
+        as_t = lambda a, dtype: torch.as_tensor(np.asarray(a).reshape(b, 1, -1), dtype=dtype,
+                                                device=self.device)
         disc = torch.zeros((b, 1, max(self.na_d, 1)), dtype=torch.long, device=self.device)
-        if self.na_d > 0:
-            disc = torch.as_tensor(np.asarray(action).reshape(b, 1, -1), dtype=torch.long,
-                                   device=self.device)
-        latents, reward, terminated = self._dream_frame(disc, self._last_reward[:, None],
+        cont = torch.zeros((b, 1, max(self.na_c, 1)), device=self.device)
+        if isinstance(action, tuple):
+            disc, cont = as_t(action[0], torch.long), as_t(action[1], torch.float32)
+        elif self.na_d > 0:
+            disc = as_t(action, torch.long)
+        else:
+            cont = as_t(action, torch.float32)
+        latents, reward, terminated = self._dream_frame(disc, cont, self._last_reward[:, None],
                                                         first=False)
         self._last_reward = reward
 

@@ -7,10 +7,13 @@ Experiences are padded buffers with `lens` / `is_truncated` marking
 validity; bootstrap nodes are left out by masks. The EMA return statistics
 are explicit state, passed in and returned.
 
-A critic state (an environment's privileged state, `dim_critic_state`) is
-embedded and added to the value head's input. Not ported yet, and refused
-when reached: continuous actions, proprioception, and the options the world
-model refuses (`actor_critic_latent_input`, `actor_spr`).
+Discrete and continuous actions are learned alike: their log probs are
+summed over the action types, their entropies enter the entropy bonus, and
+PMPO's KL term adds the continuous KL to the discrete one. A full-model
+replay passes the experience's proprioception to the trunk. A critic state
+(an environment's privileged state, `dim_critic_state`) is embedded and
+added to the value head's input. The options the world model refuses
+(`actor_critic_latent_input`, `actor_spr`) never reach here.
 """
 from __future__ import annotations
 
@@ -53,13 +56,10 @@ def _masked_quantile_clip(x, mask, quantiles):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _refuse_unported(experience: Experience):
-    actions, log_probs = experience.actions, experience.log_probs
-    if ((actions is not None and actions.continuous is not None)
-            or (log_probs is not None and log_probs.continuous is not None)):
-        raise NotImplementedError('continuous actions are not ported yet')
-    if experience.proprio is not None:
-        raise NotImplementedError('proprioception (dim_proprio) is not ported yet')
+def _cat_actions(pair: tuple) -> torch.Tensor:
+    """The discrete and continuous halves of an Actions pair, concatenated
+    along the action types."""
+    return torch.cat([p for p in pair if p is not None], dim=-1)
 
 
 def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str = 'ppo',
@@ -85,7 +85,6 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
     """
     if objective not in OBJECTIVES:
         raise ValueError(f'objective must be one of {OBJECTIVES}, not {objective!r}')
-    _refuse_unported(experience)
     if use_delight_gating is None:
         use_delight_gating = model.use_delight_gating
     if delight_temperature is None:
@@ -189,6 +188,7 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
             _, (embeds, _) = model(
                 latents=latents, signal_levels=model.max_steps - 1, step_sizes=step_size,
                 rewards=rewards, discrete_actions=actions.discrete,
+                continuous_actions=actions.continuous, proprio=experience.proprio,
                 agent_index=experience.agent_index, latent_is_noised=True, is_training=False,
                 return_pred_only=True, return_intermediates=True)
         agent_embeds = embeds.agent[:, :, experience.agent_index]
@@ -198,11 +198,11 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
     # ------------------------------------------------------------ policy
     policy_embed = model.policy_head(frac_gradient(agent_embeds, model.agent_policy_gradient_frac))
     lp, entropies = model.action_embedder.log_probs(
-        policy_embed, discrete_targets=actions.discrete, pred_head_index=0,
-        return_entropies=True, soft_validate_range=True)
-    log_probs = lp.discrete.sum(dim=-1)
-    old_lp = old_log_probs.discrete.sum(dim=-1)
-    entropy = entropies.discrete
+        policy_embed, discrete_targets=actions.discrete, continuous_targets=actions.continuous,
+        pred_head_index=0, return_entropies=True, soft_validate_range=True)
+    log_probs = _cat_actions(lp).sum(dim=-1)
+    old_lp = _cat_actions(old_log_probs).sum(dim=-1)
+    entropy = _cat_actions(entropies)
 
     if use_delight_gating:
         delight_gate = torch.sigmoid((-log_probs * advantage) / delight_temperature).detach()
@@ -224,8 +224,9 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
             kl_in, kl_tgt = new_unembeds, old_action_unembeds
             if model.pmpo_reverse_kl:
                 kl_in, kl_tgt = kl_tgt, kl_in
-            d_kl, _ = model.action_embedder.kl_div(kl_in, kl_tgt)
-            kl_loss = masked_mean(d_kl, loss_weights) if d_kl is not None else 0.0
+            kl_loss = sum(masked_mean(kl, loss_weights)
+                          for kl in model.action_embedder.kl_div(kl_in, kl_tgt)
+                          if kl is not None)
             policy_loss = policy_loss + kl_loss * model.pmpo_kl_div_loss_weight
 
     elif objective == 'spo':

@@ -1,16 +1,21 @@
 """DynamicsWorldModel (counterpart of `dreamer4_tpu/models/world_model.py`).
 
 Per-frame token layout:
-  [flow token][latent spatial tokens][registers][action][reward][agent tokens]
+  [flow token][latent spatial tokens][proprio][state-pred][registers]
+  [action][reward][agent tokens]
 with the agent tokens as the trunk's special tokens. Ported: the heads,
-`init_cache`, the reward and action tokens, `_predict`, the inference branch
-of the forward (`latent_is_noised=True` with given signal levels) and the
-training branch: diffusion-forcing signal levels, noising, the shortcut
-self-consistency pass, the ramp weight, var-len masks, and the flow,
-shortcut, reward MTP, terminal and discrete-action MTP losses; and the
-state-vector inputs of a real environment: `state_to_latents`
-(`dim_state`) and `critic_state_embedder` (`dim_critic_state`). The options
-listed in `_NOT_PORTED` come with later slices; setting one of them raises.
+`init_cache`, the reward and action tokens (discrete and continuous
+actions), the proprioception token and its read-out (`dim_proprio`), the
+state-prediction token and its Beta head (`add_state_pred_head`),
+`_predict`, the inference branch of the forward (`latent_is_noised=True`
+with given signal levels) and the training branch: diffusion-forcing signal
+levels, noising of the latents and the proprioception, the shortcut
+self-consistency pass over both, the ramp weight, var-len masks, and the
+flow, shortcut, reward MTP, terminal, state-prediction and discrete and
+continuous action MTP losses; and the state-vector inputs of a real
+environment: `state_to_latents` (`dim_state`) and `critic_state_embedder`
+(`dim_critic_state`). The options listed in `_NOT_PORTED` come with later
+slices; setting one of them raises.
 
 Every random draw of the training forward goes through the module-level
 `draw`, so a test can replace it to replay the counterpart's draws.
@@ -30,6 +35,7 @@ from ..nn.dense import Dense
 from ..nn.init import embed_normal_, normal_
 from ..nn.mlp import EnsembleHead, create_mlp
 from ..nn.norms import RMSNorm
+from ..ops import dists
 from ..ops.codecs import get_reward_encoder
 from ..ops.mtp import create_multi_token_prediction_targets
 from ..ops.utils import lens_to_mask, masked_mean, ramp_weight
@@ -76,19 +82,11 @@ class DynamicsCache(NamedTuple):
 # options of the counterpart that are off by default and not ported yet
 _NOT_PORTED = (
     'num_tasks', 'num_latent_genes', 'actor_depth', 'critic_depth',
-    'spatial_pre_encoder_depth', 'action_pre_encoder_depth', 'dim_proprio',
-    'num_continuous_actions', 'actor_critic_latent_input', 'add_state_pred_head',
-    'state_entropy_bonus_weight', 'agent_predicts_state', 'latent_ar', 'has_aug_conditioning',
+    'spatial_pre_encoder_depth', 'action_pre_encoder_depth',
+    'actor_critic_latent_input', 'agent_predicts_state', 'latent_ar', 'has_aug_conditioning',
     'ssl_lapo', 'ssl_tem', 'actor_spr', 'use_loss_normalization',
     'time_attention_use_pope', 'use_time_rnn', 'mot_temporal', 'h_net_layer',
 )
-
-# why an option is refused, where more than "not ported yet" is known
-_WHY_NOT_PORTED = {
-    'dim_proprio': ': the counterpart\'s EnvInteractor never passes proprio to the model, '
-                   'whose forward asserts it (dreamer4_tpu/envs/interact.py, policy_step), so '
-                   'no working path holds a port; it comes with continuous actions',
-}
 
 
 def draw(kind: str, shape, *, generator: torch.Generator | None, device, low: int = 0,
@@ -96,12 +94,13 @@ def draw(kind: str, shape, *, generator: torch.Generator | None, device, low: in
     """One random draw of the training forward.
 
     kind: 'step_sizes_log2', 'signal_levels' — integers in [low, high);
-          'noise'       — standard normal noise of the latents;
-          'reward_keep' — Bernoulli(prob) keep of the reward embedding.
+          'noise'         — standard normal noise of the latents;
+          'proprio_noise' — standard normal noise of the proprioception;
+          'reward_keep'   — Bernoulli(prob) keep of the reward embedding.
     """
     if kind in ('step_sizes_log2', 'signal_levels'):
         return torch.randint(low, high, shape, generator=generator, device=device)
-    if kind == 'noise':
+    if kind in ('noise', 'proprio_noise'):
         return torch.randn(shape, generator=generator, device=device)
     if kind == 'reward_keep':
         return torch.rand(shape, generator=generator, device=device) < prob
@@ -121,7 +120,13 @@ class DynamicsWorldModel(nn.Module):
                  value_num_bins: int | None = None,
                  add_reward_embed_to_agent_token: bool = False,
                  add_reward_embed_dropout: float = 0.1, predict_terminals: bool = True,
-                 num_discrete_actions: tuple[int, ...] = (), multi_token_pred_len: int = 8,
+                 num_discrete_actions: tuple[int, ...] = (), num_continuous_actions: int = 0,
+                 continuous_norm_stats: tuple[tuple[float, float], ...] | None = None,
+                 continuous_dist_type: str = 'beta',
+                 continuous_target_action_range: tuple[float, float] | None = None,
+                 multi_token_pred_len: int = 8, dim_proprio: int | None = None,
+                 add_state_pred_head: bool = False, state_pred_loss_weight: float = 0.1,
+                 eps_latent_pred: float = 1e-6, state_entropy_bonus_weight: float = 0.0,
                  add_action_embed_to_spatial: bool = False, policy_head_mlp_depth: int = 3,
                  value_head_mlp_depth: int = 3, latent_flow_loss_weight: float = 1.0,
                  shortcut_loss_weight: float = 1.0, reward_loss_weight: float = 1.0,
@@ -150,8 +155,7 @@ class DynamicsWorldModel(nn.Module):
             if name not in _NOT_PORTED:
                 raise TypeError(f'unexpected argument {name}')
             if value:
-                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet'
-                                          + _WHY_NOT_PORTED.get(name, ''))
+                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
         if num_video_views != 1:
             raise NotImplementedError('multi-view world models are not ported yet')
         if max_steps & (max_steps - 1) != 0:
@@ -173,7 +177,8 @@ class DynamicsWorldModel(nn.Module):
         self.loss_weights = dict(flow=latent_flow_loss_weight, shortcut=shortcut_loss_weight,
                                  rewards=reward_loss_weight, terminals=terminal_loss_weight,
                                  discrete_actions=discrete_action_loss_weight,
-                                 continuous_actions=continuous_action_loss_weight)
+                                 continuous_actions=continuous_action_loss_weight,
+                                 state_pred=state_pred_loss_weight)
         self.terminal_pos_weight = terminal_pos_weight
         self.gae_discount_factor = gae_discount_factor
         # RL hyperparameters, read by models/rl.py
@@ -195,6 +200,11 @@ class DynamicsWorldModel(nn.Module):
         self.normalize_advantages = normalize_advantages
         self.predict_terminals = predict_terminals
         self.num_discrete_actions = tuple(num_discrete_actions)
+        self.num_continuous_actions = num_continuous_actions
+        self.dim_proprio = dim_proprio
+        self.add_state_pred_head = add_state_pred_head
+        self.eps_latent_pred = eps_latent_pred
+        self.state_entropy_bonus_weight = state_entropy_bonus_weight
         self.add_action_embed_to_spatial = add_action_embed_to_spatial
         self.multi_token_pred_len = multi_token_pred_len
         self.dim_state, self.dim_critic_state = dim_state, dim_critic_state
@@ -241,7 +251,11 @@ class DynamicsWorldModel(nn.Module):
         self.policy_head = create_mlp(dim, dim * 4, policy_head_mlp_depth, dim * 4,
                                       device=device)
         self.action_embedder = ActionEmbedder(
-            dim, num_discrete_actions=self.num_discrete_actions, can_unembed=True,
+            dim, num_discrete_actions=self.num_discrete_actions,
+            num_continuous_actions=num_continuous_actions,
+            continuous_norm_stats=continuous_norm_stats,
+            continuous_dist_type=continuous_dist_type,
+            continuous_target_action_range=continuous_target_action_range, can_unembed=True,
             unembed_dim=dim * 4, num_unembed_preds=multi_token_pred_len, device=device)
         if add_reward_embed_to_agent_token:
             self.reward_bin_embed = nn.Embedding(reward_num_bins, dim, device=device)
@@ -253,6 +267,17 @@ class DynamicsWorldModel(nn.Module):
                                                      device=device)
         self.value_head = create_mlp(dim, dim * 4, value_head_mlp_depth, value_bins,
                                      device=device)
+
+        if self.has_proprio:
+            self.to_proprio_token = Dense(dim_proprio, dim, device=device)
+            self.proprio_pred_norm = RMSNorm(dim, device=device)
+            self.to_proprio_pred = Dense(dim, dim_proprio, device=device)
+        if self.should_pred_state:
+            self.state_pred_token = param((dim,), 1e-2)
+            self.state_pred_norm = RMSNorm(dim, device=device)
+            # Beta params per latent entry: (n, d_latent, 2) flattened
+            self.to_state_pred = Dense(dim, num_video_views * num_latent_tokens * dim_latent * 2,
+                                       device=device)
 
         self.transformer = AxialSpaceTimeTransformer(
             dim=dim, depth=depth, attn_heads=attn_heads, attn_dim_head=attn_dim_head,
@@ -297,11 +322,25 @@ class DynamicsWorldModel(nn.Module):
 
     @property
     def has_actions(self) -> bool:
-        return len([n for n in self.num_discrete_actions if n > 0]) > 0
+        return (len([n for n in self.num_discrete_actions if n > 0]) > 0
+                or self.num_continuous_actions > 0)
+
+    @property
+    def has_proprio(self) -> bool:
+        return self.dim_proprio is not None
+
+    @property
+    def should_pred_state(self) -> bool:
+        return self.add_state_pred_head and self.loss_weights['state_pred'] > 0.0
+
+    @property
+    def add_state_entropy_bonus(self) -> bool:
+        return self.should_pred_state and self.state_entropy_bonus_weight > 0.0
 
     @property
     def tokens_per_frame(self) -> int:
-        return (1 + self.num_spatial_tokens * self.num_video_views + self.num_register_tokens
+        return (1 + self.num_spatial_tokens * self.num_video_views + int(self.has_proprio)
+                + int(self.should_pred_state) + self.num_register_tokens
                 + int(self.has_actions) + int(self.add_reward_embed_to_agent_token)
                 + self.num_agents)
 
@@ -344,13 +383,14 @@ class DynamicsWorldModel(nn.Module):
         tokens = embeds + self.reward_learned_embed[agent_index]
         return tokens[:, :, None, :]
 
-    def _action_tokens(self, discrete_actions, time: int, shift: bool, is_sequential: bool,
-                       action_token_mask=None, agent_index: int = 0):
+    def _action_tokens(self, discrete_actions, continuous_actions, time: int, shift: bool,
+                       is_sequential: bool, action_token_mask=None, agent_index: int = 0):
         """-> (b, t, 1, d) action tokens or None; the token paired with state
         t is the previous action."""
-        if not self.has_actions or discrete_actions is None:
+        if not self.has_actions or (discrete_actions is None and continuous_actions is None):
             return None
-        tokens = self.action_embedder(discrete_actions=discrete_actions)
+        tokens = self.action_embedder(discrete_actions=discrete_actions,
+                                      continuous_actions=continuous_actions)
         tokens = tokens + self.action_learned_embed[agent_index]
         action_len = tokens.shape[1]
         if (action_len == time and shift and not is_sequential) or action_len == time - 1:
@@ -362,8 +402,8 @@ class DynamicsWorldModel(nn.Module):
 
     # ------------------------------------------------------------ prediction
 
-    def _predict(self, noised_latents, signal_levels, step_sizes_log2, action_tokens,
-                 reward_tokens, agent_tokens, cache: DynamicsCache | None = None,
+    def _predict(self, noised_latents, noised_proprio, signal_levels, step_sizes_log2,
+                 action_tokens, reward_tokens, agent_tokens, cache: DynamicsCache | None = None,
                  max_time: int | None = None):
         b, t, v = noised_latents.shape[:3]
         dim = self.dim
@@ -380,8 +420,14 @@ class DynamicsWorldModel(nn.Module):
         signal_emb = self.signal_levels_embed(signal_levels.long())          # (b, t, d/2)
         step_emb = self.step_size_embed(step_sizes_log2.long())              # (b, d/2)
         step_emb = step_emb[:, None].expand(b, t, dim // 2)
-        parts = [torch.cat([signal_emb, step_emb], dim=-1)[:, :, None, :], space_tokens,
-                 self.register_tokens.expand(b, t, self.num_register_tokens, dim)]
+        parts = [torch.cat([signal_emb, step_emb], dim=-1)[:, :, None, :], space_tokens]
+        if self.has_proprio:
+            if noised_proprio is None:
+                raise ValueError('a model with dim_proprio needs proprio')
+            parts.append(self.to_proprio_token(noised_proprio)[:, :, None, :])
+        if self.should_pred_state:
+            parts.append(self.state_pred_token.expand(b, t, 1, dim))
+        parts.append(self.register_tokens.expand(b, t, self.num_register_tokens, dim))
         if self.has_actions:
             if action_tokens is None:
                 action_tokens = torch.zeros((b, t, 1, dim), device=noised_latents.device)
@@ -401,7 +447,8 @@ class DynamicsWorldModel(nn.Module):
             tokens, cache=cache.main if cache is not None else None, max_time=max_time,
             return_intermediates=True, collect_normed_inputs=False)
 
-        space_out = tokens[:, :, 1:1 + v * s_per_view]
+        n_space = v * s_per_view
+        space_out = tokens[:, :, 1:1 + n_space]
         agent_out = tokens[:, :, -self.num_agents:]
 
         h = self.latent_pred_norm(space_out.reshape(b, t, v, s_per_view, dim))
@@ -409,16 +456,31 @@ class DynamicsWorldModel(nn.Module):
             h = self.latent_pred_pool(h)
         pred = self.to_latent_pred(h)                                        # (b, t, v, n, dl)
 
+        # the proprio and state-prediction tokens follow the spatial ones
+        idx = 1 + n_space
+        pred_proprio = pred_state = state_pred_out = None
+        if self.has_proprio:
+            pred_proprio = self.to_proprio_pred(self.proprio_pred_norm(tokens[:, :, idx]))
+            idx += 1
+        if self.should_pred_state:
+            state_pred_out = tokens[:, :, idx:idx + 1]
+            s = self.to_state_pred(self.state_pred_norm(state_pred_out[:, :, 0]))
+            pred_state = s.reshape(b, t, v, self.num_latent_tokens, self.dim_latent, 2)
+            if v == 1:
+                pred_state = pred_state[:, :, 0]    # single-view callers keep (b, t, n, d, 2)
+
         new_cache = DynamicsCache(main=interm.cache) if interm.cache is not None else None
-        return (Predictions(flow=pred, proprio=None, state=None),
-                Embeds(agent=agent_out, state_pred=None, actor=agent_out, critic=agent_out),
+        return (Predictions(flow=pred, proprio=pred_proprio, state=pred_state),
+                Embeds(agent=agent_out, state_pred=state_pred_out, actor=agent_out,
+                       critic=agent_out),
                 new_cache)
 
     # --------------------------------------------------------------- forward
 
     def forward(self, *, latents, signal_levels=None, step_sizes=None, step_sizes_log2=None,
-                rewards=None, terminals=None, discrete_actions=None,
-                shift_action_tokens: bool = True, lens=None, action_token_mask=None,
+                rewards=None, terminals=None, discrete_actions=None, continuous_actions=None,
+                shift_action_tokens: bool = True, proprio=None, lens=None,
+                action_token_mask=None,
                 reward_token_mask=None, latent_has_view_dim: bool = False, agent_index: int = 0,
                 cache: DynamicsCache | None = None, max_time: int | None = None,
                 latent_is_noised: bool = False, return_pred_only: bool = False,
@@ -444,6 +506,8 @@ class DynamicsWorldModel(nn.Module):
             terminals = nn.functional.pad(terminals, (1, 0))
         if discrete_actions is not None and discrete_actions.ndim == 2:
             discrete_actions = discrete_actions[..., None]
+        if continuous_actions is not None and continuous_actions.ndim == 2:
+            continuous_actions = continuous_actions[..., None]
 
         def conform(x):
             if x is None:
@@ -480,12 +544,18 @@ class DynamicsWorldModel(nn.Module):
                 signal_levels = rnd('signal_levels', (b, time), high=self.max_steps)
         times = self.get_times_from_signal_level(signal_levels)
 
-        noise = None
+        noise = proprio_noise = None
         if latent_is_noised:
-            noised_latents = latents
+            noised_latents, noised_proprio = latents, proprio
         else:
             noise = rnd('noise', latents.shape)
             noised_latents = noise + (latents - noise) * times[..., None, None, None]
+            noised_proprio = None
+            if self.has_proprio:
+                if proprio is None:
+                    raise ValueError('a model with dim_proprio needs proprio')
+                proprio_noise = rnd('proprio_noise', proprio.shape)
+                noised_proprio = proprio_noise + (proprio - proprio_noise) * times[..., None]
 
         agent_tokens = self.agent_learned_embed[None, None].expand(
             b, time, self.num_agents, self.dim)
@@ -494,14 +564,15 @@ class DynamicsWorldModel(nn.Module):
                                             agent_index=agent_index,
                                             is_training=is_training and not is_inference,
                                             generator=generator)
-        action_tokens = self._action_tokens(discrete_actions, time, shift=shift_action_tokens,
+        action_tokens = self._action_tokens(discrete_actions, continuous_actions, time,
+                                            shift=shift_action_tokens,
                                             is_sequential=is_sequential,
                                             action_token_mask=action_token_mask,
                                             agent_index=agent_index)
 
-        pred, embeds, new_cache = self._predict(noised_latents, signal_levels, step_sizes_log2,
-                                                action_tokens, reward_tokens, agent_tokens,
-                                                cache=cache, max_time=max_time)
+        pred, embeds, new_cache = self._predict(noised_latents, noised_proprio, signal_levels,
+                                                step_sizes_log2, action_tokens, reward_tokens,
+                                                agent_tokens, cache=cache, max_time=max_time)
         if return_pred_only:
             if not return_intermediates:
                 return pred
@@ -509,31 +580,41 @@ class DynamicsWorldModel(nn.Module):
 
         losses = self._losses(
             latents, noised_latents, noise, pred, embeds, times, signal_levels, step_sizes_log2,
-            rewards=rewards, terminals=terminals, discrete_actions=discrete_actions,
-            shift_action_tokens=shift_action_tokens, lens=lens, agent_index=agent_index,
-            shortcut_train=bool(shortcut_train),
+            proprio=(proprio, noised_proprio, proprio_noise), rewards=rewards,
+            terminals=terminals, discrete_actions=discrete_actions,
+            continuous_actions=continuous_actions, shift_action_tokens=shift_action_tokens,
+            lens=lens, agent_index=agent_index, shortcut_train=bool(shortcut_train),
             frozen_tokens=(action_tokens, reward_tokens, agent_tokens))
         w = self.loss_weights
         total_loss = (losses.flow * w['flow'] + losses.shortcut * w['shortcut']
                       + (losses.rewards * w['rewards']).sum()
                       + losses.terminals * w['terminals']
-                      + (losses.discrete_actions * w['discrete_actions']).sum())
+                      + (losses.discrete_actions * w['discrete_actions']).sum()
+                      + (losses.continuous_actions * w['continuous_actions']).sum()
+                      + losses.state_pred * w['state_pred'])
         if not return_intermediates:
             return total_loss
         return total_loss, losses, embeds
 
     def _losses(self, latents, noised_latents, noise, pred, embeds, times, signal_levels,
-                step_sizes_log2, *, rewards, terminals, discrete_actions, shift_action_tokens,
-                lens, agent_index, shortcut_train, frozen_tokens) -> WorldModelLosses:
+                step_sizes_log2, *, proprio, rewards, terminals, discrete_actions,
+                continuous_actions, shift_action_tokens, lens, agent_index, shortcut_train,
+                frozen_tokens) -> WorldModelLosses:
         b, time = latents.shape[:2]
         device = latents.device
         zero = torch.zeros((), device=device)
         mtp = self.multi_token_pred_len
-        flat = lambda x: x.reshape(b, time, -1)
+        proprio, noised_proprio, proprio_noise = proprio
+
+        def pack(lat, prop):
+            """Latents and proprio as one vector per frame, for the flow math."""
+            flat = lat.reshape(b, time, -1)
+            return torch.cat([flat, prop.to(flat.dtype)], dim=-1) if self.has_proprio else flat
 
         # flow matching, x-space or v-space
-        packed_pred, noised, data = flat(pred.flow), flat(noised_latents), flat(latents)
-        pred_target = data if self.pred_orig_latent else data - flat(noise)
+        packed_pred = pack(pred.flow, pred.proprio)
+        noised, data = pack(noised_latents, noised_proprio), pack(latents, proprio)
+        pred_target = data if self.pred_orig_latent else data - pack(noise, proprio_noise)
         flow_losses = (packed_pred - pred_target).square()
 
         # shortcut self-consistency: two half steps of the frozen model
@@ -546,11 +627,14 @@ class DynamicsWorldModel(nn.Module):
             half_step = 2 ** half_log2
             first_times = times[..., None]
 
+            lat_size = latents[0, 0].numel()
+
             def run_frozen(noised_flat, sig):
-                lat = noised_flat.reshape(latents.shape)
-                p, _, _ = self._predict(lat, sig, half_log2, action_tokens, reward_tokens,
+                lat = noised_flat[..., :lat_size].reshape(latents.shape)
+                prop = noised_flat[..., lat_size:] if self.has_proprio else None
+                p, _, _ = self._predict(lat, prop, sig, half_log2, action_tokens, reward_tokens,
                                         agent_tokens)
-                return flat(p.flow)
+                return pack(p.flow, p.proprio)
 
             with torch.no_grad():
                 first_pred = run_frozen(noised, signal_levels)
@@ -617,34 +701,54 @@ class DynamicsWorldModel(nn.Module):
                 bce = bce * (1.0 + (self.terminal_pos_weight - 1.0) * terminals_seq)
             terminal_loss = masked_mean(bce, mask_without_last) if is_var_len else bce.mean()
 
+        # state prediction: Beta NLL of the next frame's latents, mapped
+        # from [-1, 1] into (0, 1)
+        state_pred_loss = zero
+        if self.should_pred_state and time > 1:
+            target = ((latents[:, 1:, 0] + 1.0) / 2.0).clamp(self.eps_latent_pred,
+                                                             1.0 - self.eps_latent_pred)
+            nll = -dists.continuous_log_prob(pred.state[:, :-1], target, 'beta')
+            state_pred_loss = (masked_mean(nll, mask_without_last[..., None, None])
+                               if is_var_len else nll.mean())
+
         # actions: MTP log likelihood of the next actions under the policy head
-        discrete_action_loss = torch.zeros((mtp,), device=device)
+        action_losses = {'discrete': torch.zeros((mtp,), device=device),
+                         'continuous': torch.zeros((mtp,), device=device)}
         w = self.loss_weights
         has_action_loss = w['discrete_actions'] + w['continuous_actions'] > 0
-        if has_action_loss and time > 1 and discrete_actions is not None:
-            da = discrete_actions
+        given = {k: v for k, v in (('discrete', discrete_actions),
+                                   ('continuous', continuous_actions)) if v is not None}
+        if has_action_loss and time > 1 and given:
             if shift_action_tokens:
-                da = nn.functional.pad(da, (0, 0, 1, 0))
-            pred_len = da.shape[1]
+                given = {k: nn.functional.pad(v, (0, 0, 1, 0)) for k, v in given.items()}
+            pred_len = next(iter(given.values())).shape[1]
             num_targets = pred_len - 1 if shift_action_tokens else pred_len
             policy_embed = self.policy_head(embeds.actor[:, :num_targets, agent_index])
-            targets, amask = create_multi_token_prediction_targets(da, mtp)
-            if shift_action_tokens:
-                targets, amask = targets[:, 1:], amask[:, 1:]
-            targets, amask = targets.movedim(2, 0), amask.movedim(2, 0)   # (mtp, b, t, ...)
-            lp = self.action_embedder.log_probs(policy_embed, discrete_targets=targets)
-            nld = torch.where(amask[..., None], -lp.discrete, 0.0)
-            if is_var_len:
-                action_mask = mask_without_last if pred_len == time - 1 else loss_mask
-                m = action_mask[None, :, :num_targets, None] & amask[..., None]
-                discrete_action_loss = (torch.where(m, nld, 0.0).sum(dim=(1, 2, 3))
-                                        / m.sum(dim=(1, 2, 3)).clamp_min(1.0))
-            else:
-                discrete_action_loss = nld.mean(dim=(1, 2, 3))
+            targets, masks = {}, {}
+            for kind, actions in given.items():
+                tgt, amask = create_multi_token_prediction_targets(actions, mtp)
+                if shift_action_tokens:
+                    tgt, amask = tgt[:, 1:], amask[:, 1:]
+                targets[kind], masks[kind] = tgt.movedim(2, 0), amask.movedim(2, 0)  # (mtp, b, t, ...)
+            lp = self.action_embedder.log_probs(
+                policy_embed, discrete_targets=targets.get('discrete'),
+                continuous_targets=targets.get('continuous'), soft_validate_range=True)
+            for kind, log_prob in zip(('discrete', 'continuous'), lp):
+                if log_prob is None:
+                    continue
+                amask = masks[kind]
+                nl = torch.where(amask[..., None], -log_prob, 0.0)
+                if is_var_len:
+                    action_mask = mask_without_last if pred_len == time - 1 else loss_mask
+                    m = action_mask[None, :, :num_targets, None] & amask[..., None]
+                    action_losses[kind] = (torch.where(m, nl, 0.0).sum(dim=(1, 2, 3))
+                                           / m.sum(dim=(1, 2, 3)).clamp_min(1.0))
+                else:
+                    action_losses[kind] = nl.mean(dim=(1, 2, 3))
 
         return WorldModelLosses(
             flow=flow_loss, shortcut=shortcut_loss, rewards=reward_loss,
-            terminals=terminal_loss, discrete_actions=discrete_action_loss,
-            continuous_actions=torch.zeros((mtp,), device=device), state_pred=zero,
+            terminals=terminal_loss, discrete_actions=action_losses['discrete'],
+            continuous_actions=action_losses['continuous'], state_pred=state_pred_loss,
             agent_state_pred=zero, latent_ar=zero, latent_ar_sigreg=zero, lapo_action=zero,
             lapo_fdm=zero, lapo_raw_latent_fdm=zero, tem=zero, h_net=zero)

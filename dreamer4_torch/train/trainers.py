@@ -38,7 +38,7 @@ from .ema import init_ema, update_ema
 from .optim import MuonAdamAtan2, with_grad_accum
 
 # batch entries of the counterpart's train step that the port does not take yet
-_NOT_PORTED_BATCH = ('continuous_actions', 'proprio', 'tasks')
+_NOT_PORTED_BATCH = ('tasks',)
 
 
 class TrainState(NamedTuple):
@@ -89,15 +89,16 @@ def make_world_model_train_step(model: DynamicsWorldModel, optimizer: MuonAdamAt
                                 ema_decay: float = 0.999):
     """-> train_step(ts, batch, shortcut_train, generator=None) returning
     (ts, loss, losses): the training forward on `batch` (latents, rewards,
-    terminals, discrete_actions, lens), its gradients, one optimizer update
-    and one EMA update."""
+    terminals, discrete_actions, continuous_actions, proprio, lens), its
+    gradients, one optimizer update and one EMA update."""
 
     def train_step(ts: TrainState, batch: dict, shortcut_train: bool,
                    generator: torch.Generator | None = None):
         for name in _NOT_PORTED_BATCH:
             if batch.get(name) is not None:
                 raise NotImplementedError(f'batch entry {name} is not ported yet')
-        kwargs = {k: batch.get(k) for k in ('rewards', 'terminals', 'discrete_actions', 'lens')}
+        kwargs = {k: batch.get(k) for k in ('rewards', 'terminals', 'discrete_actions',
+                                            'continuous_actions', 'proprio', 'lens')}
         optimizer.zero_grad(set_to_none=True)
         loss, losses, _ = model(latents=batch['latents'], **kwargs,
                                 shortcut_train=shortcut_train, return_intermediates=True,
@@ -235,8 +236,9 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
 
     def train_on_batch(self, batch: dict):
         """batch: latents (b, t, n, d), or video (b, c, t, h, w) with a
-        tokenizer, and optional rewards, terminals, discrete_actions, lens,
-        on the trainer's device. -> (loss, losses)."""
+        tokenizer, and optional rewards, terminals, discrete_actions,
+        continuous_actions, proprio, lens, on the trainer's device.
+        -> (loss, losses)."""
         batch = dict(batch)
         if 'latents' not in batch:
             if self.tokenizer is None or 'video' not in batch:
@@ -455,8 +457,11 @@ class SimTrainer:
             return None
         batch = dict(latents=experience.latents, rewards=experience.rewards,
                      terminals=experience.terminals, lens=experience.lens)
-        if experience.actions is not None and experience.actions.discrete is not None:
-            batch['discrete_actions'] = experience.actions.discrete
+        if experience.actions is not None:
+            if experience.actions.discrete is not None:
+                batch['discrete_actions'] = experience.actions.discrete
+            if experience.actions.continuous is not None:
+                batch['continuous_actions'] = experience.actions.continuous
         ts = TrainState(model=self.model, optimizer=self.wm_optimizer, ema_params=None,
                         step=self.rl_state.step)
         loss = None

@@ -10,6 +10,8 @@ it from a folder of GIFs with `<stem>.<key>.npy` sidecars (checkpoints,
 """
 import json
 import re
+import threading
+import urllib.request
 
 import numpy as np
 import pytest
@@ -189,3 +191,48 @@ def test_port_device_names_the_current_card(monkeypatch):
     assert resolve_device('cuda') == resolve_device(None) == torch.device('cuda', 0)
     assert resolve_device('cuda:1') == torch.device('cuda', 1)
     assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_port_cli_trains_and_serves_continuous_actions(trained, tmp_path, monkeypatch):
+    """`train-dynamics --num-continuous-actions 6` on GIFs with float action
+    sidecars (and proprio ones, which the command leaves), then the served
+    world model answers a `/step` whose action is a list of 6 floats."""
+    _, tok, _, _ = trained
+    data = make_gif_folder(tmp_path / 'videos', n_videos=2)
+    rng = np.random.default_rng(1)
+    for i in range(2):
+        np.save(data / f'ep{i}.actions.npy', rng.uniform(-1, 1, (2, 6)).astype(np.float32))
+        np.save(data / f'ep{i}.proprio.npy', rng.standard_normal((3, 4)).astype(np.float32))
+    dyn = tmp_path / 'dyn'
+    at = DYNAMICS_ARGS.index('--num-discrete-actions')
+    args = DYNAMICS_ARGS[:at] + DYNAMICS_ARGS[at + 2:]
+    monkeypatch.setattr('builtins.print', lambda *a, **k: None)
+    tcli.main(['train-dynamics', '--dataset', str(data), '--tokenizer-checkpoint', str(tok),
+               '--output', str(dyn), '--num-steps', '2', '--num-continuous-actions', '6',
+               *args])
+    monkeypatch.undo()
+    metrics = [json.loads(line) for line in
+               (dyn / 'logs' / 'metrics.jsonl').read_text().splitlines()]
+    assert [m['step'] for m in metrics] == [1, 2] and all(np.isfinite(m['loss']) for m in metrics)
+    assert list((dyn / 'logs').glob('dream_*.gif'))
+
+    env = tcli.world_model_env(str(dyn), str(tok), device='cpu')
+    assert env.na_c == 6 and env.model.config['num_continuous_actions'] == 6
+    server = tserver.WebEnvServer(env, port=0, host='127.0.0.1')
+    thread = threading.Thread(target=server.httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f'http://127.0.0.1:{server.httpd.server_address[1]}'
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                     headers={'Content-Type': 'application/json'})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    try:
+        assert post('/reset', {})['frame']
+        out = post('/step', {'action': [0.5, -0.5, 0.1, 0.0, 0.9, -0.9]})
+        assert out['frame'] and np.isfinite(out['reward']) and out['terminated'] in (True, False)
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)

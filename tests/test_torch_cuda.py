@@ -132,6 +132,11 @@ K1_SM90_CASES = {
     # SimTrainer's dynamics step at the bench width: b16 rollouts padded to
     # 151 frames, 16 x 27 rows
     'sim': ((432, 8, 8, 151, 151, 64, 0, 151), dict(causal=True)),
+    # continuous actions with proprio and the state head, 29 tokens per
+    # frame: the b1 x T1024 train step and the full-model update over b8
+    # rows of the b16 x T192 dream
+    'continuous_train': ((29, 8, 8, 1024, 1024, 64, 0, 1024), dict(causal=True)),
+    'continuous_rl_full': ((232, 8, 8, 192, 192, 64, 0, 192), dict(causal=True)),
     'few_queries_gqa': ((3, 8, 4, 13, 200, 128, 150, 163), dict(causal=True)),
     'no_softclamp': ((4, 8, 4, 128, 128, 64, 0, 128), dict(causal=True, softclamp_value=None)),
 }
@@ -284,6 +289,8 @@ BWD_CASES = {
     'head_dim_128_special': ((4, 8, 8, 144, 144, 128, 0, 144),
                              dict(num_special=1, special_seq_len=144)),
     'sim': ((432, 8, 8, 151, 151, 64, 0, 151), dict(causal=True)),
+    'continuous_train': ((29, 8, 8, 1024, 1024, 64, 0, 1024), dict(causal=True)),
+    'continuous_rl_full': ((232, 8, 8, 192, 192, 64, 0, 192), dict(causal=True)),
 }
 
 
@@ -730,3 +737,86 @@ def test_world_model_wrapper_on_the_card_matches_the_cpu(gen, monkeypatch):
         np.testing.assert_allclose(card[0], cpu[0], atol=1e-4, rtol=0)
         assert abs(card[1] - cpu[1]) <= 1e-4
         assert card[2:4] == cpu[2:4]
+
+
+# ------------------------------------------------- continuous actions
+
+@pytest.mark.cuda
+def test_beta_sampler_moments_on_the_card(gen):
+    """The port's Beta draws (gamma ratio, `torch._standard_gamma` from a
+    card generator) against the mean a / (a + b) and the variance
+    ab / ((a + b)^2 (a + b + 1)): 10^6 draws, a standard error of the mean
+    below 5e-4."""
+    from dreamer4_torch.ops import dists
+
+    alpha = torch.tensor([1.0, 2.5, 7.0, 1.2, 30.0], device='cuda')
+    beta = torch.tensor([1.0, 4.0, 1.5, 9.0, 30.0], device='cuda')
+    x = dists.beta_sample(alpha.expand(1_000_000, 5), beta.expand(1_000_000, 5), generator=gen)
+    assert x.device.type == 'cuda' and bool(((x > 0) & (x < 1)).all())
+    s = alpha + beta
+    torch.testing.assert_close(x.mean(0), alpha / s, atol=2.5e-3, rtol=0)
+    torch.testing.assert_close(x.var(0), alpha * beta / (s.square() * (s + 1)), atol=1e-3,
+                               rtol=0)
+
+
+# the bench world model (bench.py:174-193) with the reacher recipe's
+# continuous actions and proprio and the state head: 29 tokens per frame
+CONTINUOUS_MODEL = dict(dim=512, dim_latent=32, num_latent_tokens=16, num_spatial_tokens=16,
+                        max_steps=64, depth=8, time_block_every=4, attn_heads=8,
+                        attn_dim_head=64, multi_token_pred_len=8, num_register_tokens=8,
+                        predict_terminals=False, num_continuous_actions=6,
+                        continuous_dist_type='beta', continuous_target_action_range=(-1.0, 1.0),
+                        dim_proprio=4, add_action_embed_to_spatial=True,
+                        add_state_pred_head=True)
+
+
+def continuous_loss_terms(model, batch):
+    """Per element, the state-prediction Beta NLL of the next frame's
+    latents and the continuous actions' MTP NLL under the policy head, off
+    one forward at the clean signal level (what the training losses
+    average)."""
+    from dreamer4_torch.ops import dists
+    from dreamer4_torch.ops.mtp import create_multi_token_prediction_targets
+
+    K = model.max_steps
+    pred, (embeds, _) = model(**batch, signal_levels=K - 1, step_sizes=K // 4,
+                              latent_is_noised=True, return_intermediates=True)
+    target = ((batch['latents'][:, 1:] + 1) / 2).clamp(1e-6, 1 - 1e-6)
+    state_nll = -dists.continuous_log_prob(pred.state[:, :-1], target, 'beta')
+    acts = torch.nn.functional.pad(batch['continuous_actions'], (0, 0, 1, 0))
+    targets, _ = create_multi_token_prediction_targets(acts, model.multi_token_pred_len)
+    policy = model.policy_head(embeds.actor[:, :-1, 0])
+    lp = model.action_embedder.log_probs(policy, continuous_targets=targets[:, 1:].movedim(2, 0),
+                                         soft_validate_range=True)
+    return {'state_pred': state_nll, 'continuous_actions': -lp.continuous}
+
+
+@pytest.mark.cuda
+def test_bf16_continuous_losses_through_the_kernels(gen):
+    """b1 x T1024 (B = 29, N = M = 1024 in each time layer): the bf16 state
+    and action loss terms through K1 are finite (float32 distribution
+    terms: at bf16 a target of 1 - 1e-6 would round to 1), and within 2x
+    the plain bf16 attention's distance from float32."""
+    from dreamer4_torch import DynamicsWorldModel
+
+    torch.manual_seed(0)
+    model = DynamicsWorldModel(**CONTINUOUS_MODEL, use_flash_attention=True,
+                               dtype=torch.bfloat16, device='cuda')
+    ref = DynamicsWorldModel(**CONTINUOUS_MODEL, device='cuda')
+    ref.load_state_dict(model.state_dict())
+    t = 1024
+    batch = dict(latents=torch.rand((1, t, 16, 32), generator=gen, device='cuda') * 2 - 1,
+                 continuous_actions=torch.rand((1, t - 1, 6), generator=gen, device='cuda') * 2 - 1,
+                 proprio=torch.randn((1, t, 4), generator=gen, device='cuda'))
+    with torch.no_grad():
+        before = k1_launches()
+        kernel = continuous_loss_terms(model, batch)
+        assert k1_launches() == before + 2   # the two time layers
+        model.transformer.use_flash_attention = False
+        plain = continuous_loss_terms(model, batch)
+        want = continuous_loss_terms(ref, batch)
+    for name, w in want.items():
+        assert kernel[name].dtype == torch.float32 and bool(torch.isfinite(kernel[name]).all())
+        e_kernel = (kernel[name] - w).abs().max().item()
+        e_plain = (plain[name] - w).abs().max().item()
+        assert e_kernel <= 2.0 * e_plain, (name, e_kernel, e_plain)

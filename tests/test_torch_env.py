@@ -238,14 +238,22 @@ def test_state_to_latents_and_critic_embed_match_jax():
 
 
 def test_unported_environment_options_raise():
-    """Proprioception names the counterpart's interactor as its cause; the
-    state-prediction head and its entropy bonus stay refused."""
-    with pytest.raises(NotImplementedError, match='EnvInteractor'):
-        DynamicsWorldModel(**SMALL, dim_proprio=4, device='cpu')
+    """The model takes proprioception now, and the interactor refuses it,
+    naming the counterpart's interactor as the cause; the state-prediction
+    head and its entropy bonus are taken, and the options that stay
+    refused raise."""
+    model = DynamicsWorldModel(**SMALL, dim_proprio=4, device='cpu')
+    with pytest.raises(NotImplementedError, match='EnvInteractor.*policy_step'):
+        EnvInteractor(model, device='cpu')
     for kw in (dict(add_state_pred_head=True), dict(state_entropy_bonus_weight=0.5)):
-        with pytest.raises(NotImplementedError):
-            DynamicsWorldModel(**SMALL, **STATE, **kw, device='cpu')
-    DynamicsWorldModel(**SMALL, state_entropy_bonus_weight=0.0, device='cpu')
+        bonus = DynamicsWorldModel(**SMALL, **STATE, **kw, device='cpu').add_state_entropy_bonus
+        assert not bonus   # the bonus needs both
+    assert DynamicsWorldModel(**SMALL, **STATE, add_state_pred_head=True,
+                              state_entropy_bonus_weight=0.5,
+                              device='cpu').add_state_entropy_bonus
+    for name in ('agent_predicts_state', 'actor_critic_latent_input'):
+        with pytest.raises(NotImplementedError, match=name):
+            DynamicsWorldModel(**SMALL, **STATE, **{name: True}, device='cpu')
 
 
 # ------------------------------------------------------- streaming encode

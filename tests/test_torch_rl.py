@@ -229,10 +229,9 @@ def test_action_embedder_entropies_and_kl_div_match_jax():
         tkl, tckl = tae.kl_div(tsrc, ttgt, reduce_across_num_actions=reduce)
         close(jkl, tkl, 1e-6)
         assert tckl is None
-    with pytest.raises(NotImplementedError):
-        tae.kl_div((tsrc[0], torch.zeros(2, 5, 1, 2)), ttgt)
-    with pytest.raises(NotImplementedError):
-        tae.log_probs(T(embeds), continuous_targets=torch.zeros(2, 5, 1))
+    # a discrete-only embedder has no continuous half to score or compare
+    assert tae.kl_div((tsrc[0], torch.zeros(2, 5, 1, 2)), ttgt)[1] is None
+    assert tae.log_probs(T(embeds), continuous_targets=torch.zeros(2, 5, 1)).continuous is None
 
 
 def test_index_experience_matches_jax():
@@ -816,17 +815,18 @@ def test_torch_dream_trainer_prompt_fn():
 # ---------------------------------------------------------------- refusals
 
 def test_rl_losses_refuses_unported_inputs(model_and_experience):
+    """What stays refused: an unknown objective, the RL options not ported
+    yet, and a full-model replay of proprio by a model without
+    `dim_proprio` (its forward has no proprio token to take it)."""
     model, exp = model_and_experience
-    cont = Actions(exp.actions.discrete, torch.zeros(2, 6, 1))
-    for change in (dict(actions=cont), dict(proprio=torch.zeros(2, 6, 3))):
-        with pytest.raises(NotImplementedError):
-            rl_losses(model, Experience(**{**vars(exp), **change}))
     with pytest.raises(ValueError, match='objective'):
         rl_losses(model, exp, objective='a2c')
-    for name in ('actor_critic_latent_input', 'actor_spr', 'dim_proprio'):
-        with pytest.raises(NotImplementedError):
-            DynamicsWorldModel(**SMALL, **{name: 4 if name.startswith('dim') else True},
-                               device='cpu')
+    for name in ('actor_critic_latent_input', 'actor_spr', 'agent_predicts_state'):
+        with pytest.raises(NotImplementedError, match=name):
+            DynamicsWorldModel(**SMALL, **{name: True}, device='cpu')
+    model_p = DynamicsWorldModel(**SMALL, dim_proprio=3, device='cpu')
+    with pytest.raises(ValueError, match='proprio'):
+        rl_losses(model_p, exp, only_learn_policy_value_heads=False)
 
 
 def test_dream_trainer_device(monkeypatch):
