@@ -26,7 +26,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                too) must take the wgmma kernel, and so must the continuous
                phase's train step (`cont_train`: 29 rows, N = M = 1024) and
                full-model update (`cont_rl_full`: 232 rows, N = M = 192),
-               each with the LSE, K2 and K3 at the same shapes.
+               and the recipe phase's train step (`recipe_train`: 28 rows,
+               N = M = 1024) and dynamics step (`recipe_sim`: 448 rows,
+               N = M = 151), each with the LSE, K2 and K3 at the same
+               shapes, timed beside flex's backward.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -138,7 +141,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
                kernel, timed, checked finite (proprio, the continuous log
                probs and the state-prediction loss among them) and its
                peak memory printed.
- 12. small   — K4 and K5 (the small-attention forward and backward) against
+ 12. recipe  — the RL options of the imagination-only CartPole recipe
+               (examples/train_cartpole_dream_rl.py:136-159) on the sim
+               phase's model: the state head, the agent's state prediction
+               (frac 0.5), the action embedding on the spatial tokens, the
+               latent-input policy and value heads, and the actor's SPR over
+               2 rollouts, 28 tokens per frame, float32 master weights and
+               bf16 compute: a. a plain `BehaviorCloneTrainer` step at
+               b1 x T1024, the agent-state loss finite and nonzero (K1, K2,
+               K3 2 each at B = 28, N = M = 1024); b. a heads-only PPO
+               `DreamTrainer` step at the recipe's b32 x T17 dream (4
+               denoise steps, a 3-frame prompt): only the heads, the
+               unembedding and the latent encoders move, `actor_spr_module`
+               (frozen, as in JAX) does not (no kernel); c. a full-model
+               update of the latent-input heads on that dream
+               (`latent_input_full_model_ok`): the encoders, the heads and
+               the SPR module move, the trunk has a zero gradient and moves
+               by AdamW's decay alone (no kernel); d. a heads-only
+               `SimTrainer` step on the sim phase's environment (the
+               dynamics step runs K1-K3 at B = 448, N = M = 151). Every K1
+               on the wgmma kernel; ms, peak memory and launches per part.
+ 13. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
@@ -359,6 +382,33 @@ CONT_DIVERGENCE = 0.01
 CONT_DREAM_LAUNCHES = (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0)
 CONT_WRAPPER_FRAMES = 8
 
+# the recipe phase: the sim phase's model with what the imagination-only
+# CartPole recipe sets (examples/train_cartpole_dream_rl.py:136-159: the
+# state head, the agent's state prediction with half its gradient to the
+# trunk, the action embedding on the spatial tokens, and behind
+# --latent-actor the latent-input policy and value heads) and the actor's
+# SPR over 2 rollouts: 28 tokens per frame
+RECIPE_MODEL = dict(SIM_MODEL, add_state_pred_head=True, agent_predicts_state=True,
+                    agent_predicts_state_frac_gradient=0.5, add_action_embed_to_spatial=True,
+                    actor_critic_latent_input=True, actor_spr=True, actor_spr_num_rollouts=2)
+RECIPE_TOKENS = 28
+# a. the b1 x T1024 train step's time attention; d. the SimTrainer dynamics
+# step's, b16 rollouts padded to 151 frames
+RECIPE_TRAIN_ATTENTION = dict(CONT_TRAIN_ATTENTION, B=TRAIN['batch_size'] * RECIPE_TOKENS)
+RECIPE_SIM_ATTENTION = dict(SIM_ATTENTION, B=SIM_ENV['batch'] * RECIPE_TOKENS)
+# b. the recipe's DreamTrainer (its argument defaults: b32 x T17 dreams, 4
+# denoise steps, a 3-frame prompt, soft terminals, 2 PPO epochs, rates 3e-4)
+RECIPE_DREAM = dict(batch_size=32, time_steps=17, num_steps=4, objective='ppo',
+                    policy_lr=3e-4, value_lr=3e-4, update_epochs=2)
+RECIPE_PROMPT_LEN = 3
+# c. full-model RL of latent-input heads: no trunk replay, so no gradient
+# reaches the trunk; at this trunk rate AdamW's decay (lr x 1e-4 = 1e-6 of
+# each weight) shows in float32, so the trunk moves by the decay alone
+RECIPE_RL_FULL_LR = dict(policy_lr=3e-4, value_lr=3e-4, trunk_lr=1e-2)
+# d. the SimTrainer's seed: its first shortcut draw (default_rng(4).random()
+# = 0.943, above 5/6) makes the dynamics step a plain one, K1-K3 2 / 2 / 2
+RECIPE_SIM_SEED = 4
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -567,6 +617,10 @@ def kernel_cases():
     # full-model update (b8 x 29 rows at T192), with the LSE
     cases.append(('cont_train', bf16, dict(CONT_TRAIN_ATTENTION, lse=True)))
     cases.append(('cont_rl_full', bf16, dict(CONT_RL_FULL_ATTENTION, lse=True)))
+    # the recipe phase's train step (b1 x 28 rows at T1024) and SimTrainer
+    # dynamics step (b16 x 28 rows at 151 frames), with the LSE
+    cases.append(('recipe_train', bf16, dict(RECIPE_TRAIN_ATTENTION, lse=True)))
+    cases.append(('recipe_sim', bf16, dict(RECIPE_SIM_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -658,8 +712,9 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
 # is taken beside flex_attention's in the last phase
 K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only_itself=True',
                  'prefill', 'rl_full', 'sim')
-# bf16 K1 cases of the continuous phase's paths: the wgmma kernel too
-K1_SM90_ONLY_CASES = ('cont_train', 'cont_rl_full')
+# bf16 K1 cases of the continuous and recipe phases' paths: the wgmma
+# kernel too
+K1_SM90_ONLY_CASES = ('cont_train', 'cont_rl_full', 'recipe_train', 'recipe_sim')
 
 
 def run_kernel_phase():
@@ -765,6 +820,8 @@ def bwd_kernel_cases():
     cases.append(('sim', bf16, SIM_ATTENTION))
     cases.append(('cont_train', bf16, CONT_TRAIN_ATTENTION))
     cases.append(('cont_rl_full', bf16, CONT_RL_FULL_ATTENTION))
+    cases.append(('recipe_train', bf16, RECIPE_TRAIN_ATTENTION))
+    cases.append(('recipe_sim', bf16, RECIPE_SIM_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -839,7 +896,8 @@ def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
 
 
 # backward cases timed beside flex_attention's backward (with a float32 one)
-BWD_LIBRARY_CASES = ('t1024', 'rl_full', 'sim')
+BWD_LIBRARY_CASES = ('t1024', 'rl_full', 'sim', 'cont_train', 'cont_rl_full', 'recipe_train',
+                     'recipe_sim')
 
 
 def run_backward_kernel_phase():
@@ -2532,6 +2590,165 @@ def run_continuous_phase(seed: int = 0) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------- recipe
+
+def run_recipe_phase(seed: int = 0) -> dict:
+    """The RL options of the imagination-only CartPole recipe at the bench
+    world model's width (28 tokens per frame), float32 master weights and
+    bf16 compute: a. a plain `BehaviorCloneTrainer` step at b1 x T1024 with
+    the agent's state prediction; b. a heads-only PPO `DreamTrainer` step
+    at the recipe's dream shape, the heads reading the latents; c. a
+    full-model update of the latent-input heads on that dream, which
+    replays no trunk; d. a heads-only `SimTrainer` step. Each part counted,
+    timed and checked; returns the (K1..K5) launches by path."""
+    from dreamer4_torch import BehaviorCloneTrainer, DreamTrainer, DynamicsWorldModel, SimTrainer
+    from dreamer4_torch.envs.mocks import MockStateEnv
+    from dreamer4_torch.train.trainers import (ADAMW, create_rl_state, make_rl_optimizer,
+                                               make_rl_update_step, make_world_model_train_step,
+                                               rl_param_labels)
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**RECIPE_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    if model.tokens_per_frame != RECIPE_TOKENS:
+        raise SystemExit(f'{model.tokens_per_frame} tokens per frame, not {RECIPE_TOKENS}')
+    dev = model.device
+    log(f'# recipe ({gpu_name_and_power_limit()}): '
+        f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, '
+        f'{model.tokens_per_frame} tokens/frame (agent state prediction, latent-input heads, '
+        f'actor SPR over {model.actor_spr_module.num_rollouts} rollouts)')
+    launches = {}
+
+    def part(label, fn, want):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, want)
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        return out, sec, got, torch.cuda.max_memory_allocated() / 2**30
+
+    # a. the plain train step at b1 x T1024: the agent's state prediction on
+    batch = train_batch(dev, seed + 2)
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=True, seed=seed)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+
+    def one_step():
+        trainer.ts, loss, losses = step_fn(trainer.ts, batch, shortcut_train=False,
+                                           generator=trainer.generator)
+        return loss, losses
+    (loss, losses), sec, got, peak = part('recipe_train_plain', one_step,
+                                          LAUNCHES_PER_STEP[False])
+    check_finite('recipe_train_plain', {'loss': loss, **losses._asdict()})
+    if not (losses.agent_state_pred > 0 and losses.state_pred > 0):
+        raise SystemExit('recipe_train_plain: the agent-state or state loss is not on')
+    grad = model.agent_state_pred_net.Dense_0.weight.grad
+    if grad is None or not bool(grad.any()):
+        raise SystemExit('recipe_train_plain: no gradient reached agent_state_pred_net')
+    sec_warm = host_time_s(lambda: one_step(), reps=1)
+    log(f'recipe_train_plain b{TRAIN["batch_size"]} T{TRAIN["time_steps"]}: loss '
+        f'{loss.item():.4f} (flow {losses.flow.item():.4f}, agent_state_pred '
+        f'{losses.agent_state_pred.item():.4f}, state_pred {losses.state_pred.item():.4f}, '
+        f'actions through the latent encoder {losses.discrete_actions.sum().item():.4f}); '
+        f'{sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms warm; (K1..K5) {got}; peak memory '
+        f'{peak:.2f} GiB')
+    del batch, trainer, step_fn
+    model.zero_grad(set_to_none=True)
+
+    # b. a heads-only PPO DreamTrainer step from a 3-frame prompt of the
+    # state-vector latents
+    b, T = RECIPE_DREAM['batch_size'], RECIPE_DREAM['time_steps']
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    P = RECIPE_PROMPT_LEN
+    with torch.no_grad():
+        prompt = dict(
+            prompt_latents=model.state_to_latents(
+                torch.randn((b, P, SIM_ENV['dim_state']), generator=g, device=dev)).float(),
+            prompt_discrete_actions=torch.randint(0, SIM_ENV['num_actions'], (b, P, 1),
+                                                  generator=g, device=dev),
+            prompt_rewards=torch.ones((b, P), device=dev))
+    dream_trainer = DreamTrainer(model, **RECIPE_DREAM, prompt_fn=lambda generator: prompt,
+                                 generate_kwargs=dict(hard_terminals=False), seed=seed)
+    labels = rl_param_labels(model)
+    moving = {n for n, l in labels.items() if l != 'frozen'}
+    if {n.partition('.')[0] for n in moving} != {
+            'policy_head', 'value_head', 'action_embedder', 'actor_latent_encoder',
+            'critic_latent_encoder', 'critic_state_embedder'}:
+        raise SystemExit(f'recipe_dream_trainer: unexpected RL groups {sorted(moving)[:8]}')
+    # a dream has no critic state: its embedding has no gradient, and AdamW
+    # only decays it (its zero bias stays)
+    learners = {n for n in moving if not n.startswith('critic_state_embedder.')}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    (exp, out), sec, got, peak = part('recipe_dream_trainer', dream_trainer.step,
+                                      (0, 0, 0, 0, 0))
+    check_experience(exp, b, T, P, model.dim, model.latent_shape)
+    check_rl_outputs('recipe_dream_trainer', out)
+    check_moved('recipe_dream_trainer', model, before, learners, moved=True)
+    check_moved('recipe_dream_trainer', model, before, set(labels) - moving, moved=False)
+    spr_grad = model.actor_spr_module.dynamics_mlp.Dense_0.weight.grad
+    if spr_grad is None or not bool(spr_grad.any()):
+        raise SystemExit('recipe_dream_trainer: the SPR loss gave actor_spr_module no gradient')
+    del before
+    log(f'recipe_dream_trainer b{b} T{T} P{P} (heads-only ppo, {RECIPE_DREAM["update_epochs"]} '
+        f'epochs): {sec * 1e3:.1f} ms/step, {b * (T - P) / sec:.1f} dreamed env-steps/s; '
+        f'(K1..K5) {got}; stats '
+        f'{", ".join(f"{k} {v.item():.4f}" for k, v in out.stats.items())}; peak memory '
+        f'{peak:.2f} GiB; the heads, the unembedding and the latent encoders moved, '
+        f'actor_spr_module (a gradient, no optimizer group) and the trunk did not')
+
+    # c. a full-model update of the latent-input heads on that dream: the
+    # encoders, the heads and the SPR module learn; the trunk has a zero
+    # gradient and moves by AdamW's decay alone
+    opt = make_rl_optimizer(model, **RECIPE_RL_FULL_LR)
+    full_update = make_rl_update_step(model, opt, RECIPE_DREAM['objective'],
+                                      only_learn_policy_value_heads=False,
+                                      latent_input_full_model_ok=True)
+    state = create_rl_state(model, opt)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    (state, out), sec, got, peak = part('recipe_rl_full', lambda: full_update(state, exp),
+                                        (0, 0, 0, 0, 0))
+    check_rl_outputs('recipe_rl_full', out)
+    learners |= {n for n in before if n.startswith('actor_spr_module.')}
+    check_moved('recipe_rl_full', model, before, learners, moved=True)
+    decay = 1.0 - RECIPE_RL_FULL_LR['trunk_lr'] * ADAMW['weight_decay']
+    trunk = [(n, p) for n, p in model.named_parameters() if n.startswith('transformer.')]
+    if any(p.grad is None or p.grad.any() for _, p in trunk):
+        raise SystemExit('recipe_rl_full: the trunk has a nonzero gradient')
+    # within one float32 rounding of w x decay
+    not_decay = [n for n, p in trunk
+                 if bool(((p - before[n] * decay).abs() > before[n].abs() * 2**-23).any())]
+    if not_decay:
+        raise SystemExit(f'recipe_rl_full: trunk weights moved by more than the decay: '
+                         f'{not_decay[:4]}')
+    moved_entries = sum(int((p != before[n]).sum()) for n, p in trunk)
+    if moved_entries == 0:
+        raise SystemExit('recipe_rl_full: the decay did not move the trunk')
+    del before, opt, state
+    log(f'recipe_rl_full b{b} T{T} (latent-input heads, full model): {sec * 1e3:.1f} ms/update '
+        f'(first); (K1..K5) {got}; the encoders, the heads and actor_spr_module moved; the trunk '
+        f'had a zero gradient and moved by the decay alone ({moved_entries} of '
+        f'{sum(p.numel() for _, p in trunk)} weights changed, each to w x {decay}); peak '
+        f'memory {peak:.2f} GiB')
+    del dream_trainer, exp, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. a heads-only SimTrainer step with the recipe's options
+    sim = SimTrainer(model, MockStateEnv(**SIM_ENV, seed=seed), **SIM_TRAINER,
+                     seed=RECIPE_SIM_SEED)
+    launches.update(run_sim_step(sim, 'recipe_sim', full_model=False,
+                                 attention=RECIPE_SIM_ATTENTION))
+    expect_launches('recipe_sim_dynamics', launches['recipe_sim_dynamics'],
+                    LAUNCHES_PER_STEP[False])
+    del sim, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# recipe phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2574,7 +2791,8 @@ def main() -> int:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
-                **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase()}
+                **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase(),
+                **run_recipe_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)
@@ -2587,6 +2805,9 @@ def main() -> int:
     k1_at = {name: {x: kernel_results[(name, torch.bfloat16)][x]
                     for x in ('ms', 'device_ms', 'library_ms', 'library_device_ms', 'bound_ms')}
              for name in K1_SM90_CASES}
+    k1_at_paths = {name: {x: kernel_results[(name, torch.bfloat16)][x]
+                          for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
+                   for name in K1_SM90_ONLY_CASES}
     bwd_at = {which: {name: {x: bwd_results[(name, torch.bfloat16)][which][x]
                              for x in ('ms', 'library_ms', 'bound_ms')}
                       for name in BWD_LIBRARY_CASES if name != 't1024'}
@@ -2595,7 +2816,7 @@ def main() -> int:
                     source='dreamer4_torch/csrc/flash_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:86',
                     launches=totals[0], launches_by_path=by_path(0), **main_shape,
-                    at_other_shapes=k1_at),
+                    at_other_shapes=k1_at, at_path_shapes=k1_at_paths),
                dict(name='K2 flash_attn_bwd_dq', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_bwd_dq.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:269',

@@ -166,11 +166,13 @@ class EnvInteractor:
             ent = dists.continuous_entropy(pred.state[:, -1], 'beta')
             state_entropy = ent.reshape(b, -1).mean(dim=-1)                 # (b,)
 
-        value_embed = agent_embed
+        actor_src = value_embed = agent_embed
+        if model.actor_critic_latent_input:
+            actor_src, value_embed = model.latent_actor_inputs(latents[:, -1])
         if model.dim_critic_state is not None and critic_state is not None:
             value_embed = value_embed + model.critic_state_embedder(critic_state)
         value = model.value_encoder.decode(model.value_head(value_embed))
-        policy_embed = model.policy_head(agent_embed)
+        policy_embed = model.policy_head(actor_src)
 
         sampled_d = sampled_c = env_cont = log_probs = None
         if sample and model.has_actions:

@@ -5,7 +5,8 @@ frame loop over preallocated output buffers and the model's preallocated KV
 caches, with the same early stop. Per frame: `num_steps` Euler denoise
 steps, one clean step that commits the frame to the cache and yields the
 agent embedding, then reward decode, terminal draw, action sample, log prob
-and value off that embedding. A prompt runs as one parallel prefill that
+and value off that embedding (with `actor_critic_latent_input`, the policy
+and value off the latent encoders' reading of the denoised frame). A prompt runs as one parallel prefill that
 fills the cache; at long prompts its time attention is the flash kernel.
 
 Every random draw goes through the module-level `draw`, so a test can
@@ -207,7 +208,10 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
         agent_embed_buf[:, i] = one_agent_embed
 
         if return_agent_actions and model.has_actions:
-            policy_embed = model.policy_head(one_agent_embed)
+            actor_src = critic_src = one_agent_embed
+            if model.actor_critic_latent_input:
+                actor_src, critic_src = model.latent_actor_inputs(denoised[:, 0, 0])
+            policy_embed = model.policy_head(actor_src)
             policy_embed_buf[:, i] = policy_embed
             sizes = model.action_embedder.discrete_sizes
             gumbels = [rnd('action', i, (b, size), part=j) for j, size in enumerate(sizes)]
@@ -232,7 +236,7 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
                 d_logprob_buf[:, i] = lp.discrete
             if na_c > 0:
                 c_logprob_buf[:, i] = lp.continuous
-            values_buf[:, i] = model.value_encoder.decode(model.value_head(one_agent_embed))
+            values_buf[:, i] = model.value_encoder.decode(model.value_head(critic_src))
 
         latents_buf[:, i] = denoised[:, 0]
         if has_proprio:

@@ -12,8 +12,10 @@ summed over the action types, their entropies enter the entropy bonus, and
 PMPO's KL term adds the continuous KL to the discrete one. A full-model
 replay passes the experience's proprioception to the trunk. A critic state
 (an environment's privileged state, `dim_critic_state`) is embedded and
-added to the value head's input. The options the world model refuses
-(`actor_critic_latent_input`, `actor_spr`) never reach here.
+added to the value head's input. With `actor_critic_latent_input` the
+heads read `latent_actor_inputs(latents)` and the trunk is never replayed,
+so full-model RL cannot train it (`latent_input_full_model_ok`). With
+`actor_spr` the actor's self-predictive rollout loss joins the policy loss.
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
               use_delight_gating: bool | None = None, delight_temperature: float | None = None,
               normalize_advantages: bool | None = None,
               encode_video_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
-              soft_continuation: bool = True, eps: float = 1e-6) -> RLLossOutputs:
+              soft_continuation: bool = True, latent_input_full_model_ok: bool = False,
+              eps: float = 1e-6) -> RLLossOutputs:
     """Policy and value losses from an Experience.
 
     With `only_learn_policy_value_heads=False`, or when the experience holds
@@ -82,9 +85,21 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
     `soft_continuation=False` ignores the terminal probabilities for the
     GAE discount and the alive weights, leaving the hard terminals as the
     only termination mechanism.
+
+    A model with `actor_critic_latent_input` feeds the heads from its latent
+    encoders and never replays the trunk: full-model RL then trains the
+    encoders, the heads (and an `encode_video_fn`'s module), never the
+    trunk, and needs `latent_input_full_model_ok=True` to say so.
     """
     if objective not in OBJECTIVES:
         raise ValueError(f'objective must be one of {OBJECTIVES}, not {objective!r}')
+    if (not only_learn_policy_value_heads and model.actor_critic_latent_input
+            and not latent_input_full_model_ok):
+        raise ValueError(
+            'only_learn_policy_value_heads=False with actor_critic_latent_input=True trains '
+            'the heads and the latent (and image) encoders but never the trunk: the heads do '
+            'not read its embeddings in this mode. Pass latent_input_full_model_ok=True to '
+            'acknowledge, or use only_learn_policy_value_heads=True.')
     if use_delight_gating is None:
         use_delight_gating = model.use_delight_gating
     if delight_temperature is None:
@@ -181,9 +196,17 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
     if normalize_advantages:
         advantage = z_score(advantage, mask=loss_weights, eps=eps)
 
+    # the heads' inputs read from the latents, which concurrent world-model
+    # training cannot shift
+    actor_in = critic_in = None
+    if model.actor_critic_latent_input:
+        actor_in, critic_in = model.latent_actor_inputs(latents)
+
     # replay the trunk when no embeddings were stored, or to fine-tune the
-    # whole model (stored embeddings carry no gradient to the trunk)
-    if not only_learn_policy_value_heads or agent_embeds is None:
+    # whole model (stored embeddings carry no gradient to the trunk); the
+    # latent-input heads read no embedding
+    need_replay = not only_learn_policy_value_heads or agent_embeds is None
+    if need_replay and not model.actor_critic_latent_input:
         with torch.set_grad_enabled(torch.is_grad_enabled() and not only_learn_policy_value_heads):
             _, (embeds, _) = model(
                 latents=latents, signal_levels=model.max_steps - 1, step_sizes=step_size,
@@ -192,11 +215,13 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
                 agent_index=experience.agent_index, latent_is_noised=True, is_training=False,
                 return_pred_only=True, return_intermediates=True)
         agent_embeds = embeds.agent[:, :, experience.agent_index]
-    if only_learn_policy_value_heads:
+    if only_learn_policy_value_heads and agent_embeds is not None:
         agent_embeds = agent_embeds.detach()
 
     # ------------------------------------------------------------ policy
-    policy_embed = model.policy_head(frac_gradient(agent_embeds, model.agent_policy_gradient_frac))
+    policy_embed = model.policy_head(
+        actor_in if actor_in is not None
+        else frac_gradient(agent_embeds, model.agent_policy_gradient_frac))
     lp, entropies = model.action_embedder.log_probs(
         policy_embed, discrete_targets=actions.discrete, continuous_targets=actions.continuous,
         pred_head_index=0, return_entropies=True, soft_validate_range=True)
@@ -248,9 +273,22 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
     entropy_loss = masked_mean(-entropy.sum(dim=-1), loss_weights)
     total_policy_loss = policy_loss + entropy_loss * model.policy_entropy_weight
 
+    # the actor's self-predictive rollout, its KL read through the action
+    # unembedding of the first prediction head
+    if model.actor_spr:
+        embedder = model.action_embedder
+        action_embeds = embedder(discrete_actions=actions.discrete,
+                                 continuous_actions=actions.continuous)
+        actor_spr_loss, _ = model.actor_spr_module(
+            policy_embed, action_embeds,
+            unembed_fn=lambda e: embedder.unembed(e, pred_head_index=0),
+            kl_fn=embedder.kl_div, mask=mask)
+        total_policy_loss = total_policy_loss + actor_spr_loss
+
     # ------------------------------------------------------------- value
     # distributional cross entropy against the return's HL-Gauss bins
-    value_embeds = frac_gradient(agent_embeds, model.agent_value_gradient_frac)
+    value_embeds = (critic_in if critic_in is not None
+                    else frac_gradient(agent_embeds, model.agent_value_gradient_frac))
     if experience.critic_state is not None and model.dim_critic_state is not None:
         value_embeds = value_embeds + model.critic_state_embedder(experience.critic_state)
     value_bins = model.value_head(value_embeds)

@@ -17,9 +17,10 @@ position MLP, `tokens_to_patch` and `time_embed` compute in float32 around
 a bf16 trunk, as flax's layers without a dtype promote to their float32
 parameters. The public video layout is (b, c, t, h, w), the internal one
 (b, t, h, w, c). Every random draw goes through the module-level `draw`,
-so a test can replay the counterpart's draws. Options the counterpart
-leaves off by default and the port does not have yet raise when set
-(`_NOT_PORTED`); LPIPS waits for VGG16 weights in the repository.
+so a test can replay the counterpart's draws. The counterpart's fields
+that the port does not have yet (`_NOT_PORTED`) are accepted at their
+defaults and raise at any other value; LPIPS waits for VGG16 weights in the
+repository.
 
 `encode` also streams: frame by frame over the encoder trunk's KV cache
 (`cache=`, `max_time=`, `return_cache=`), as an environment's frames
@@ -41,7 +42,7 @@ from ..nn.loss_normalizer import LossNormalizer
 from ..nn.mlp import MLP
 from ..nn.norms import LayerNorm
 from ..ops.utils import frac_gradient, lens_to_mask, masked_mean
-from .transformer import AxialSpaceTimeTransformer, TransformerCache
+from .transformer import AxialSpaceTimeTransformer, TransformerCache, check_not_ported
 
 
 class TokenizerLosses(NamedTuple):
@@ -78,14 +79,21 @@ class TokenizerCache(NamedTuple):
 # options of the counterpart, with their defaults, that the port does not
 # have yet; any other value raises
 _NOT_PORTED = dict(
-    use_causal_conv3d=False, use_shifted_patch_tokenization=False, latent_init_patch_size=None,
-    slot_attention_initted_latents=False, decoder_slot_attention_initted_spatial_tokens=False,
-    separate_flow_decoder=False, decoder_flow_times_beta=(1.0, 1.0), has_aug_conditioning=False,
-    has_byol=False, encoder_add_decorr_aux_loss=False, latent_ortho_loss_weight=0.0,
-    latent_ar_loss_weight=0.0, latent_sigreg_loss_weight=0.0,
+    use_causal_conv3d=False, causal_conv3d_kernel_size=3, use_shifted_patch_tokenization=False,
+    spt_temporal_shift=True, latent_init_patch_size=None, slot_attention_initted_latents=False,
+    slot_attention_iters=2, encoder_slot_spatial_mix=True, slot_attention_inverted=True,
+    decoder_slot_attention_initted_spatial_tokens=False, decoder_slot_attention_iters=2,
+    decoder_slot_spatial_mix=False, separate_flow_decoder=False, flow_decoder_train_prob=0.5,
+    decoder_flow_times_beta=(1.0, 1.0), has_aug_conditioning=False, aug_cfg_dropout_prob=0.1,
+    has_byol=False, byol_loss_weight=1.0, byol_use_sem=False, byol_sem_simplex_dim=8,
+    byol_sem_temperature=0.1, encoder_add_decorr_aux_loss=False, time_decorr_loss_weight=0.004,
+    space_decorr_loss_weight=0.004, decorr_sample_frac=0.25, latent_ortho_loss_weight=0.0,
+    latent_ar_loss_weight=0.0, latent_ar_sigreg_loss_weight=0.05, latent_ar_num_slices=256,
+    latent_sigreg_loss_weight=0.0, latent_sigreg_num_slices=256,
     latent_consistency_loss_weight=0.0, time_attention_use_pope=False,
     space_attention_use_pope=False, encoder_moss_layers=(), decoder_moss_layers=(),
-    use_time_rnn=False, h_net_layer=None,
+    use_time_rnn=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
+    h_net_dynamic=False, h_net_loss_weight=1.0,
 )
 
 
@@ -181,11 +189,7 @@ class VideoTokenizer(nn.Module):
                   if k not in ('self', '__class__', 'device', 'not_ported')}
         super().__init__()
         self.config = {**config, **not_ported}
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f'unexpected argument {name}')
-            if value != _NOT_PORTED[name]:
-                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
+        check_not_ported(not_ported, _NOT_PORTED)
         if image_height % patch_size or image_width % patch_size:
             raise ValueError('image sides must be multiples of the patch size')
         device = resolve_device(device)

@@ -60,9 +60,26 @@ def _from_space_major(x, bt_shape):
     return x.reshape(*bt_shape, *x.shape[1:])
 
 
-_NOT_PORTED = ('rnn_time', 'mot_temporal', 'time_attention_use_pope',
-               'space_attention_use_pope', 'spatial_module_layers', 'time_ring_axis',
-               'h_net_layer')
+# fields of the counterpart, with their defaults, that the port does not
+# have yet; any other value raises
+_NOT_PORTED = dict(
+    rnn_time=False, mot_temporal=False, time_attention_use_pope=False,
+    space_attention_use_pope=False, space_height=None, space_width=None,
+    spatial_module_layers=(), spatial_module_kernel_size=3, time_ring_axis=None,
+    h_net_layer=None, h_net_depth=2, h_net_heads=4, h_net_dim_head=32,
+    h_net_compression_ratio=4, h_net_dynamic=False,
+)
+
+
+def check_not_ported(not_ported: dict, table: dict) -> None:
+    """Refuse a field the port does not implement when its value differs
+    from the counterpart's default, and a name the counterpart lacks."""
+    for name, value in not_ported.items():
+        if name not in table:
+            raise TypeError(f'unexpected argument {name}')
+        if value != table[name]:
+            raise NotImplementedError(f'{name}={value!r} is not ported to dreamer4_torch yet '
+                                      f'(only its default {table[name]!r} is)')
 
 
 class AxialSpaceTimeTransformer(nn.Module):
@@ -77,12 +94,11 @@ class AxialSpaceTimeTransformer(nn.Module):
                  ff_activation: str = 'silu', gate_values: bool = True,
                  rmsnorm_query: bool = False, rmsnorm_key: bool = True,
                  belief_attn: bool = True, dtype=None, device=None, **not_ported):
+        config = {k: v for k, v in locals().items()
+                  if k not in ('self', '__class__', 'device', 'not_ported')}
         super().__init__()
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f'unexpected argument {name}')
-            if value:
-                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
+        self.config = {**config, **not_ported}
+        check_not_ported(not_ported, _NOT_PORTED)
         device = resolve_device(device)
         self.dim, self.depth = dim, depth
         self.attn_heads, self.attn_dim_head = attn_heads, attn_dim_head

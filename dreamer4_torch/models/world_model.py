@@ -12,10 +12,15 @@ with given signal levels) and the training branch: diffusion-forcing signal
 levels, noising of the latents and the proprioception, the shortcut
 self-consistency pass over both, the ramp weight, var-len masks, and the
 flow, shortcut, reward MTP, terminal, state-prediction and discrete and
-continuous action MTP losses; and the state-vector inputs of a real
+continuous action MTP losses; the state-vector inputs of a real
 environment: `state_to_latents` (`dim_state`) and `critic_state_embedder`
-(`dim_critic_state`). The options listed in `_NOT_PORTED` come with later
-slices; setting one of them raises.
+(`dim_critic_state`); and the RL options of the imagination recipes: the
+agent's state prediction (`agent_predicts_state`, its Beta NLL off the agent
+token and the next action), the latent-input policy and value heads
+(`actor_critic_latent_input`, `latent_actor_inputs`) and the actor's
+self-predictive rollout (`actor_spr`, whose loss `models/rl.py` adds). The
+counterpart's fields listed in `_NOT_PORTED` come with later slices: each
+is accepted at its default, and another value raises.
 
 Every random draw of the training forward goes through the module-level
 `draw`, so a test can replace it to replay the counterpart's draws.
@@ -35,11 +40,12 @@ from ..nn.dense import Dense
 from ..nn.init import embed_normal_, normal_
 from ..nn.mlp import EnsembleHead, create_mlp
 from ..nn.norms import RMSNorm
+from ..nn.ssl import ActorSPR
 from ..ops import dists
 from ..ops.codecs import get_reward_encoder
 from ..ops.mtp import create_multi_token_prediction_targets
-from ..ops.utils import lens_to_mask, masked_mean, ramp_weight
-from .transformer import AxialSpaceTimeTransformer, TransformerCache
+from ..ops.utils import frac_gradient, lens_to_mask, masked_mean, ramp_weight
+from .transformer import AxialSpaceTimeTransformer, TransformerCache, check_not_ported
 
 
 class WorldModelLosses(NamedTuple):
@@ -79,13 +85,20 @@ class DynamicsCache(NamedTuple):
     main: TransformerCache
 
 
-# options of the counterpart that are off by default and not ported yet
-_NOT_PORTED = (
-    'num_tasks', 'num_latent_genes', 'actor_depth', 'critic_depth',
-    'spatial_pre_encoder_depth', 'action_pre_encoder_depth',
-    'actor_critic_latent_input', 'agent_predicts_state', 'latent_ar', 'has_aug_conditioning',
-    'ssl_lapo', 'ssl_tem', 'actor_spr', 'use_loss_normalization',
-    'time_attention_use_pope', 'use_time_rnn', 'mot_temporal', 'h_net_layer',
+# fields of the counterpart, with their defaults, that the port does not
+# have yet; any other value raises
+_NOT_PORTED = dict(
+    num_tasks=0, num_latent_genes=0, actor_depth=0, critic_depth=0,
+    spatial_pre_encoder_depth=0, action_pre_encoder_depth=0, latent_ar=False,
+    latent_ar_layer=None, latent_ar_action_conditioned=False, latent_ar_num_slices=256,
+    has_aug_conditioning=False, aug_cfg_dropout_prob=0.1, ssl_lapo=False,
+    lapo_pred_actions=True, lapo_use_fdm=True, ssl_tem=False,
+    tem_first_state_as_init_hidden=True, tem_learn_relative_actions=False,
+    lapo_action_loss_weight=1.0, lapo_fdm_loss_weight=1.0, lapo_raw_latent_fdm_loss_weight=1.0,
+    tem_loss_weight=1.0, latent_ar_loss_weight=0.0, latent_ar_sigreg_loss_weight=0.05,
+    use_loss_normalization=False, time_attention_use_pope=False, use_time_rnn=False,
+    mot_temporal=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
+    h_net_dynamic=False, h_net_loss_weight=1.0,
 )
 
 
@@ -127,7 +140,11 @@ class DynamicsWorldModel(nn.Module):
                  multi_token_pred_len: int = 8, dim_proprio: int | None = None,
                  add_state_pred_head: bool = False, state_pred_loss_weight: float = 0.1,
                  eps_latent_pred: float = 1e-6, state_entropy_bonus_weight: float = 0.0,
-                 add_action_embed_to_spatial: bool = False, policy_head_mlp_depth: int = 3,
+                 add_action_embed_to_spatial: bool = False,
+                 actor_critic_latent_input: bool = False, agent_predicts_state: bool = False,
+                 agent_predicts_state_frac_gradient: float = 0.0,
+                 agent_state_pred_loss_weight: float = 0.1, actor_spr: bool = False,
+                 actor_spr_num_rollouts: int = 1, policy_head_mlp_depth: int = 3,
                  value_head_mlp_depth: int = 3, latent_flow_loss_weight: float = 1.0,
                  shortcut_loss_weight: float = 1.0, reward_loss_weight: float = 1.0,
                  terminal_loss_weight: float = 1.0, terminal_pos_weight: float = 1.0,
@@ -151,11 +168,7 @@ class DynamicsWorldModel(nn.Module):
                   if k not in ('self', '__class__', 'device', 'not_ported')}
         super().__init__()
         self.config = {**config, **not_ported}
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f'unexpected argument {name}')
-            if value:
-                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
+        check_not_ported(not_ported, _NOT_PORTED)
         if num_video_views != 1:
             raise NotImplementedError('multi-view world models are not ported yet')
         if max_steps & (max_steps - 1) != 0:
@@ -178,7 +191,8 @@ class DynamicsWorldModel(nn.Module):
                                  rewards=reward_loss_weight, terminals=terminal_loss_weight,
                                  discrete_actions=discrete_action_loss_weight,
                                  continuous_actions=continuous_action_loss_weight,
-                                 state_pred=state_pred_loss_weight)
+                                 state_pred=state_pred_loss_weight,
+                                 agent_state_pred=agent_state_pred_loss_weight)
         self.terminal_pos_weight = terminal_pos_weight
         self.gae_discount_factor = gae_discount_factor
         # RL hyperparameters, read by models/rl.py
@@ -206,6 +220,10 @@ class DynamicsWorldModel(nn.Module):
         self.eps_latent_pred = eps_latent_pred
         self.state_entropy_bonus_weight = state_entropy_bonus_weight
         self.add_action_embed_to_spatial = add_action_embed_to_spatial
+        self.actor_critic_latent_input = actor_critic_latent_input
+        self.agent_predicts_state = agent_predicts_state
+        self.agent_predicts_state_frac_gradient = agent_predicts_state_frac_gradient
+        self.actor_spr = actor_spr
         self.multi_token_pred_len = multi_token_pred_len
         self.dim_state, self.dim_critic_state = dim_state, dim_critic_state
         self.dtype = dtype
@@ -295,6 +313,23 @@ class DynamicsWorldModel(nn.Module):
         if dim_critic_state is not None:
             self.critic_state_embedder = Dense(dim_critic_state, dim, device=device)
 
+        # RL-owned encoders of the flattened latents, the policy and value
+        # heads' inputs in place of the agent token
+        if actor_critic_latent_input:
+            flat = num_latent_tokens * dim_latent
+            self.actor_latent_encoder = create_mlp(flat, dim, 2, dim, device=device)
+            self.critic_latent_encoder = create_mlp(flat, dim, 2, dim, device=device)
+        # Beta params of the next frame's latents from the agent token (and
+        # the next action's token)
+        if agent_predicts_state:
+            dim_in = dim * 2 if self.has_actions else dim
+            self.agent_state_pred_net = create_mlp(
+                dim_in, dim_in, 2, num_video_views * num_latent_tokens * dim_latent * 2,
+                device=device)
+        if actor_spr:
+            self.actor_spr_module = ActorSPR(dim * 4, num_rollouts=actor_spr_num_rollouts,
+                                             dim_action_embed=dim, device=device)
+
     # the counterpart's name of a submodule, where the port's differs (a
     # method of that name here), for convert.py
     flax_names = {'state_to_latents': 'state_to_latents_proj'}
@@ -350,6 +385,14 @@ class DynamicsWorldModel(nn.Module):
         out = self.state_to_latents_proj(state)
         return out.reshape(*state.shape[:-1], self.num_latent_tokens, self.dim_latent)
 
+    def latent_actor_inputs(self, latents):
+        """(..., n, d_latent) -> (actor_in, critic_in), each (..., dim): the
+        policy and value heads' inputs with `actor_critic_latent_input`,
+        read from the latents (data that concurrent world-model training
+        cannot shift) through the two latent encoders."""
+        flat = latents.reshape(*latents.shape[:-2], -1)
+        return self.actor_latent_encoder(flat), self.critic_latent_encoder(flat)
+
     def init_cache(self, batch: int, max_time: int, dtype=None) -> DynamicsCache:
         """KV caches default to the trunk's compute dtype."""
         if dtype is None:
@@ -385,20 +428,21 @@ class DynamicsWorldModel(nn.Module):
 
     def _action_tokens(self, discrete_actions, continuous_actions, time: int, shift: bool,
                        is_sequential: bool, action_token_mask=None, agent_index: int = 0):
-        """-> (b, t, 1, d) action tokens or None; the token paired with state
-        t is the previous action."""
+        """-> ((b, t, 1, d) action tokens, (b, t', d) next-action tokens), or
+        (None, None); the token paired with state t is the previous action,
+        the next-action token of state t the action taken from it."""
         if not self.has_actions or (discrete_actions is None and continuous_actions is None):
-            return None
+            return None, None
         tokens = self.action_embedder(discrete_actions=discrete_actions,
                                       continuous_actions=continuous_actions)
-        tokens = tokens + self.action_learned_embed[agent_index]
+        tokens = next_tokens = tokens + self.action_learned_embed[agent_index]
         action_len = tokens.shape[1]
         if (action_len == time and shift and not is_sequential) or action_len == time - 1:
             head = tokens[:, :-1] if action_len == time else tokens
             tokens = nn.functional.pad(head, (0, 0, 1, 0))
         if action_token_mask is not None:
             tokens = tokens * action_token_mask[..., None]
-        return tokens[:, :, None, :]
+        return tokens[:, :, None, :], next_tokens
 
     # ------------------------------------------------------------ prediction
 
@@ -564,7 +608,8 @@ class DynamicsWorldModel(nn.Module):
                                             agent_index=agent_index,
                                             is_training=is_training and not is_inference,
                                             generator=generator)
-        action_tokens = self._action_tokens(discrete_actions, continuous_actions, time,
+        action_tokens, next_action_tokens = self._action_tokens(
+            discrete_actions, continuous_actions, time,
                                             shift=shift_action_tokens,
                                             is_sequential=is_sequential,
                                             action_token_mask=action_token_mask,
@@ -584,14 +629,16 @@ class DynamicsWorldModel(nn.Module):
             terminals=terminals, discrete_actions=discrete_actions,
             continuous_actions=continuous_actions, shift_action_tokens=shift_action_tokens,
             lens=lens, agent_index=agent_index, shortcut_train=bool(shortcut_train),
-            frozen_tokens=(action_tokens, reward_tokens, agent_tokens))
+            frozen_tokens=(action_tokens, reward_tokens, agent_tokens),
+            next_action_tokens=next_action_tokens)
         w = self.loss_weights
         total_loss = (losses.flow * w['flow'] + losses.shortcut * w['shortcut']
                       + (losses.rewards * w['rewards']).sum()
                       + losses.terminals * w['terminals']
                       + (losses.discrete_actions * w['discrete_actions']).sum()
                       + (losses.continuous_actions * w['continuous_actions']).sum()
-                      + losses.state_pred * w['state_pred'])
+                      + losses.state_pred * w['state_pred']
+                      + losses.agent_state_pred * w['agent_state_pred'])
         if not return_intermediates:
             return total_loss
         return total_loss, losses, embeds
@@ -599,7 +646,7 @@ class DynamicsWorldModel(nn.Module):
     def _losses(self, latents, noised_latents, noise, pred, embeds, times, signal_levels,
                 step_sizes_log2, *, proprio, rewards, terminals, discrete_actions,
                 continuous_actions, shift_action_tokens, lens, agent_index, shortcut_train,
-                frozen_tokens) -> WorldModelLosses:
+                frozen_tokens, next_action_tokens) -> WorldModelLosses:
         b, time = latents.shape[:2]
         device = latents.device
         zero = torch.zeros((), device=device)
@@ -711,6 +758,31 @@ class DynamicsWorldModel(nn.Module):
             state_pred_loss = (masked_mean(nll, mask_without_last[..., None, None])
                                if is_var_len else nll.mean())
 
+        # the agent's state prediction: Beta NLL of the next frame's latents
+        # from the agent token (only `agent_predicts_state_frac_gradient` of
+        # its gradient reaches the trunk) and the next action's token
+        agent_state_pred_loss = zero
+        if self.agent_predicts_state and time > 1:
+            agent_in = frac_gradient(embeds.agent[:, :-1].mean(dim=2),
+                                     self.agent_predicts_state_frac_gradient)
+            if self.has_actions:
+                nat = next_action_tokens
+                if nat is None:
+                    nat = torch.zeros((b, time, self.dim), device=device)
+                seq_len = min(agent_in.shape[1], nat.shape[1])
+                agent_in = torch.cat([agent_in[:, :seq_len], nat[:, :seq_len].to(agent_in.dtype)],
+                                     dim=-1)
+            s = self.agent_state_pred_net(agent_in)
+            seq_len = s.shape[1]
+            s = s.reshape(b, seq_len, self.num_video_views, self.num_latent_tokens,
+                          self.dim_latent, 2)
+            target = ((latents[:, 1:1 + seq_len] + 1.0) / 2.0).clamp(
+                self.eps_latent_pred, 1.0 - self.eps_latent_pred)
+            nll = -dists.continuous_log_prob(s, target, 'beta')
+            agent_state_pred_loss = (
+                masked_mean(nll, mask_without_last[:, :seq_len, None, None, None])
+                if is_var_len else nll.mean())
+
         # actions: MTP log likelihood of the next actions under the policy head
         action_losses = {'discrete': torch.zeros((mtp,), device=device),
                          'continuous': torch.zeros((mtp,), device=device)}
@@ -723,7 +795,13 @@ class DynamicsWorldModel(nn.Module):
                 given = {k: nn.functional.pad(v, (0, 0, 1, 0)) for k, v in given.items()}
             pred_len = next(iter(given.values())).shape[1]
             num_targets = pred_len - 1 if shift_action_tokens else pred_len
-            policy_embed = self.policy_head(embeds.actor[:, :num_targets, agent_index])
+            if self.actor_critic_latent_input:
+                # the policy head learns from the input RL gives it: the
+                # latent encoder over the clean latents
+                actor_tokens, _ = self.latent_actor_inputs(latents[:, :, 0])
+            else:
+                actor_tokens = embeds.actor[:, :, agent_index]
+            policy_embed = self.policy_head(actor_tokens[:, :num_targets])
             targets, masks = {}, {}
             for kind, actions in given.items():
                 tgt, amask = create_multi_token_prediction_targets(actions, mtp)
@@ -750,5 +828,5 @@ class DynamicsWorldModel(nn.Module):
             flow=flow_loss, shortcut=shortcut_loss, rewards=reward_loss,
             terminals=terminal_loss, discrete_actions=action_losses['discrete'],
             continuous_actions=action_losses['continuous'], state_pred=state_pred_loss,
-            agent_state_pred=zero, latent_ar=zero, latent_ar_sigreg=zero, lapo_action=zero,
+            agent_state_pred=agent_state_pred_loss, latent_ar=zero, latent_ar_sigreg=zero, lapo_action=zero,
             lapo_fdm=zero, lapo_raw_latent_fdm=zero, tem=zero, h_net=zero)

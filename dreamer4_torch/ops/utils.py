@@ -20,6 +20,13 @@ def frac_gradient(t: torch.Tensor, frac) -> torch.Tensor:
     return sg + (t - sg) * frac
 
 
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber / smooth-L1 loss, as `F.smooth_l1_loss(...,
+    reduction='none')`."""
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff.square() / beta, diff - 0.5 * beta)
+
+
 def symexp(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * (torch.exp(x.abs()) - 1.0)
 

@@ -255,17 +255,19 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
 # ---------------------------------------------------------------------- RL
 
 def rl_param_labels(model: DynamicsWorldModel, full_model: bool = False) -> dict[str, str]:
-    """Parameter name -> 'policy' (the policy head and the action
-    unembedding), 'value' (the value head and the critic state's
-    embedding), or the rest: 'frozen' in heads-only RL, 'trunk' when
-    fine-tuning the whole model."""
+    """Parameter name -> 'policy' (the policy head, the actor's latent
+    encoder and the action unembedding), 'value' (the value head, the
+    critic's latent encoder and the critic state's embedding), or the rest:
+    'frozen' in heads-only RL, 'trunk' when fine-tuning the whole model. As
+    in the counterpart, the rest includes `actor_spr_module`: its loss
+    reaches it, but heads-only RL leaves it where it is."""
     rest = 'trunk' if full_model else 'frozen'
 
     def label(name: str) -> str:
         top, _, sub = name.partition('.')
-        if top == 'policy_head':
+        if top in ('policy_head', 'actor_latent_encoder'):
             return 'policy'
-        if top in ('value_head', 'critic_state_embedder'):
+        if top in ('value_head', 'critic_latent_encoder', 'critic_state_embedder'):
             return 'value'
         if top == 'action_embedder' and 'unembed' in sub.partition('.')[0]:
             return 'policy'
@@ -349,13 +351,15 @@ class DreamTrainer:
     `prompt_fn(generator)` returns a dict of `prompt_*` tensors (fixed
     shapes) to start the dreams from real experience; `generate_kwargs`
     pass through to `generate` (e.g. `terminal_logit_offset`,
-    `min_dream_length`). The dreams' draws come from a `torch.Generator`
+    `min_dream_length`) and `rl_loss_kwargs` to `rl_losses` (e.g.
+    `soft_continuation`). The dreams' draws come from a `torch.Generator`
     seeded with `seed`."""
 
     def __init__(self, model: DynamicsWorldModel, *, time_steps: int = 16, num_steps: int = 4,
                  batch_size: int = 8, objective: str = 'ppo', policy_lr: float = 1e-4,
                  value_lr: float = 1e-4, update_epochs: int = 1, prompt_fn=None,
-                 generate_kwargs: dict | None = None, seed: int = 0, device=None):
+                 generate_kwargs: dict | None = None, rl_loss_kwargs: dict | None = None,
+                 seed: int = 0, device=None):
         device = _check_device(model, device)
         self.model = model
         self.time_steps = time_steps
@@ -367,7 +371,8 @@ class DreamTrainer:
         self.generate_kwargs = dict(generate_kwargs or {})
         self.optimizer = make_rl_optimizer(model, policy_lr, value_lr)
         self.rl_state = create_rl_state(model, self.optimizer)
-        self._update = make_rl_update_step(model, self.optimizer, objective)
+        self._update = make_rl_update_step(model, self.optimizer, objective,
+                                           **(rl_loss_kwargs or {}))
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
     def dream(self) -> Experience:
@@ -402,7 +407,9 @@ class SimTrainer:
 
     The RL updates are heads-only, or full-model with `rl_trunk_lr` (the
     policy and value losses re-forward the trunk, which a third optimizer
-    group fine-tunes at that rate). The dynamics training keeps its own
+    group fine-tunes at that rate); `rl_loss_kwargs` pass through to
+    `rl_losses` (e.g. `latent_input_full_model_ok` for full-model RL of a
+    latent-input model). The dynamics training keeps its own
     `MuonAdamAtan2` (`dynamics_lr`, gradients clipped at norm 1) over all
     parameters; only the parameters it moves are shared with the RL
     optimizer. As in the counterpart, the shortcut flag of a dynamics step
@@ -415,8 +422,8 @@ class SimTrainer:
                  rl_trunk_lr: float | None = None, num_steps: int = 4, max_timesteps: int = 16,
                  num_rollouts_per_step: int = 1, update_epochs: int = 2,
                  minibatch_size: int | None = None, train_dynamics: bool = True,
-                 dynamics_lr: float = 3e-4, dynamics_epochs: int = 1, seed: int = 0,
-                 device=None):
+                 dynamics_lr: float = 3e-4, dynamics_epochs: int = 1,
+                 rl_loss_kwargs: dict | None = None, seed: int = 0, device=None):
         device = _check_device(model, device)
         self.model = model
         self.env = env
@@ -429,7 +436,8 @@ class SimTrainer:
         self.rl_state = create_rl_state(model, self.optimizer)
         self.interactor = EnvInteractor(model, tokenizer=tokenizer, device=device)
         self._update = make_rl_update_step(model, self.optimizer, objective,
-                                           only_learn_policy_value_heads=rl_trunk_lr is None)
+                                           only_learn_policy_value_heads=rl_trunk_lr is None,
+                                           **(rl_loss_kwargs or {}))
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.train_dynamics = train_dynamics

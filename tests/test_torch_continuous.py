@@ -1086,11 +1086,14 @@ def test_continuous_model_checkpoint_roundtrip(tmp_path):
 # ---------------------------------------------------------------- refusals
 
 def test_remaining_refusals():
-    """What stays refused: the agent's state prediction and the `tasks`
-    batch entry (not ported yet), and proprioception in the interactor and
-    the wrapper, whose JAX counterparts cannot drive such a model."""
-    with pytest.raises(NotImplementedError, match='agent_predicts_state'):
-        DynamicsWorldModel(**CFG, agent_predicts_state=True, device='cpu')
+    """What stays refused: the latent AR loss and the `tasks` batch entry
+    (not ported yet), and proprioception in the interactor and the
+    wrapper, whose JAX counterparts cannot drive such a model. The agent's
+    state prediction builds with continuous actions."""
+    with pytest.raises(NotImplementedError, match='latent_ar'):
+        DynamicsWorldModel(**CFG, latent_ar=True, device='cpu')
+    assert DynamicsWorldModel(**CFG, agent_predicts_state=True,
+                              device='cpu').agent_state_pred_net.Dense_0.in_features == 2 * 64
     _, _, tm = build_pair()
     with pytest.raises(NotImplementedError, match='EnvInteractor.*proprio'):
         EnvInteractor(tm, device='cpu')

@@ -238,10 +238,11 @@ def test_state_to_latents_and_critic_embed_match_jax():
 
 
 def test_unported_environment_options_raise():
-    """The model takes proprioception now, and the interactor refuses it,
+    """The model takes proprioception, and the interactor refuses it,
     naming the counterpart's interactor as the cause; the state-prediction
-    head and its entropy bonus are taken, and the options that stay
-    refused raise."""
+    head and its entropy bonus are taken, so are the agent's state
+    prediction and the latent-input heads; the options that stay refused
+    raise, naming the field."""
     model = DynamicsWorldModel(**SMALL, dim_proprio=4, device='cpu')
     with pytest.raises(NotImplementedError, match='EnvInteractor.*policy_step'):
         EnvInteractor(model, device='cpu')
@@ -252,8 +253,11 @@ def test_unported_environment_options_raise():
                               state_entropy_bonus_weight=0.5,
                               device='cpu').add_state_entropy_bonus
     for name in ('agent_predicts_state', 'actor_critic_latent_input'):
+        EnvInteractor(DynamicsWorldModel(**SMALL, **STATE, **{name: True}, device='cpu'),
+                      device='cpu')
+    for name, value in (('num_tasks', 2), ('latent_ar', True), ('ssl_lapo', True)):
         with pytest.raises(NotImplementedError, match=name):
-            DynamicsWorldModel(**SMALL, **STATE, **{name: True}, device='cpu')
+            DynamicsWorldModel(**SMALL, **STATE, **{name: value}, device='cpu')
 
 
 # ------------------------------------------------------- streaming encode

@@ -815,15 +815,20 @@ def test_torch_dream_trainer_prompt_fn():
 # ---------------------------------------------------------------- refusals
 
 def test_rl_losses_refuses_unported_inputs(model_and_experience):
-    """What stays refused: an unknown objective, the RL options not ported
-    yet, and a full-model replay of proprio by a model without
-    `dim_proprio` (its forward has no proprio token to take it)."""
+    """What stays refused: an unknown objective, the world model's options
+    not ported yet, full-model RL of latent-input heads without
+    `latent_input_full_model_ok` (it cannot train the trunk), and a
+    full-model replay of proprio by a model without `dim_proprio` (its
+    forward has no proprio token to take it)."""
     model, exp = model_and_experience
     with pytest.raises(ValueError, match='objective'):
         rl_losses(model, exp, objective='a2c')
-    for name in ('actor_critic_latent_input', 'actor_spr', 'agent_predicts_state'):
+    for name in ('latent_ar', 'ssl_lapo', 'ssl_tem'):
         with pytest.raises(NotImplementedError, match=name):
             DynamicsWorldModel(**SMALL, **{name: True}, device='cpu')
+    latent = DynamicsWorldModel(**SMALL, actor_critic_latent_input=True, device='cpu')
+    with pytest.raises(ValueError, match='latent_input_full_model_ok'):
+        rl_losses(latent, exp, only_learn_policy_value_heads=False)
     model_p = DynamicsWorldModel(**SMALL, dim_proprio=3, device='cpu')
     with pytest.raises(ValueError, match='proprio'):
         rl_losses(model_p, exp, only_learn_policy_value_heads=False)
