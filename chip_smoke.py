@@ -161,7 +161,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
                `SimTrainer` step on the sim phase's environment (the
                dynamics step runs K1-K3 at B = 448, N = M = 151). Every K1
                on the wgmma kernel; ms, peak memory and launches per part.
- 13. small   — K4 and K5 (the small-attention forward and backward) against
+ 13. tok-options — the pixel CartPole recipe's tokenizer options and the
+               remaining loss terms: a. the bench tokenizer (bf16 trunks,
+               `use_fused_small`) with the causal conv3d, shifted patch
+               tokenization, LPIPS on seeded random VGG16 features
+               (`TokenizerTrainer(use_lpips=True)`), both decorrelations,
+               ortho, sigreg and latent consistency at 0.1 and the loss
+               normalization: the loss and time-layer gradients through
+               K4/K5 held against float32 as in phase 6, every loss term
+               finite and nonzero, two train steps at b8 x T16 (K4 3, K5 3
+               each, as predicted in `TOK_OPTIONS_LAUNCHES`), every
+               normalizer moved, ms per step beside the bench tokenizer's
+               without the options and peak memory; b. its streaming
+               encode over 16 frames through the four cache parts held
+               against one uncached encode; c. the pixel recipe's own
+               tokenizer and world model
+               (examples/train_cartpole_pixels_dream_rl.py:497-502,
+               :296-315): two `TokenizerTrainer` steps at b8 x T8 and an
+               `EnvInteractor` rollout on MockEnv 64 x 64, b16, 16 frames,
+               the streamed latents held against an uncached encode (no
+               kernel: the recipe builds flash and the small path off);
+               d. a plain b1 x T1024 step of the bench world model with
+               `use_loss_normalization` (K1-K3 2 / 2 / 2, all K1 on sm90;
+               the four normalizers of its losses move).
+ 14. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
@@ -408,6 +431,50 @@ RECIPE_RL_FULL_LR = dict(policy_lr=3e-4, value_lr=3e-4, trunk_lr=1e-2)
 # d. the SimTrainer's seed: its first shortcut draw (default_rng(4).random()
 # = 0.943, above 5/6) makes the dynamics step a plain one, K1-K3 2 / 2 / 2
 RECIPE_SIM_SEED = 4
+
+# the tok-options phase. a. the bench tokenizer with every option of the
+# pixel recipe's slice: the causal conv3d and shifted patch tokenization,
+# LPIPS on seeded random VGG16 features (the default weight 0.2), both
+# decorrelations, ortho, sigreg and latent consistency at 0.1, the loss
+# normalization (on by default)
+TOK_OPTIONS = dict(BENCH_TOKENIZER, use_causal_conv3d=True, use_shifted_patch_tokenization=True,
+                   encoder_add_decorr_aux_loss=True, latent_sigreg_loss_weight=0.1,
+                   latent_ortho_loss_weight=0.1, latent_consistency_loss_weight=0.1)
+# predicted before the first run: a train step launches K4 in each trunk's
+# time layer and once more for the consistency re-encode, and K5 in all
+# three, as the re-encode runs under grad (the reconstruction it reads
+# takes a gradient); space attention (n*h = 640) and K1-K3 stay off
+TOK_OPTIONS_LAUNCHES = (0, 0, 0, 3, 3)
+# b. the streaming encode: each cached frame takes the plain attention; the
+# uncached encode one K4
+TOK_OPTIONS_STREAM_LAUNCHES = {'tok_options_stream': (0, 0, 0, 0, 0),
+                               'tok_options_uncached': (0, 0, 0, 1, 0)}
+# c. examples/train_cartpole_pixels_dream_rl.py: its tokenizer (:497-502)
+# and pixel world model (:296-315, its defaults: terminal_pos_weight 30,
+# entropy weight 0.01, 150-step episodes), float32 with flash and the
+# small path off as the recipe builds them; --tok-batch 8 x --tok-clip-t 8
+# (:181-182), --n-envs 16 (:164)
+PIXEL_RECIPE_TOKENIZER = dict(dim=64, dim_latent=16, patch_size=8, image_height=64,
+                              image_width=64, channels=3, num_latent_tokens=4, encoder_depth=3,
+                              decoder_depth=3, time_block_every=2, attn_heads=4,
+                              attn_dim_head=16, decoder_flow_steps=2, use_causal_conv3d=True,
+                              use_shifted_patch_tokenization=True, lpips_loss_weight=0.0)
+PIXEL_RECIPE_MODEL = dict(dim=64, dim_latent=16, num_latent_tokens=4, num_spatial_tokens=4,
+                          max_steps=16, depth=2, time_block_every=2, attn_heads=4,
+                          attn_dim_head=16, num_discrete_actions=(2,), multi_token_pred_len=4,
+                          num_register_tokens=4, predict_terminals=True,
+                          add_action_embed_to_spatial=True, terminal_pos_weight=30.0,
+                          policy_entropy_weight=0.01, keep_reward_ema_stats=True,
+                          reward_range=(-180.0, 180.0))
+PIXEL_RECIPE_TOK_VIDEO = dict(batch_size=8, time_steps=8)
+PIXEL_RECIPE_ENV = dict(image_size=(64, 64), num_actions=2, batch=16)
+# float32 throughout: streamed against uncached latents at K4's float32
+# tolerance (tests/test_torch_cuda.py), as both sum in other orders
+PIXEL_RECIPE_STREAM_TOL = 1e-4
+# d. the bench world model with the loss normalization: the b1 x T1024
+# plain step (K1-K3 2 / 2 / 2); its batch has rewards and discrete actions,
+# no terminals and no continuous actions, so four normalizers move
+WM_NORMALIZED = ('flow', 'shortcut', 'reward', 'discrete_actions')
 
 
 def log(msg: str) -> None:
@@ -2749,6 +2816,220 @@ def run_recipe_phase(seed: int = 0) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- tok-options
+
+def run_tok_options_phase(seed: int = 0) -> dict:
+    """The pixel CartPole recipe's tokenizer options and the remaining loss
+    terms: a. two train steps of the bench tokenizer with every option on
+    (`TOK_OPTIONS`, LPIPS through `TokenizerTrainer(use_lpips=True)`), the
+    loss and time-layer gradients through K4/K5 held against float32;
+    b. its streaming encode through the four cache parts against one
+    uncached encode; c. the pixel recipe's own tokenizer (2 steps) and an
+    `EnvInteractor` rollout through it; d. a b1 x T1024 step of the bench
+    world model with the loss normalization. Returns the (K1..K5)
+    launches by path."""
+    from dreamer4_torch import (BehaviorCloneTrainer, DynamicsWorldModel, EnvInteractor,
+                                TokenizerTrainer, VideoTokenizer)
+    from dreamer4_torch.envs.mocks import MockEnv
+    from dreamer4_torch.models.tokenizer import latent_consistency_loss
+    from dreamer4_torch.nn.lpips import lpips_loss
+    from dreamer4_torch.train.trainers import (make_tokenizer_train_step,
+                                               make_world_model_train_step)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def part(label, fn, want):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, want)
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        return out, sec, got, torch.cuda.max_memory_allocated() / 2**30
+
+    # a. the bench tokenizer with every option, float32 master weights and
+    # bf16 trunks
+    torch.manual_seed(seed)
+    tok = VideoTokenizer(**TOK_OPTIONS, dtype=torch.bfloat16)
+    if tok.device.type != 'cuda':
+        raise SystemExit(f'tokenizer built on {tok.device}, not on the card')
+    dev = tok.device
+    b, t = TOK_VIDEO['batch_size'], TOK_VIDEO['time_steps']
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    video = torch.rand((b, 3, t, 64, 64), generator=gen, device=dev)
+    trainer = TokenizerTrainer(tok, learning_rate=3e-4, clip_grad_norm=1.0, with_ema=True,
+                               seed=seed, use_lpips=True)
+    if {id(p) for p in trainer.lpips.parameters()} & {id(p) for p in tok.parameters()}:
+        raise SystemExit('tok-options: the LPIPS trunk is among the tokenizer\'s parameters')
+    log(f'# tok-options ({gpu_name_and_power_limit()}): the bench tokenizer with conv3d, SPT, '
+        f'LPIPS (random VGG16), decorrelation, ortho, sigreg, consistency and loss '
+        f'normalization: {sum(p.numel() for p in tok.parameters()) / 1e6:.2f}M params, b{b} x '
+        f'T{t} video')
+
+    lpips_fn = lambda recon, clean, g, lens: lpips_loss(trainer.lpips, recon, clean,
+                                                        generator=g, time_lens=lens)
+
+    terms = []   # each call's loss terms; the first call's are the kernels'
+
+    def loss_fn(model):
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        loss, interm = model(video, update_loss_ema=False, return_intermediates=True,
+                             lpips_fn=lpips_fn, generator=g)
+        consistency = latent_consistency_loss(model, interm.recon, interm.latents)
+        terms.append(dict(interm.losses._asdict(), consistency=consistency.detach()))
+        return loss + model.latent_consistency_loss_weight * consistency
+
+    ref = VideoTokenizer(**{**TOK_OPTIONS, 'use_fused_small': False})
+    ref.load_state_dict(tok.state_dict())
+    names = [f'{layer}.{w}.weight' for layer in TOK_TIME_LAYERS for w in ('to_q', 'to_k', 'to_v')]
+    check_grad_distances('tok-options grads', compare_grads(tok, ref, loss_fn, names,
+                                                            'Attention', 'use_fused_small'))
+    del ref
+    parts = {k: terms[0][k].float() for k in ('recon', 'lpips', 'time_decorr', 'space_decorr',
+                                                'latent_ortho', 'latent_sigreg', 'consistency')}
+    check_finite('tok-options terms', parts)
+    if any(v.item() == 0.0 for v in parts.values()):
+        raise SystemExit(f'tok-options: a loss term is zero: {parts}')
+
+    step_fn = make_tokenizer_train_step(tok, trainer.optimizer, ema_decay=0.999,
+                                        lpips_fn=lpips_fn)
+    before = {n: p.detach().clone() for n, p in tok.named_parameters()}
+    ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+    norms_before = {n: b.clone() for n, b in tok.named_buffers()}
+    ts_before = trainer.ts
+
+    def one_step():
+        trainer.ts, loss, losses = step_fn(trainer.ts, video, generator=trainer.generator)
+        return loss, losses
+    (loss, losses), sec, got, peak = part('tok_options_step', one_step, TOK_OPTIONS_LAUNCHES)
+    n_grad = check_step(tok, ts_before, trainer.ts, loss, losses, before, ema_before,
+                        'tok_options_step')
+    still = [n for n, v in tok.named_buffers() if torch.equal(v, norms_before[n])]
+    if still:
+        raise SystemExit(f'tok_options_step: normalizers that did not move: {still}')
+    del before, ema_before
+    (loss2, _), sec2, got2, _ = part('tok_options_train_on_batch',
+                                     lambda: trainer.train_on_batch(video), TOK_OPTIONS_LAUNCHES)
+    if not torch.isfinite(loss2) or trainer.ts.step != 2:
+        raise SystemExit('tok_options_train_on_batch: loss not finite or step not counted')
+    sec_warm = host_time_s(one_step, reps=3)
+    plain_tok = VideoTokenizer(**BENCH_TOKENIZER, dtype=torch.bfloat16)
+    plain_trainer = TokenizerTrainer(plain_tok, learning_rate=3e-4, seed=seed)
+    plain_trainer.train_on_batch(video)
+    sec_plain = host_time_s(lambda: plain_trainer.train_on_batch(video), reps=3)
+    del plain_tok, plain_trainer
+    log(f'tok_options_step b{b} T{t}: loss {loss.item():.5f}, then {loss2.item():.5f}; terms '
+        + ', '.join(f'{k} {v.item():.4g}' for k, v in parts.items())
+        + f'; {n_grad} parameters with a gradient, all moved with their EMA; every normalizer '
+        f'moved; (K1..K5) {got} and {got2} (predicted {TOK_OPTIONS_LAUNCHES}); '
+        f'{sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms/step warm (mean of 3) against '
+        f'{sec_plain * 1e3:.1f} ms for the bench tokenizer without the options (phase 6\'s '
+        f'configuration, mean of 3, this run); peak memory {peak:.2f} GiB')
+
+    # b. streaming encode over 16 frames through the four cache parts
+    def stream():
+        cache, frames = None, []
+        for i in range(t):
+            kw = dict(max_time=t) if cache is None else dict(cache=cache)
+            latents, cache = tok.encode(video[:, :, i:i + 1], return_cache=True, **kw)
+            frames.append(latents)
+        return torch.cat(frames, dim=1), cache
+    with torch.no_grad():
+        (streamed, cache), sec_s, got_s, _ = part(
+            'tok_options_stream', stream, TOK_OPTIONS_STREAM_LAUNCHES['tok_options_stream'])
+        uncached, _, got_u, _ = part('tok_options_uncached', lambda: tok.encode(video),
+                                     TOK_OPTIONS_STREAM_LAUNCHES['tok_options_uncached'])
+        ref = VideoTokenizer(**{**TOK_OPTIONS, 'use_fused_small': False})
+        ref.load_state_dict(tok.state_dict())
+        f32 = ref.encode(video)
+        del ref
+    if None in (cache.spt, cache.pre_conv, cache.post_conv) or cache.transformer.token_count != t:
+        raise SystemExit('tok_options_stream: a cache part is missing')
+    err = (streamed - uncached).abs().max().item()
+    err_f32 = (uncached - f32).abs().max().item()
+    tol = PIXEL_TOL_FACTOR * err_f32
+    ok = err <= tol
+    log(f'tok_options_stream b{b} {t} frames: {sec_s * 1e3 / t:.2f} ms/frame; (K1..K5) '
+        f'{got_s}, uncached {got_u}; streamed vs uncached max |diff| {err:.3e} (tol {tol:.3e}: '
+        f'{PIXEL_TOL_FACTOR} x the uncached bf16 encode\'s distance from float32, '
+        f'{err_f32:.3e})' + ('' if ok else '  FAIL'))
+    if not ok:
+        raise SystemExit('tok_options_stream: the streamed latents disagree with the uncached '
+                         'encode')
+    del tok, trainer, step_fn, video, streamed, uncached, f32, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. the pixel recipe's tokenizer and world model, float32
+    torch.manual_seed(seed)
+    rtok = VideoTokenizer(**PIXEL_RECIPE_TOKENIZER)
+    rmodel = DynamicsWorldModel(**PIXEL_RECIPE_MODEL)
+    if rmodel.latent_shape != rtok.latent_shape:
+        raise SystemExit(f'latent shapes differ: {rmodel.latent_shape} vs {rtok.latent_shape}')
+    rb, rt = PIXEL_RECIPE_TOK_VIDEO['batch_size'], PIXEL_RECIPE_TOK_VIDEO['time_steps']
+    rvideo = torch.rand((rb, 3, rt, 64, 64), generator=gen, device=dev)
+    rtrainer = TokenizerTrainer(rtok, learning_rate=3e-4, with_ema=True, seed=seed)
+    for i in range(2):
+        (rloss, rlosses), sec, got, peak = part(f'pixel_recipe_tok_step_{i}',
+                                                lambda: rtrainer.train_on_batch(rvideo),
+                                                (0, 0, 0, 0, 0))
+        check_finite(f'pixel_recipe_tok_step_{i}', {'loss': rloss, **rlosses._asdict()})
+        log(f'pixel_recipe_tok_step_{i} b{rb} T{rt}: loss {rloss.item():.5f}; {sec * 1e3:.1f} '
+            f'ms; (K1..K5) {got}; peak memory {peak:.2f} GiB')
+    interactor = EnvInteractor(rmodel, tokenizer=rtok)
+    rgen = torch.Generator(device=dev).manual_seed(seed)
+    run = lambda: interactor(MockEnv(**PIXEL_RECIPE_ENV, seed=seed), rgen,
+                             max_timesteps=PIXEL_STEPS, num_steps=4)
+    run()   # warm
+    exp, sec, got, peak = part('pixel_recipe_rollout', run, (0, 0, 0, 0, 0))
+    with torch.no_grad():
+        uncached = rtok.encode(exp.video)
+    streamed = exp.latents[:, :exp.video.shape[2]]
+    err = (streamed - uncached).abs().max().item()
+    ok = err <= PIXEL_RECIPE_STREAM_TOL and bool(torch.isfinite(exp.values).all())
+    log(f'pixel_recipe_rollout b{PIXEL_RECIPE_ENV["batch"]} {exp.time_steps} frames '
+        f'({exp.video.shape[2]} observed, 64 x 64 RGB): {sec * 1e3:.1f} ms, '
+        f'{sec * 1e3 / exp.time_steps:.2f} ms/frame (second run); (K1..K5) {got}; streamed vs '
+        f'uncached latents max |diff| {err:.3e} (tol {PIXEL_RECIPE_STREAM_TOL}); peak memory '
+        f'{peak:.2f} GiB' + ('' if ok else '  FAIL'))
+    if not ok:
+        raise SystemExit('pixel_recipe_rollout: the streamed latents disagree with the '
+                         'uncached encode')
+    del rtok, rmodel, rtrainer, interactor, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. the bench world model with the loss normalization, one plain step
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**BENCH_MODEL, use_loss_normalization=True, dtype=torch.bfloat16)
+    batch = train_batch(model.device, seed + 2)
+    wtrainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                    with_ema=True, seed=seed)
+    wstep = make_world_model_train_step(model, wtrainer.optimizer, ema_decay=0.999)
+    norms_before = {n: b.clone() for n, b in model.named_buffers()}
+
+    def wm_step():
+        wtrainer.ts, loss, losses = wstep(wtrainer.ts, batch, shortcut_train=False,
+                                          generator=wtrainer.generator)
+        return loss, losses
+    (loss, losses), sec, got, peak = part('wm_loss_norm_step', wm_step, LAUNCHES_PER_STEP[False])
+    check_finite('wm_loss_norm_step', {'loss': loss, **losses._asdict()})
+    moved = sorted(n.partition('_loss_normalizer')[0] for n, v in model.named_buffers()
+                   if not torch.equal(v, norms_before[n]))
+    if moved != sorted(WM_NORMALIZED):
+        raise SystemExit(f'wm_loss_norm_step: normalizers that moved {moved}, expected '
+                         f'{sorted(WM_NORMALIZED)}')
+    log(f'wm_loss_norm_step b{TRAIN["batch_size"]} T{TRAIN["time_steps"]}: loss '
+        f'{loss.item():.5f} (flow {losses.flow.item():.5f}, normalized); normalizers moved: '
+        f'{moved}; {sec * 1e3:.1f} ms (first); (K1..K5) {got}, every K1 on the wgmma kernel; '
+        f'peak memory {peak:.2f} GiB')
+    del model, wtrainer, wstep, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# tok-options phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2792,7 +3073,7 @@ def main() -> int:
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
                 **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase(),
-                **run_recipe_phase()}
+                **run_recipe_phase(), **run_tok_options_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)

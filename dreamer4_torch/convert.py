@@ -2,14 +2,20 @@
 
 The port keeps flax's submodule names, so conversion is a walk over names:
 `transformer/attn_0/to_q/kernel` is `transformer.attn_0.to_q.weight`. Dense
-kernels are (in, out) in flax and (out, in) in torch; `nn.Embed`'s
+kernels are (in, out) in flax and (out, in) in torch; `nn.Conv` kernels
+are HWIO in flax and `nn.Conv2d`'s OIHW in torch; `nn.Embed`'s
 `embedding` is `nn.Embedding`'s `weight`; every other leaf (the pools' raw
-`_Kernel` / `_Scale` / `_Gamma` holders, ensemble kernels, learned tokens)
-keeps its name and layout. A flax submodule named like a method of the
-port's module (`DynamicsWorldModel.state_to_latents`) has another name
-here, which the parent's `flax_names` gives. Leaves of flax's `state` collection (the loss
+`_Kernel` / `_Scale` / `_Gamma` holders, ensemble kernels, the causal
+conv's (k, k, k, dim) kernel, learned tokens) keeps its name and layout.
+A flax submodule named like a method of the port's module
+(`DynamicsWorldModel.state_to_latents`) has another name here, which the
+parent's `flax_names` gives. Leaves of flax's `state` collection (the loss
 normalizers' `exp_avg_sq`) are the torch module's buffers of the same
-names. A leftover or missing key raises.
+names. flax makes a state variable at its first use, so a normalizer that
+the counterpart's init never reached (the tokenizer's LPIPS normalizer,
+whose loss function the trainer supplies; a world-model loss the init batch
+lacks) has no leaf yet: its buffer keeps the model's value (ones, as
+built). Any other leftover or missing key raises.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+# the loss normalizers' state leaf, which flax makes only at its first use
+LAZY_STATE_LEAF = 'exp_avg_sq'
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -55,6 +64,8 @@ def flax_params_to_torch(params: Mapping[str, Any], model: nn.Module,
         leaf = path[-1]
         if isinstance(module, nn.Linear) and leaf == 'kernel':
             leaf, value = 'weight', value.T
+        elif isinstance(module, nn.Conv2d) and leaf == 'kernel':
+            leaf, value = 'weight', value.transpose(3, 2, 0, 1)
         elif isinstance(module, nn.Embedding) and leaf == 'embedding':
             leaf = 'weight'
         key = '.'.join((*names, leaf))
@@ -66,8 +77,12 @@ def flax_params_to_torch(params: Mapping[str, Any], model: nn.Module,
             raise ValueError(f'{key}: flax shape {value.shape} != torch shape '
                              f'{tuple(ref.shape)}')
         out[key] = torch.from_numpy(np.array(value, copy=True)).to(ref.dtype).to(ref.device)
-    expected = set(target) if state is not None else {n for n, _ in model.named_parameters()}
+    expected = {n for n, _ in model.named_parameters()}
+    if state is not None:
+        expected |= {n for n in target if n.split('.')[-1] != LAZY_STATE_LEAF}
     missing = sorted(expected - set(out))
     if missing:
         raise KeyError(f'torch parameters with no flax counterpart: {missing}')
+    if state is not None:
+        out.update({n: t.clone() for n, t in target.items() if n not in out})
     return out

@@ -18,9 +18,10 @@ environment: `state_to_latents` (`dim_state`) and `critic_state_embedder`
 agent's state prediction (`agent_predicts_state`, its Beta NLL off the agent
 token and the next action), the latent-input policy and value heads
 (`actor_critic_latent_input`, `latent_actor_inputs`) and the actor's
-self-predictive rollout (`actor_spr`, whose loss `models/rl.py` adds). The
-counterpart's fields listed in `_NOT_PORTED` come with later slices: each
-is accepted at its default, and another value raises.
+self-predictive rollout (`actor_spr`, whose loss `models/rl.py` adds); and
+the EMA normalization of the training losses (`use_loss_normalization`).
+The counterpart's fields listed in `_NOT_PORTED` come with later slices:
+each is accepted at its default, and another value raises.
 
 Every random draw of the training forward goes through the module-level
 `draw`, so a test can replace it to replay the counterpart's draws.
@@ -38,6 +39,7 @@ from ..nn.action_embedder import ActionEmbedder
 from ..nn.attention import LearnedQueriesAttentionPool
 from ..nn.dense import Dense
 from ..nn.init import embed_normal_, normal_
+from ..nn.loss_normalizer import LossNormalizer
 from ..nn.mlp import EnsembleHead, create_mlp
 from ..nn.norms import RMSNorm
 from ..nn.ssl import ActorSPR
@@ -96,10 +98,16 @@ _NOT_PORTED = dict(
     tem_first_state_as_init_hidden=True, tem_learn_relative_actions=False,
     lapo_action_loss_weight=1.0, lapo_fdm_loss_weight=1.0, lapo_raw_latent_fdm_loss_weight=1.0,
     tem_loss_weight=1.0, latent_ar_loss_weight=0.0, latent_ar_sigreg_loss_weight=0.05,
-    use_loss_normalization=False, time_attention_use_pope=False, use_time_rnn=False,
+    time_attention_use_pope=False, use_time_rnn=False,
     mot_temporal=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
     h_net_dynamic=False, h_net_loss_weight=1.0,
 )
+
+
+# the loss normalizers' names -> the WorldModelLosses field each normalizes
+_NORMALIZED_FIELDS = dict(flow='flow', shortcut='shortcut', reward='rewards',
+                          terminal='terminals', discrete_actions='discrete_actions',
+                          continuous_actions='continuous_actions')
 
 
 def draw(kind: str, shape, *, generator: torch.Generator | None, device, low: int = 0,
@@ -158,7 +166,7 @@ class DynamicsWorldModel(nn.Module):
                  agent_policy_gradient_frac: float = 1.0, agent_value_gradient_frac: float = 1.0,
                  keep_reward_ema_stats: bool = False, reward_ema_decay: float = 0.998,
                  reward_quantile_filter: tuple[float, float] = (0.05, 0.95),
-                 normalize_advantages: bool | None = None,
+                 normalize_advantages: bool | None = None, use_loss_normalization: bool = False,
                  use_flash_attention: bool = False, flash_min_scores: int = 128 * 128,
                  use_fused_small: bool | None = None, use_attn_pool: bool = True,
                  dim_state: int | None = None, dim_critic_state: int | None = None, dtype=None,
@@ -329,6 +337,12 @@ class DynamicsWorldModel(nn.Module):
         if actor_spr:
             self.actor_spr_module = ActorSPR(dim * 4, num_rollouts=actor_spr_num_rollouts,
                                              dim_action_embed=dim, device=device)
+        # the EMA loss normalizers, named as the counterpart's (their buffers
+        # are its 'state' collection), each over the entries of its loss
+        self.use_loss_normalization = use_loss_normalization
+        if use_loss_normalization:
+            for name, n in self.normalized_losses.items():
+                setattr(self, f'{name}_loss_normalizer', LossNormalizer(n, device=device))
 
     # the counterpart's name of a submodule, where the port's differs (a
     # method of that name here), for convert.py
@@ -371,6 +385,16 @@ class DynamicsWorldModel(nn.Module):
     @property
     def add_state_entropy_bonus(self) -> bool:
         return self.should_pred_state and self.state_entropy_bonus_weight > 0.0
+
+    @property
+    def normalized_losses(self) -> dict[str, int]:
+        """The counterpart's loss normalizers: name -> the entries of its
+        loss."""
+        mtp = self.multi_token_pred_len
+        out = dict(flow=1, shortcut=1, reward=mtp)
+        if self.predict_terminals:
+            out['terminal'] = 1
+        return {**out, 'discrete_actions': mtp, 'continuous_actions': mtp}
 
     @property
     def tokens_per_frame(self) -> int:
@@ -529,11 +553,14 @@ class DynamicsWorldModel(nn.Module):
                 cache: DynamicsCache | None = None, max_time: int | None = None,
                 latent_is_noised: bool = False, return_pred_only: bool = False,
                 return_intermediates: bool = False, shortcut_train: bool | None = None,
-                is_training: bool = True, generator: torch.Generator | None = None):
+                is_training: bool = True, update_loss_ema: bool = True,
+                generator: torch.Generator | None = None):
         """Without signal levels, the training forward: draws signal levels
         (and step sizes for a shortcut step, `shortcut_train`, which the
         trainer chooses), noises the latents and returns the total loss, or
-        (total loss, WorldModelLosses, Embeds) with `return_intermediates`.
+        (total loss, WorldModelLosses, Embeds) with `return_intermediates`;
+        under `use_loss_normalization` the losses of the given inputs are
+        divided by their EMA's RMS, which moves with `update_loss_ema`.
         With `latent_is_noised` (or `return_pred_only`), the prediction:
         Predictions, or (Predictions, (Embeds, new_cache)). Draws come from
         `generator` through `draw`."""
@@ -631,6 +658,15 @@ class DynamicsWorldModel(nn.Module):
             lens=lens, agent_index=agent_index, shortcut_train=bool(shortcut_train),
             frozen_tokens=(action_tokens, reward_tokens, agent_tokens),
             next_action_tokens=next_action_tokens)
+        if self.use_loss_normalization:
+            given = dict(flow=True, shortcut=True, reward=rewards is not None,
+                         terminal=terminals is not None,
+                         discrete_actions=discrete_actions is not None,
+                         continuous_actions=continuous_actions is not None)
+            losses = losses._replace(**{
+                _NORMALIZED_FIELDS[name]: getattr(self, f'{name}_loss_normalizer')(
+                    getattr(losses, _NORMALIZED_FIELDS[name]), update_ema=update_loss_ema)
+                for name in self.normalized_losses if given[name]})
         w = self.loss_weights
         total_loss = (losses.flow * w['flow'] + losses.shortcut * w['shortcut']
                       + (losses.rewards * w['rewards']).sum()

@@ -9,6 +9,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..ops.losses import sigreg
 from ..ops.utils import masked_mean, smooth_l1_loss
 from .mlp import MLP
 from .norms import RMSNorm
@@ -31,19 +32,16 @@ class ActorSPR(nn.Module):
     parameters.
 
     `dim` is the policy embedding's width (dim * 4 in the world model),
-    `dim_action_embed` the action embedding's (the world model's dim). The
-    counterpart's sigreg term draws random slices; it is not ported, and a
-    nonzero `sigreg_loss_weight` raises (the world model builds the module
-    with 0)."""
+    `dim_action_embed` the action embedding's (the world model's dim). A
+    nonzero `sigreg_loss_weight` adds `sigreg` over the normed embeddings
+    inside `mask` (256 slices, drawn through `ops.losses.draw` from
+    `generator`); the world model builds the module with 0."""
 
     def __init__(self, dim: int, num_rollouts: int = 1, spr_loss_weight: float = 1.0,
                  kl_loss_weight: float = 1.0, sigreg_loss_weight: float = 0.0,
                  dynamics_num_layers: int = 3, dim_action_embed: int | None = None,
                  device=None):
         super().__init__()
-        if sigreg_loss_weight != 0.0:
-            raise NotImplementedError('ActorSPR sigreg_loss_weight is not ported to '
-                                      'dreamer4_torch yet')
         self.num_rollouts = num_rollouts
         self.spr_loss_weight = spr_loss_weight
         self.kl_loss_weight = kl_loss_weight
@@ -54,7 +52,8 @@ class ActorSPR(nn.Module):
                                 device=device)
 
     def forward(self, policy_embed, action_embeds, unembed_fn: Callable | None = None,
-                kl_fn: Callable | None = None, mask=None):
+                kl_fn: Callable | None = None, mask=None,
+                generator: torch.Generator | None = None):
         """policy_embed: (b, t, dim); action_embeds: (b, t, da), the action
         taken at each position; mask: (b, t) bool, the positions that count
         as targets. unembed_fn(embeds) -> (discrete logits, continuous
@@ -99,5 +98,11 @@ class ActorSPR(nn.Module):
             step_kl = sum(kl for kl in (d_kl, c_kl) if kl is not None) * weight
             kl_loss = masked_mean(step_kl, target_masks, dim=(1, 2)).sum()
 
-        total = spr_loss * self.spr_loss_weight + kl_loss * self.kl_loss_weight
-        return total, (spr_loss, kl_loss, zero)
+        sigreg_loss = zero
+        if self.sigreg_loss_weight > 0.0:
+            sigreg_loss = sigreg(policy_embed[None], mask=mask[None], num_slices=256,
+                                 generator=generator)
+
+        total = (spr_loss * self.spr_loss_weight + kl_loss * self.kl_loss_weight
+                 + sigreg_loss * self.sigreg_loss_weight)
+        return total, (spr_loss, kl_loss, sigreg_loss)

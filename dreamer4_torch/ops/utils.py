@@ -61,6 +61,19 @@ def ramp_weight(times: torch.Tensor, slope: float = 0.9, intercept: float = 0.1)
     return slope * times + intercept
 
 
+def orthogonal_loss(x: torch.Tensor) -> torch.Tensor:
+    """Push the rows of x (over dim -2), centred and unit-normed, towards
+    orthogonality: the mean over leading dims of the summed squared
+    off-diagonal cosine similarities."""
+    n = x.shape[-2]
+    if n == 1:
+        return torch.zeros((), device=x.device)
+    x = l2norm(x - x.mean(dim=-2, keepdim=True))
+    sim = x @ x.transpose(-1, -2)
+    sim = sim.masked_fill(torch.eye(n, dtype=torch.bool, device=x.device), 0.0)
+    return sim.square().sum(dim=(-1, -2)).mean()
+
+
 def cast_params_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast the float32 parameters of `module` to `dtype` for serving, in
     place (the counterpart casts a variables pytree); every forward then

@@ -31,8 +31,9 @@ from ..device import resolve_device
 from ..envs.interact import EnvInteractor
 from ..models.generate import generate
 from ..models.rl import ReturnStats, RLLossOutputs, rl_losses
-from ..models.tokenizer import TokenizerLosses, VideoTokenizer
+from ..models.tokenizer import TokenizerLosses, VideoTokenizer, latent_consistency_loss
 from ..models.world_model import DynamicsWorldModel, WorldModelLosses
+from ..nn.lpips import init_lpips, lpips_loss
 from .checkpoint import load_train_state, save_model, save_train_state
 from .ema import init_ema, update_ema
 from .optim import MuonAdamAtan2, with_grad_accum
@@ -68,16 +69,22 @@ def _apply_update(ts: TrainState, ema_decay: float) -> TrainState:
     return ts._replace(step=ts.step + 1)
 
 
-def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float = 0.999):
+def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float = 0.999,
+                              lpips_fn=None):
     """-> train_step(ts, video, time_lens=None, generator=None) returning
-    (ts, loss, losses): the training forward on `video` (b, c, t, h, w),
-    its gradients, one optimizer update and one EMA update."""
+    (ts, loss, losses): the training forward on `video` (b, c, t, h, w)
+    with `lpips_fn(recon, clean, generator, time_lens)` as its LPIPS term,
+    plus the latent consistency loss when the model weights it, their
+    gradients, one optimizer update and one EMA update."""
 
     def train_step(ts: TrainState, video, time_lens=None,
                    generator: torch.Generator | None = None):
         optimizer.zero_grad(set_to_none=True)
         loss, interm = model(video, time_lens=time_lens, return_intermediates=True,
-                             generator=generator)
+                             lpips_fn=lpips_fn, generator=generator)
+        if model.latent_consistency_loss_weight > 0.0:
+            loss = loss + model.latent_consistency_loss_weight * latent_consistency_loss(
+                model, interm.recon, interm.latents, time_lens=time_lens)
         loss.backward()
         ts = _apply_update(ts, ema_decay)
         return ts, loss.detach(), TokenizerLosses(*(l.detach() for l in interm.losses))
@@ -173,24 +180,31 @@ class TokenizerTrainer(_CheckpointableTrainer):
     """Tokenizer training: one train step per batch of video. Runs on CUDA
     unless `device='cpu'` is given, and the model must live there. The
     counterpart's host draw chooses between the decoders only with a
-    separate flow decoder, which the port does not have; LPIPS
-    (`use_lpips`) waits for VGG16 weights in the repository and is
-    refused."""
+    separate flow decoder, which the port does not have.
+
+    `use_lpips` (with a nonzero `model.lpips_loss_weight`) adds the LPIPS
+    term on a frozen float32 VGG16 trunk that the trainer holds, outside
+    the model: the weights of the torchvision-layout npz at
+    `lpips_weights_path`, or seeded random features (seed + 7, the
+    counterpart's key)."""
 
     def __init__(self, model: VideoTokenizer, *, learning_rate: float = 3e-4,
                  clip_grad_norm: float = 1.0, grad_accum: int = 1, with_ema: bool = True,
                  ema_decay: float = 0.999, seed: int = 0, use_lpips: bool = False,
                  lpips_weights_path: str | None = None, device=None):
-        if use_lpips or lpips_weights_path is not None:
-            raise NotImplementedError('LPIPS is not ported to dreamer4_torch yet: it needs '
-                                      'VGG16 weights in the repository')
         device = _check_device(model, device)
         self.model = model
         self.optimizer = with_grad_accum(
             MuonAdamAtan2(model, learning_rate=learning_rate, clip_grad_norm=clip_grad_norm),
             grad_accum)
         self.ts = create_train_state(model, self.optimizer, with_ema=with_ema)
-        self._train_step = make_tokenizer_train_step(model, self.optimizer, ema_decay)
+        self.lpips = lpips_fn = None
+        if use_lpips and model.loss_weights['lpips'] > 0.0:
+            self.lpips = init_lpips(seed + 7, weights_path=lpips_weights_path, device=device)
+            lpips_fn = lambda recon, clean, gen, lens: lpips_loss(
+                self.lpips, recon, clean, generator=gen, time_lens=lens)
+        self._train_step = make_tokenizer_train_step(model, self.optimizer, ema_decay,
+                                                     lpips_fn=lpips_fn)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
 

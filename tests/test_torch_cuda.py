@@ -820,3 +820,47 @@ def test_bf16_continuous_losses_through_the_kernels(gen):
         e_kernel = (kernel[name] - w).abs().max().item()
         e_plain = (plain[name] - w).abs().max().item()
         assert e_kernel <= 2.0 * e_plain, (name, e_kernel, e_plain)
+
+
+@pytest.mark.cuda
+def test_options_tokenizer_bf16_step_runs_the_small_kernels(gen):
+    """A tokenizer with every option of the pixel recipe's slice (causal
+    conv3d, shifted patch tokenization, LPIPS on seeded random VGG16
+    features, both decorrelations, ortho, sigreg, latent consistency, loss
+    normalization) with bf16 trunks on the small path: its training loss is
+    no further from the float32 loss than twice the plain bf16 attention's
+    distance (or 1e-3 of it), and one `TokenizerTrainer` step launches K4
+    and K5 in each trunk's space and time layer, and again in the
+    encoder's for the consistency re-encode (under grad: the reconstruction
+    it reads takes a gradient), with every loss term finite and nonzero."""
+    from dreamer4_torch import TokenizerTrainer
+    cfg = dict(dim=64, dim_latent=16, patch_size=8, image_height=32, image_width=32,
+               num_latent_tokens=4, encoder_depth=2, decoder_depth=2, time_block_every=2,
+               attn_dim_head=32, attn_heads=2, decoder_flow_steps=2, use_causal_conv3d=True,
+               use_shifted_patch_tokenization=True, encoder_add_decorr_aux_loss=True,
+               latent_ortho_loss_weight=0.1, latent_sigreg_loss_weight=0.1,
+               latent_consistency_loss_weight=0.1)
+    torch.manual_seed(0)
+    tok = VideoTokenizer(**cfg, use_fused_small=True, dtype=torch.bfloat16)
+    plain = VideoTokenizer(**cfg, dtype=torch.bfloat16)
+    ref = VideoTokenizer(**cfg)
+    for m in (plain, ref):
+        m.load_state_dict(tok.state_dict())
+    video = torch.rand((2, 3, 6, 32, 32), generator=gen, device='cuda')
+    with torch.no_grad():
+        losses = [m(video, update_loss_ema=False,
+                    generator=torch.Generator(device='cuda').manual_seed(1)).item()
+                  for m in (tok, plain, ref)]
+    e_kernel, e_plain = abs(losses[0] - losses[2]), abs(losses[1] - losses[2])
+    assert e_kernel <= max(2 * e_plain, 1e-3 * abs(losses[2])), losses
+
+    trainer = TokenizerTrainer(tok, use_lpips=True, seed=0)
+    fwd, bwd = sa.FWD_LAUNCHES, sa.BWD_LAUNCHES
+    loss, parts = trainer.train_on_batch(video)
+    torch.cuda.synchronize()
+    assert (sa.FWD_LAUNCHES - fwd, sa.BWD_LAUNCHES - bwd) == (6, 6)
+    assert torch.isfinite(loss) and trainer.ts.step == 1
+    for name in ('recon', 'lpips', 'time_decorr', 'space_decorr', 'latent_ortho',
+                 'latent_sigreg'):
+        value = getattr(parts, name)
+        assert torch.isfinite(value) and value.item() != 0.0, name

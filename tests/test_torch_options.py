@@ -131,10 +131,9 @@ CLASSES = {
 NOT_PORTED_VALUES = {
     'world_model': dict(lapo_use_fdm=False,
                         tem_loss_weight=2.0, latent_ar_num_slices=8, h_net_depth=3,
-                        num_tasks=2, use_loss_normalization=True),
-    'tokenizer': dict(causal_conv3d_kernel_size=5, spt_temporal_shift=False,
-                      decorr_sample_frac=0.5, flow_decoder_train_prob=0.1,
-                      use_causal_conv3d=True),
+                        num_tasks=2, ssl_tem=True),
+    'tokenizer': dict(has_byol=True, latent_ar_loss_weight=0.1, slot_attention_iters=3,
+                      flow_decoder_train_prob=0.1, latent_ar_num_slices=8),
     'transformer': dict(space_height=4, space_width=4, spatial_module_kernel_size=5,
                         h_net_heads=2, rnn_time=True),
 }
@@ -451,12 +450,12 @@ def test_actor_spr_matches_jax(rollouts, masked):
 
 
 def test_actor_spr_refuses_sigreg_and_short_sequences():
-    """The sigreg term is not ported; a sequence needs more steps than
-    rollouts. The JAX world model touches its SPR module at init with 3
-    steps, so it cannot be initialized with 3 or more rollouts (pinned);
-    the port builds it."""
-    with pytest.raises(NotImplementedError, match='sigreg'):
-        ActorSPR(8, sigreg_loss_weight=0.1, device='cpu')
+    """A sequence needs more steps than rollouts. The sigreg term is ported
+    now (tests/test_torch_tokenizer_options.py holds it against JAX), so a
+    nonzero weight builds. The JAX world model touches its SPR module at
+    init with 3 steps, so it cannot be initialized with 3 or more rollouts
+    (pinned); the port builds it."""
+    assert ActorSPR(8, sigreg_loss_weight=0.1, device='cpu').sigreg_loss_weight == 0.1
     spr = ActorSPR(8, num_rollouts=3, device='cpu')
     with pytest.raises(ValueError, match='num_rollouts'):
         spr(torch.zeros(1, 3, 8), torch.zeros(1, 3, 8))

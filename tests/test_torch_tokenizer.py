@@ -6,9 +6,11 @@ latents, depth 2, a time layer every 2, 2 flow steps), so space attention
 (16 patches + 4 latents, n*h = 80) takes the small path too, with the
 decoder's latents-only-attend-themselves mask. The JAX draws (`uniform`
 mask rates, the `bernoulli` patch mask, `randint` flow steps, `normal`
-noise) are recorded by wrapping `jax.random` while a jitted `apply` is
-traced, as `tests/test_torch_train.py` does, and replayed into the port's
-`models.tokenizer.draw`.
+noise; for tests/test_torch_tokenizer_options.py also the `normal` sigreg
+slices, the LPIPS frames and the decorrelation's `permutation`) are
+recorded by wrapping `jax.random` while a jitted `apply` is traced, as
+`tests/test_torch_train.py` does, and replayed into the port's
+`models.tokenizer.draw` (and `ops.losses.draw`, `nn.lpips.draw`).
 
 Tolerances, all float32:
   - encode and decode (the Euler loop over both flow steps): 2e-4;
@@ -82,9 +84,13 @@ def build_pair(fused=True, jax_fused=False, **options):
 
 # ------------------------------------------------------------ draw replay
 
-_JAX_DRAWS = ('uniform', 'bernoulli', 'randint', 'normal')
+_JAX_DRAWS = ('uniform', 'bernoulli', 'randint', 'normal', 'permutation')
+# the port's draws (models.tokenizer.draw, ops.losses.draw, nn.lpips.draw) by
+# the JAX draw each replays
 _PORT_DRAW_OF = {'mask_prob': 'uniform', 'patch_mask': 'bernoulli', 'time_indices': 'randint',
-                 'noise': 'normal'}
+                 'noise': 'normal', 'slices': 'normal', 'permutation': 'permutation',
+                 'frame_batch': 'randint', 'frame_time': 'randint',
+                 'frame_time_frac': 'uniform'}
 
 
 def record_jax_draws(fn, *args):
@@ -123,7 +129,7 @@ def replay(records):
         name, x = queue.pop(0)
         assert name == _PORT_DRAW_OF[kind] and x.shape == tuple(shape), (kind, name, x.shape)
         out = torch.from_numpy(np.array(x))
-        return (out.long() if name == 'randint' else out).to(device)
+        return (out.long() if name in ('randint', 'permutation') else out).to(device)
 
     draw.remaining = queue
     return draw
@@ -417,9 +423,9 @@ def test_unported_tokenizer_options_raise():
     with pytest.raises(NotImplementedError):
         tm.encode(torch.zeros(1, 3, 2, 32, 32), aug_id=torch.zeros(1, dtype=torch.long))
     with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 3, 2, 32, 32), lpips_fn=lambda *a: 0.0)
+        tm(torch.zeros(1, 3, 2, 32, 32), byol_target_latents=torch.zeros(1, 2, 4, 8))
     with pytest.raises(NotImplementedError):
-        TokenizerTrainer(tm, use_lpips=True, device='cpu')
+        tm(torch.zeros(1, 3, 2, 32, 32), train_flow_decoder=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             VideoTokenizer(**SMALL)
