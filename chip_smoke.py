@@ -28,8 +28,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
                full-model update (`cont_rl_full`: 232 rows, N = M = 192),
                and the recipe phase's train step (`recipe_train`: 28 rows,
                N = M = 1024) and dynamics step (`recipe_sim`: 448 rows,
-               N = M = 151), each with the LSE, K2 and K3 at the same
-               shapes, timed beside flex's backward.
+               N = M = 151), and the wm-options phase's full-model update
+               (`wmopt_rl_full`: 112 rows, N = M = 192), each with the
+               LSE, K2 and K3 at the same shapes, timed beside flex's
+               backward, and its dream's prompt pass (`wmopt_prefill`:
+               448 rows, N = 96, M = 192).
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -184,7 +187,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
                d. a plain b1 x T1024 step of the bench world model with
                `use_loss_normalization` (K1-K3 2 / 2 / 2, all K1 on sm90;
                the four normalizers of its losses move).
- 14. small   — K4 and K5 (the small-attention forward and backward) against
+ 14. wm-options — the world model's remaining options on the bench world
+               model (float32 master weights, bf16 compute): tasks and
+               latent genes, actor and critic trunks of depth 4 (one time
+               layer each, flash on), one-layer spatial and action
+               pre-encoders (no flash), the aug token (28 tokens per
+               frame), LAPO, TEM and the action-conditioned latent AR loss
+               (hidden 8 to 16): a. a plain and a shortcut
+               `BehaviorCloneTrainer` step at b1 x T1024 with a task per
+               row (K1-K3 4 / 3 / 3 and 12 / 3 / 3: no backward through
+               the critic trunk, whose output no loss reads), the loss and
+               the main and actor trunks' time-layer gradients through the
+               kernels held against float32 as in phase 4, every new loss
+               term finite and nonzero, the critic trunk's gradient zero;
+               c. the prompted b16 x T192 dream with a task and a latent
+               gene per row, then a heads-only PPO `DreamTrainer` step (K1
+               4 each: 448 rows, N = 96, M = 192), only the heads and the
+               unembedding moving; d. a full-model update over the
+               dream's first 4 rows (4 / 2 / 2 at 112 rows, N = M = 192);
+               b. the bench model with `use_self_flow` (6 / 3 / 3), the
+               head moving. Every K1 on the wgmma kernel; ms (first and
+               warm), peak memory and launches per part, dreamed
+               env-steps/s.
+ 15. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, and at ragged shapes; timed
@@ -241,9 +266,23 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core peak
 # clock on each SM of a Hopper card
 SFU_OPS_PER_CLOCK_PER_SM = 16
 # kernel vs plain version: f32 differs by summation order only; bf16 by one
-# rounding of the output (1 ulp at |o| < 4 is 1.6e-2) and of p before PV
+# rounding of the output (1 ulp at |o| < 4 is 1.6e-2) and of p before PV,
+# so a bf16 element may also differ by one ulp of the plain version's
+# value where that is larger (`within_tol`: 3.1e-2 at 4 <= |o| < 8)
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-3
+
+
+def within_tol(x, ref, tol) -> bool:
+    """Every element of `x` within `tol` of `ref`, or in bf16 within one
+    ulp of `ref`'s element where that is larger."""
+    diff = (x.float() - ref.float()).abs()
+    bound = torch.full_like(diff, tol)
+    if x.dtype == torch.bfloat16:
+        mag = ref.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+        ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(mag)))
+        bound = torch.maximum(bound, ulp)
+    return bool((diff <= bound).all())
 # K2 / K3 vs their plain versions, as a fraction of the largest gradient
 # entry: float32 2e-4 (the kernels' one-exponential softclamp moves a score
 # by up to c * 1e-6, so p by that relative amount, plus summation order);
@@ -476,6 +515,46 @@ PIXEL_RECIPE_STREAM_TOL = 1e-4
 # no terminals and no continuous actions, so four normalizers move
 WM_NORMALIZED = ('flow', 'shortcut', 'reward', 'discrete_actions')
 
+# the wm-options phase: the bench world model with every world-model option
+# of the counterpart that the port takes: tasks and latent genes, actor and critic trunks
+# of depth 4 (one time layer each, built like the main trunk, flash on),
+# one-layer spatial and action pre-encoders (no flash, as the JAX package
+# builds them), the aug token (a second special token: 28 tokens per
+# frame), LAPO, TEM and the action-conditioned latent AR loss from the
+# main trunk's hidden 8 (after layer 3) to 16 (after layer 7)
+WMOPT_MODEL = dict(BENCH_MODEL, num_tasks=4, num_latent_genes=4, actor_depth=4, critic_depth=4,
+                   spatial_pre_encoder_depth=1, action_pre_encoder_depth=1,
+                   has_aug_conditioning=True, ssl_lapo=True, ssl_tem=True, latent_ar=True,
+                   latent_ar_layer=(8, 16), latent_ar_action_conditioned=True,
+                   latent_ar_loss_weight=0.1)
+WMOPT_TOKENS = 28
+WMOPT_NEW_LOSSES = ('latent_ar', 'latent_ar_sigreg', 'lapo_action', 'lapo_fdm',
+                    'lapo_raw_latent_fdm', 'tem')
+# d. the full-model update runs over the dream's first 4 rows (memory):
+# the replay's time attention is 4 x 28 rows, N = M = 192, with the LSE
+WMOPT_RL_ROWS = 4
+WMOPT_RL_FULL_ATTENTION = dict(RL_FULL_ATTENTION, B=WMOPT_RL_ROWS * WMOPT_TOKENS)
+# predicted before the first run, counting that autograd runs no backward
+# through a trunk whose output no loss reads (the critic trunk's):
+# a. a plain step: K1 in the main trunk's 2 time layers and the actor's
+# and critic's 1 each, K2/K3 in the main trunk's and the actor's (BC's
+# action loss reads the actor trunk); a shortcut step adds two no-grad
+# half-step passes through all three trunks (8 more K1, no LSE);
+# b. self-flow on the bench model: the training forward's 2 + 2 + 2, the
+# student's forward 2 and backward 1 + 1 (hidden -3, after layer 6, is
+# reached from layer 3's time attention only), the EMA teacher's 2 K1
+# without grad; c. the prompt pass of a dream runs K1 in the 4 time layers
+# of the three trunks (448 rows, N = 96, M = 192), the frames none (1 x 192
+# scores, under the gate), a heads-only update none; d. the full-model
+# replay runs K1 in all 4 and K2/K3 in the main trunk's 2 (`rl_losses`
+# reads the main trunk's agent embedding); the pre-encoders never launch
+WMOPT_LAUNCHES = {'wmopt_train_plain': (4, 3, 3, 0, 0),
+                  'wmopt_train_shortcut': (12, 3, 3, 0, 0),
+                  'wmopt_self_flow': (6, 3, 3, 0, 0),
+                  'wmopt_generate': (4, 0, 0, 0, 0),
+                  'wmopt_dream_trainer': (4, 0, 0, 0, 0),
+                  'wmopt_rl_full': (4, 2, 2, 0, 0)}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -688,6 +767,12 @@ def kernel_cases():
     # dynamics step (b16 x 28 rows at 151 frames), with the LSE
     cases.append(('recipe_train', bf16, dict(RECIPE_TRAIN_ATTENTION, lse=True)))
     cases.append(('recipe_sim', bf16, dict(RECIPE_SIM_ATTENTION, lse=True)))
+    # the wm-options phase's dream prompt pass (b16 x 28 rows, P=96 over
+    # T=192) and full-model replay (4 x 28 rows at T192, with the LSE); its
+    # train step has recipe_train's shape
+    cases.append(('wmopt_prefill', bf16, dict(prefill, softclamp=50.0,
+                                              B=WMOPT_TOKENS * DREAM['batch_size'])))
+    cases.append(('wmopt_rl_full', bf16, dict(WMOPT_RL_FULL_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -750,7 +835,7 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
     """(name, ms, max abs error against the plain version, callable) of the
     one PyTorch call that computes K1's function here, timed by `timer`; ms
     and the callable are None where no setting of it compiles or agrees with
-    the plain version within the kernel's tolerance."""
+    the plain version within the kernel's tolerance (`within_tol`)."""
     if cfg['softclamp_value'] is None:
         candidates = [('sdpa', sdpa_call(q, k, v, mask))]
     else:
@@ -759,11 +844,12 @@ def time_library(q, k, v, offset, kv_len, cfg, mask, ref, tol, timer=cuda_time_m
     best = ('-', None, None, None)
     for name, fn in candidates:
         try:
-            err = (fn().float() - ref.float()).abs().max().item()
+            out = fn()
         except Exception as e:   # the compiler refuses this setting at this shape
             log(f'#   {name}: does not compile here ({type(e).__name__})')
             continue
-        if err > tol:
+        err = (out.float() - ref.float()).abs().max().item()
+        if not within_tol(out, ref, tol):
             log(f'#   {name}: max_abs_err {err:.3e} above {tol:.0e}, not a yardstick')
             continue
         ms = timer(fn)
@@ -781,7 +867,8 @@ K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only
                  'prefill', 'rl_full', 'sim')
 # bf16 K1 cases of the continuous and recipe phases' paths: the wgmma
 # kernel too
-K1_SM90_ONLY_CASES = ('cont_train', 'cont_rl_full', 'recipe_train', 'recipe_sim')
+K1_SM90_ONLY_CASES = ('cont_train', 'cont_rl_full', 'recipe_train', 'recipe_sim',
+                      'wmopt_prefill', 'wmopt_rl_full')
 
 
 def run_kernel_phase():
@@ -812,7 +899,7 @@ def run_kernel_phase():
             (out, lse), (ref, ref_lse) = out, ref
         err = (out.float() - ref.float()).abs().max().item()
         tol = KERNEL_TOL[dtype]
-        ok = err <= tol and bool(torch.isfinite(out).all())
+        ok = within_tol(out, ref, tol) and bool(torch.isfinite(out).all())
         line_lse = ''
         if want_lse:
             lse_err = (lse - ref_lse).abs().max().item()
@@ -839,7 +926,7 @@ def run_kernel_phase():
         if dtype == torch.bfloat16 and name in K1_SM90_CASES:
             device_calls[name] = (kernel, lib_fn)
         log(f'K1 {name:<34} {str(dtype).split(".")[-1]:<8} {variant:<5} max_abs_err {err:.3e} '
-            f'(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms {lib} '
+            f'(tol {tol:.0e} or 1 ulp) kernel {ms:.4f} ms plain {plain_ms:.4f} ms {lib} '
             f'bound {bound_ms:.4f} ms ({unit}){line_lse}' + ('' if ok else '  FAIL'))
         if not ok:
             failures.append(f'{name}/{dtype}')
@@ -889,6 +976,7 @@ def bwd_kernel_cases():
     cases.append(('cont_rl_full', bf16, CONT_RL_FULL_ATTENTION))
     cases.append(('recipe_train', bf16, RECIPE_TRAIN_ATTENTION))
     cases.append(('recipe_sim', bf16, RECIPE_SIM_ATTENTION))
+    cases.append(('wmopt_rl_full', bf16, WMOPT_RL_FULL_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -964,7 +1052,7 @@ def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
 
 # backward cases timed beside flex_attention's backward (with a float32 one)
 BWD_LIBRARY_CASES = ('t1024', 'rl_full', 'sim', 'cont_train', 'cont_rl_full', 'recipe_train',
-                     'recipe_sim')
+                     'recipe_sim', 'wmopt_rl_full')
 
 
 def run_backward_kernel_phase():
@@ -1307,16 +1395,18 @@ def set_attention(model, cls_name: str, flag: str, value: bool):
 
 def compare_grads(model, ref_model, loss_fn, names, cls_name, flag):
     """The loss and gradients in bf16 through the kernels and through the
-    plain attention (`flag` off on every `cls_name`), each held against
-    `ref_model` (the same weights in float32, plain attention): loss as
-    |difference|, gradients as the relative L2 distance. Returns {output:
-    (kernel distance, plain distance)}."""
+    plain attention (`flag` off on every `cls_name`, then each put back as
+    it was), each held against `ref_model` (the same weights in float32,
+    plain attention): loss as |difference|, gradients as the relative L2
+    distance. Returns {output: (kernel distance, plain distance)}."""
     kernel = step_grads(model, loss_fn, names)
+    saved = [(m, getattr(m, flag)) for m in model.modules() if type(m).__name__ == cls_name]
     set_attention(model, cls_name, flag, False)
     try:
         plain = step_grads(model, loss_fn, names)
     finally:
-        set_attention(model, cls_name, flag, True)
+        for m, value in saved:
+            setattr(m, flag, value)
     ref = step_grads(ref_model, loss_fn, names)
     out = {'loss': (abs(kernel[0] - ref[0]), abs(plain[0] - ref[0]))}
     dist = lambda g, r: ((g - r).norm() / r.norm()).item()
@@ -2816,6 +2906,204 @@ def run_recipe_phase(seed: int = 0) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- wm-options
+
+def wmopt_batch(device, seed):
+    """The train phase's b1 x T1024 batch with a task for each row."""
+    batch = train_batch(device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    batch['tasks'] = torch.randint(0, WMOPT_MODEL['num_tasks'], (TRAIN['batch_size'],),
+                                   generator=g, device=device)
+    return batch
+
+
+def run_wm_options_phase(seed: int = 0) -> dict:
+    """The world model's remaining options at the bench model's width
+    (28 tokens per frame), float32 master weights and bf16 compute: a. a
+    plain and a shortcut `BehaviorCloneTrainer` step at b1 x T1024 with a
+    task per row, the loss and the main and actor trunks' time-layer
+    gradients through the kernels held against float32, every new loss term
+    finite and nonzero, the critic trunk's gradient zero; c. the prompted
+    b16 x T192 dream with a task and a latent gene per row, then a
+    heads-only PPO `DreamTrainer` step on such dreams; d. a full-model
+    update over the dream's first 4 rows; b. the bench model without the
+    options, one plain step with self-flow (the head must move). Each part
+    counted, timed and checked; returns the (K1..K5) launches by path."""
+    from dreamer4_torch import BehaviorCloneTrainer, DreamTrainer, DynamicsWorldModel
+    from dreamer4_torch.data.experience import index_experience
+    from dreamer4_torch.models.generate import generate
+    from dreamer4_torch.train.trainers import (create_rl_state, make_rl_optimizer,
+                                               make_rl_update_step, make_world_model_train_step,
+                                               rl_param_labels)
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**WMOPT_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    if model.tokens_per_frame != WMOPT_TOKENS:
+        raise SystemExit(f'{model.tokens_per_frame} tokens per frame, not {WMOPT_TOKENS}')
+    dev = model.device
+    log(f'# wm-options ({gpu_name_and_power_limit()}): '
+        f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, '
+        f'{model.tokens_per_frame} tokens/frame (tasks, latent genes, actor and critic trunks '
+        f'of depth {model.actor_depth}, spatial and action pre-encoders, aug token, LAPO, TEM, '
+        f'latent AR {model.latent_ar_layer})')
+    launches = {}
+
+    def part(label, fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, WMOPT_LAUNCHES[label])
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        return out, sec, got, variants, torch.cuda.max_memory_allocated() / 2**30
+
+    # a. the train steps at b1 x T1024; first the loss and the time layers'
+    # gradients through the kernels against float32
+    batch = wmopt_batch(dev, seed + 2)
+    ref = DynamicsWorldModel(**{**WMOPT_MODEL, 'use_flash_attention': False})
+    ref.load_state_dict(model.state_dict())
+    names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
+             for w in ('to_q', 'to_k', 'to_v')]
+    names += [f'actor_transformer.attn_3.{w}.weight' for w in ('to_q', 'to_k', 'to_v')]
+    torch.cuda.reset_peak_memory_stats()
+    check_grad_distances('wmopt train grads', compare_grads(
+        model, ref, wm_plain_step_loss(batch, seed + 3), names, 'AxialSpaceTimeTransformer',
+        'use_flash_attention'))
+    del ref
+    if model.spatial_pre_encoder.use_flash_attention or model.action_pre_encoder.use_flash_attention:
+        raise SystemExit('wmopt: a pre-encoder has flash attention on')
+    log(f'wmopt grad check peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=True, seed=seed)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+    for shortcut in (False, True):
+        label = 'wmopt_train_shortcut' if shortcut else 'wmopt_train_plain'
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+        ts_before = trainer.ts
+
+        def one_step():
+            trainer.ts, loss, losses = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                               generator=trainer.generator)
+            return loss, losses
+        (loss, losses), sec, got, variants, peak = part(label, one_step)
+        n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before, label)
+        zero_terms = [f for f in WMOPT_NEW_LOSSES if not float(getattr(losses, f)) > 0]
+        if zero_terms:
+            raise SystemExit(f'{label}: loss terms not nonzero: {zero_terms}')
+        critic = [n for n, p in model.critic_transformer.named_parameters()
+                  if p.grad is not None and bool(p.grad.any())]
+        if critic:
+            raise SystemExit(f'{label}: the critic trunk has a gradient: {critic[:4]}')
+        del before, ema_before
+        sec_warm = host_time_s(lambda: one_step(), reps=1)
+        log(f'{label} b{TRAIN["batch_size"]} T{TRAIN["time_steps"]}: loss {loss.item():.4f} '
+            f'({", ".join(f"{f} {getattr(losses, f).item():.4f}" for f in WMOPT_NEW_LOSSES)}); '
+            f'{n_grad} parameters with a gradient, all moved with their EMA, none of the critic '
+            f'trunk; {sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms warm; (K1..K5) {got}, K1 '
+            f'by variant {variants}; peak memory {peak:.2f} GiB')
+    del trainer, step_fn, batch
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. the prompted dream with a task and a latent gene per row, then a
+    # heads-only PPO DreamTrainer step
+    b, T, P = DREAM['batch_size'], DREAM['time_steps'], PROMPT_LEN
+    prompt = bench_prompt(model, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    cond = dict(tasks=torch.randint(0, WMOPT_MODEL['num_tasks'], (b,), generator=g, device=dev),
+                latent_gene_ids=torch.randint(0, WMOPT_MODEL['num_latent_genes'], (b,),
+                                              generator=g, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    exp, sec, got, variants, peak = part('wmopt_generate', lambda: generate(
+        model, gen, time_steps=T, num_steps=DREAM['num_steps'], batch_size=b, **prompt, **cond))
+    check_experience(exp, b, T, P, model.dim, model.latent_shape, prompt=prompt)
+    log(f'wmopt_generate b{b} T{T} P{P} (tasks, latent genes): {sec * 1e3:.1f} ms (first), '
+        f'{b * (T - P) / sec:.1f} dreamed env-steps/s; (K1..K5) {got}, K1 by variant {variants}; '
+        f'peak memory {peak:.2f} GiB')
+
+    dream_trainer = DreamTrainer(model, time_steps=T, num_steps=DREAM['num_steps'], batch_size=b,
+                                 objective=DREAM['objective'], prompt_fn=lambda generator: prompt,
+                                 generate_kwargs=cond, seed=seed)
+    labels = rl_param_labels(model)
+    moving = {n for n, l in labels.items() if l != 'frozen'}
+    if {n.partition('.')[0] for n in moving} != {'policy_head', 'value_head', 'action_embedder'}:
+        raise SystemExit(f'wmopt_dream_trainer: unexpected RL groups {sorted(moving)[:8]}')
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    (exp, out), sec, got, variants, peak = part('wmopt_dream_trainer', dream_trainer.step)
+    check_experience(exp, b, T, P, model.dim, model.latent_shape, prompt=prompt)
+    check_rl_outputs('wmopt_dream_trainer', out)
+    check_moved('wmopt_dream_trainer', model, before, moving, moved=True)
+    check_moved('wmopt_dream_trainer', model, before, set(labels) - moving, moved=False)
+    del before
+    sec_warm = host_time_s(dream_trainer.step, reps=1)
+    log(f'wmopt_dream_trainer b{b} T{T} P{P} (heads-only ppo): {sec * 1e3:.1f} ms first, '
+        f'{sec_warm * 1e3:.1f} ms warm, {b * (T - P) / sec_warm:.1f} dreamed env-steps/s; '
+        f'(K1..K5) {got}, K1 by variant {variants}; only the policy head, the value head and '
+        f'the unembedding moved; peak memory {peak:.2f} GiB')
+
+    # d. a full-model update over the dream's first rows
+    rows = index_experience(exp, slice(0, WMOPT_RL_ROWS))
+    opt = make_rl_optimizer(model, **RL_LR)
+    full_update = make_rl_update_step(model, opt, DREAM['objective'],
+                                      only_learn_policy_value_heads=False)
+    state = create_rl_state(model, opt)
+    trunk_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if n.startswith('transformer.')}
+    (state, out), sec, got, variants, peak = part('wmopt_rl_full',
+                                                  lambda: full_update(state, rows))
+    check_rl_outputs('wmopt_rl_full', out)
+    check_moved('wmopt_rl_full', model, trunk_before, set(trunk_before), moved=True)
+    del trunk_before
+
+    def one_update():
+        nonlocal state
+        state = full_update(state, rows)[0]
+    sec_warm = host_time_s(one_update, reps=2)
+    log(f'wmopt_rl_full b{WMOPT_RL_ROWS} T{T} (full model): {sec * 1e3:.1f} ms first, '
+        f'{sec_warm * 1e3:.1f} ms/update warm (mean of 2); (K1..K5) {got}, K1 by variant '
+        f'{variants}; the trunk moved; peak memory {peak:.2f} GiB')
+    del dream_trainer, exp, rows, opt, state, full_update, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. the bench model with self-flow: one plain step
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+    batch = train_batch(model.device, seed + 2)
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=False, seed=seed, use_self_flow=True)
+    if trainer.ts.ema_params is None:
+        raise SystemExit('wmopt_self_flow: the trainer keeps no EMA teacher')
+    head = {n: p.detach().clone() for n, p in trainer.self_flow_head.named_parameters()}
+
+    def sf_step():
+        trainer.ts, loss, losses = trainer._train_step(trainer.ts, batch, shortcut_train=False,
+                                                       generator=trainer.generator)
+        return loss
+    loss, sec, got, variants, peak = part('wmopt_self_flow', sf_step)
+    still = [n for n, p in trainer.self_flow_head.named_parameters() if torch.equal(p, head[n])]
+    if still or not torch.isfinite(loss):
+        raise SystemExit(f'wmopt_self_flow: loss {loss.item()}, head weights that did not '
+                         f'move: {still}')
+    sec_warm = host_time_s(lambda: sf_step(), reps=1)
+    log(f'wmopt_self_flow b{TRAIN["batch_size"]} T{TRAIN["time_steps"]} (bench model, student '
+        f'layer -3, teacher -1): loss {loss.item():.4f}; the head moved; {sec * 1e3:.1f} ms '
+        f'first, {sec_warm * 1e3:.1f} ms warm; (K1..K5) {got}, K1 by variant {variants}; peak '
+        f'memory {peak:.2f} GiB')
+    del trainer, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# wm-options phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 # ------------------------------------------------------------- tok-options
 
 def run_tok_options_phase(seed: int = 0) -> dict:
@@ -3073,7 +3361,7 @@ def main() -> int:
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
                 **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase(),
-                **run_recipe_phase(), **run_tok_options_phase()}
+                **run_recipe_phase(), **run_tok_options_phase(), **run_wm_options_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)

@@ -54,6 +54,8 @@ def draw(kind: str, frame: int, shape, *, generator: torch.Generator, device,
 @torch.no_grad()
 def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_steps: int,
              num_steps: int = 4, batch_size: int = 1, agent_index: int = 0,
+             tasks: torch.Tensor | None = None,                      # (b,)
+             latent_gene_ids: torch.Tensor | None = None,            # (b,)
              context_signal_noise: float = 0.1,
              prompt_latents: torch.Tensor | None = None,            # (b, p, n, d)
              prompt_discrete_actions: torch.Tensor | None = None,   # (b, p, na)
@@ -71,7 +73,8 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
     random draws from `generator` (on the same device). Returns an
     `Experience` with buffers padded to `time_steps` and `lens` marking
     validity. Forced actions replace the policy's samples; their log probs
-    are those of the executed actions."""
+    are those of the executed actions. `tasks` and `latent_gene_ids`
+    condition the prompt pass and every denoise and clean step."""
     K = model.max_steps
     if num_steps <= 0 or K % num_steps != 0:
         raise ValueError(f'num_steps {num_steps} must divide max_steps {K}')
@@ -124,7 +127,8 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
     terminals = torch.zeros((b,), dtype=torch.bool, device=device)
     lens = torch.full((b,), T, dtype=torch.long, device=device)
 
-    common = dict(latent_is_noised=True, latent_has_view_dim=True, agent_index=agent_index)
+    common = dict(latent_is_noised=True, latent_has_view_dim=True, agent_index=agent_index,
+                  tasks=tasks, latent_gene_ids=latent_gene_ids)
 
     # -------------------------------------------------- prompt pass -> cache
     if P > 0:

@@ -2,8 +2,8 @@
 
 Per-frame token layout:
   [flow token][latent spatial tokens][proprio][state-pred][registers]
-  [action][reward][agent tokens]
-with the agent tokens as the trunk's special tokens. Ported: the heads,
+  [action][reward][aug][agent tokens]
+with the aug and agent tokens as the trunk's special tokens. Ported: the heads,
 `init_cache`, the reward and action tokens (discrete and continuous
 actions), the proprioception token and its read-out (`dim_proprio`), the
 state-prediction token and its Beta head (`add_state_pred_head`),
@@ -19,12 +19,21 @@ agent's state prediction (`agent_predicts_state`, its Beta NLL off the agent
 token and the next action), the latent-input policy and value heads
 (`actor_critic_latent_input`, `latent_actor_inputs`) and the actor's
 self-predictive rollout (`actor_spr`, whose loss `models/rl.py` adds); and
-the EMA normalization of the training losses (`use_loss_normalization`).
-The counterpart's fields listed in `_NOT_PORTED` come with later slices:
-each is accepted at its default, and another value raises.
+the EMA normalization of the training losses (`use_loss_normalization`);
+and the other options of the counterpart: task and latent-gene embeddings
+added to the agent tokens (`num_tasks`, `num_latent_genes`), actor and
+critic trunks over the main trunk's output (`actor_depth`, `critic_depth`),
+spatial and action pre-encoders (`spatial_pre_encoder_depth`,
+`action_pre_encoder_depth`), the augmentation token with its CFG dropout
+(`has_aug_conditioning`), the latent autoregressive loss on the trunk's
+hiddens (`latent_ar`), LAPO (`ssl_lapo`), TEM (`ssl_tem`) and the hiddens
+self-flow reads (`return_layer_hiddens`). The counterpart's fields listed
+in `_NOT_PORTED` are not ported yet: each is accepted at its default,
+and another value raises.
 
 Every random draw of the training forward goes through the module-level
-`draw`, so a test can replace it to replay the counterpart's draws.
+`draw` (the latent AR loss's sigreg through `ops.losses.draw`), so a test
+can replace it to replay the counterpart's draws.
 """
 from __future__ import annotations
 
@@ -39,10 +48,11 @@ from ..nn.action_embedder import ActionEmbedder
 from ..nn.attention import LearnedQueriesAttentionPool
 from ..nn.dense import Dense
 from ..nn.init import embed_normal_, normal_
+from ..nn.latent_ar import LatentAutoregressiveLoss
 from ..nn.loss_normalizer import LossNormalizer
 from ..nn.mlp import EnsembleHead, create_mlp
 from ..nn.norms import RMSNorm
-from ..nn.ssl import ActorSPR
+from ..nn.ssl import LAPO, TEM, ActorSPR
 from ..ops import dists
 from ..ops.codecs import get_reward_encoder
 from ..ops.mtp import create_multi_token_prediction_targets
@@ -51,8 +61,8 @@ from .transformer import AxialSpaceTimeTransformer, TransformerCache, check_not_
 
 
 class WorldModelLosses(NamedTuple):
-    """The counterpart's loss record; the losses of options not ported yet
-    are zeros."""
+    """The counterpart's loss record; the losses of options that are off
+    (and H-Net's, not ported yet) are zeros."""
     flow: torch.Tensor
     shortcut: torch.Tensor
     rewards: torch.Tensor             # (multi_token_pred_len,)
@@ -84,20 +94,17 @@ class Embeds(NamedTuple):
 
 
 class DynamicsCache(NamedTuple):
+    """The KV caches of every trunk the model has (None for the others)."""
     main: TransformerCache
+    actor: TransformerCache | None = None
+    critic: TransformerCache | None = None
+    spatial: TransformerCache | None = None
+    action: TransformerCache | None = None
 
 
 # fields of the counterpart, with their defaults, that the port does not
 # have yet; any other value raises
 _NOT_PORTED = dict(
-    num_tasks=0, num_latent_genes=0, actor_depth=0, critic_depth=0,
-    spatial_pre_encoder_depth=0, action_pre_encoder_depth=0, latent_ar=False,
-    latent_ar_layer=None, latent_ar_action_conditioned=False, latent_ar_num_slices=256,
-    has_aug_conditioning=False, aug_cfg_dropout_prob=0.1, ssl_lapo=False,
-    lapo_pred_actions=True, lapo_use_fdm=True, ssl_tem=False,
-    tem_first_state_as_init_hidden=True, tem_learn_relative_actions=False,
-    lapo_action_loss_weight=1.0, lapo_fdm_loss_weight=1.0, lapo_raw_latent_fdm_loss_weight=1.0,
-    tem_loss_weight=1.0, latent_ar_loss_weight=0.0, latent_ar_sigreg_loss_weight=0.05,
     time_attention_use_pope=False, use_time_rnn=False,
     mot_temporal=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
     h_net_dynamic=False, h_net_loss_weight=1.0,
@@ -117,13 +124,14 @@ def draw(kind: str, shape, *, generator: torch.Generator | None, device, low: in
     kind: 'step_sizes_log2', 'signal_levels' — integers in [low, high);
           'noise'         — standard normal noise of the latents;
           'proprio_noise' — standard normal noise of the proprioception;
-          'reward_keep'   — Bernoulli(prob) keep of the reward embedding.
+          'reward_keep'   — Bernoulli(prob) keep of the reward embedding;
+          'aug_drop'      — Bernoulli(prob) CFG dropout of each row's aug id.
     """
     if kind in ('step_sizes_log2', 'signal_levels'):
         return torch.randint(low, high, shape, generator=generator, device=device)
     if kind in ('noise', 'proprio_noise'):
         return torch.randn(shape, generator=generator, device=device)
-    if kind == 'reward_keep':
+    if kind in ('reward_keep', 'aug_drop'):
         return torch.rand(shape, generator=generator, device=device) < prob
     raise ValueError(f'unknown draw {kind}')
 
@@ -131,8 +139,11 @@ def draw(kind: str, shape, *, generator: torch.Generator | None, device, low: in
 class DynamicsWorldModel(nn.Module):
     def __init__(self, *, dim: int, dim_latent: int, num_latent_tokens: int,
                  max_steps: int = 64, num_register_tokens: int = 8,
-                 num_spatial_tokens: int = 4, num_agents: int = 1, num_video_views: int = 1,
-                 depth: int = 4, time_block_every: int = 4, attn_heads: int = 8,
+                 num_spatial_tokens: int = 4, num_agents: int = 1, num_tasks: int = 0,
+                 num_latent_genes: int = 0, num_video_views: int = 1,
+                 depth: int = 4, actor_depth: int = 0, critic_depth: int = 0,
+                 spatial_pre_encoder_depth: int = 0, action_pre_encoder_depth: int = 0,
+                 time_block_every: int = 4, attn_heads: int = 8,
                  attn_dim_head: int = 64, query_heads: int | None = None,
                  attn_softclamp_value: float = 50.0, pred_orig_latent: bool = True,
                  identity_latents_to_spatial: bool = False,
@@ -169,8 +180,16 @@ class DynamicsWorldModel(nn.Module):
                  normalize_advantages: bool | None = None, use_loss_normalization: bool = False,
                  use_flash_attention: bool = False, flash_min_scores: int = 128 * 128,
                  use_fused_small: bool | None = None, use_attn_pool: bool = True,
-                 dim_state: int | None = None, dim_critic_state: int | None = None, dtype=None,
-                 device=None, **not_ported):
+                 dim_state: int | None = None, dim_critic_state: int | None = None,
+                 latent_ar: bool = False, latent_ar_layer: int | tuple[int, int] | None = None,
+                 latent_ar_action_conditioned: bool = False, latent_ar_num_slices: int = 256,
+                 latent_ar_loss_weight: float = 0.0, latent_ar_sigreg_loss_weight: float = 0.05,
+                 has_aug_conditioning: bool = False, aug_cfg_dropout_prob: float = 0.1,
+                 ssl_lapo: bool = False, lapo_pred_actions: bool = True, lapo_use_fdm: bool = True,
+                 ssl_tem: bool = False, tem_first_state_as_init_hidden: bool = True,
+                 tem_learn_relative_actions: bool = False, lapo_action_loss_weight: float = 1.0,
+                 lapo_fdm_loss_weight: float = 1.0, lapo_raw_latent_fdm_loss_weight: float = 1.0,
+                 tem_loss_weight: float = 1.0, dtype=None, device=None, **not_ported):
         # the constructor's arguments, for checkpoints (train/checkpoint.py)
         config = {k: v for k, v in locals().items()
                   if k not in ('self', '__class__', 'device', 'not_ported')}
@@ -200,7 +219,13 @@ class DynamicsWorldModel(nn.Module):
                                  discrete_actions=discrete_action_loss_weight,
                                  continuous_actions=continuous_action_loss_weight,
                                  state_pred=state_pred_loss_weight,
-                                 agent_state_pred=agent_state_pred_loss_weight)
+                                 agent_state_pred=agent_state_pred_loss_weight,
+                                 latent_ar=latent_ar_loss_weight,
+                                 latent_ar_sigreg=latent_ar_sigreg_loss_weight,
+                                 lapo_action=lapo_action_loss_weight,
+                                 lapo_fdm=lapo_fdm_loss_weight,
+                                 lapo_raw_latent_fdm=lapo_raw_latent_fdm_loss_weight,
+                                 tem=tem_loss_weight)
         self.terminal_pos_weight = terminal_pos_weight
         self.gae_discount_factor = gae_discount_factor
         # RL hyperparameters, read by models/rl.py
@@ -234,6 +259,17 @@ class DynamicsWorldModel(nn.Module):
         self.actor_spr = actor_spr
         self.multi_token_pred_len = multi_token_pred_len
         self.dim_state, self.dim_critic_state = dim_state, dim_critic_state
+        self.num_tasks, self.num_latent_genes = num_tasks, num_latent_genes
+        self.actor_depth, self.critic_depth = actor_depth, critic_depth
+        self.spatial_pre_encoder_depth = spatial_pre_encoder_depth
+        self.action_pre_encoder_depth = action_pre_encoder_depth
+        self.has_aug_conditioning = has_aug_conditioning
+        self.aug_cfg_dropout_prob = aug_cfg_dropout_prob
+        self.latent_ar = latent_ar
+        self.latent_ar_layer = (tuple(latent_ar_layer) if isinstance(latent_ar_layer, list)
+                                else latent_ar_layer)
+        self.latent_ar_action_conditioned = latent_ar_action_conditioned
+        self.ssl_lapo, self.ssl_tem = ssl_lapo, ssl_tem
         self.dtype = dtype
         self.reward_encoder = get_reward_encoder(reward_encoder_type, reward_range=reward_range,
                                                  num_bins=reward_num_bins)
@@ -273,6 +309,12 @@ class DynamicsWorldModel(nn.Module):
         self.agent_learned_embed = param((num_agents, dim), 1.0)
         self.action_learned_embed = param((num_agents, dim), 1.0)
         self.reward_learned_embed = param((num_agents, dim), 1.0)
+        # added to the agent tokens of each row's task and latent gene
+        if num_tasks > 0:
+            self.task_embed = nn.Embedding(num_tasks, dim, device=device)
+            embed_normal_(self.task_embed.weight)
+        if num_latent_genes > 0:
+            self.latent_genes = param((num_latent_genes, dim), 1.0)
 
         self.policy_head = create_mlp(dim, dim * 4, policy_head_mlp_depth, dim * 4,
                                       device=device)
@@ -305,13 +347,63 @@ class DynamicsWorldModel(nn.Module):
             self.to_state_pred = Dense(dim, num_video_views * num_latent_tokens * dim_latent * 2,
                                        device=device)
 
-        self.transformer = AxialSpaceTimeTransformer(
-            dim=dim, depth=depth, attn_heads=attn_heads, attn_dim_head=attn_dim_head,
+        # the main trunk, and the actor and critic trunks over its output,
+        # all with the same settings; the aug token is one more special token
+        trunk_kwargs = dict(
+            dim=dim, attn_heads=attn_heads, attn_dim_head=attn_dim_head,
             query_heads=query_heads, attn_softclamp_value=attn_softclamp_value,
-            time_block_every=time_block_every, num_special_tokens=num_agents,
+            time_block_every=time_block_every,
+            num_special_tokens=num_agents + int(has_aug_conditioning),
             final_norm=False, use_flash_attention=use_flash_attention,
             flash_min_scores=flash_min_scores, use_fused_small=use_fused_small,
             use_attn_pool=use_attn_pool, dtype=dtype, device=device)
+        self.transformer = AxialSpaceTimeTransformer(depth=depth, **trunk_kwargs)
+        if actor_depth > 0:
+            self.actor_transformer = AxialSpaceTimeTransformer(depth=actor_depth, **trunk_kwargs)
+        if critic_depth > 0:
+            self.critic_transformer = AxialSpaceTimeTransformer(depth=critic_depth,
+                                                                **trunk_kwargs)
+        # the pre-encoders: no special tokens, no final norm and, as the
+        # counterpart builds them, no flash attention; the action
+        # pre-encoder attends over time in every layer
+        pre_kwargs = dict(dim=dim, attn_heads=attn_heads, attn_dim_head=attn_dim_head,
+                          query_heads=query_heads, attn_softclamp_value=attn_softclamp_value,
+                          num_special_tokens=0, final_norm=False, dtype=dtype, device=device)
+        if spatial_pre_encoder_depth > 0:
+            self.spatial_pre_encoder = AxialSpaceTimeTransformer(
+                depth=spatial_pre_encoder_depth, time_block_every=time_block_every,
+                **pre_kwargs)
+        if action_pre_encoder_depth > 0:
+            if not self.has_actions:
+                raise ValueError('action_pre_encoder_depth needs actions')
+            self.action_pre_encoder = AxialSpaceTimeTransformer(
+                depth=action_pre_encoder_depth, time_block_every=1, **pre_kwargs)
+        if has_aug_conditioning:
+            self.aug_cond_embedding = nn.Embedding(3, dim, device=device)
+            embed_normal_(self.aug_cond_embedding.weight)
+
+        if latent_ar:
+            if latent_ar_layer is None:
+                raise ValueError('latent_ar needs latent_ar_layer')
+            self.latent_ar_module = LatentAutoregressiveLoss(
+                dim, dim_in=dim * 2 if latent_ar_action_conditioned else dim,
+                sigreg_num_slices=latent_ar_num_slices,
+                conditioned=latent_ar_action_conditioned, device=device)
+        if ssl_lapo:
+            if spatial_pre_encoder_depth == 0:
+                raise ValueError('LAPO requires the spatial pre-encoder')
+            self.ssl_lapo_module = LAPO(
+                dim, dim, num_discrete_actions=self.num_discrete_actions,
+                num_continuous_actions=num_continuous_actions, dim_raw_latent=dim_latent,
+                num_raw_latent_tokens=num_latent_tokens, pred_actions=lapo_pred_actions,
+                use_fdm=lapo_use_fdm, device=device)
+        if ssl_tem:
+            if action_pre_encoder_depth == 0:
+                raise ValueError('TEM requires the action pre-encoder')
+            self.ssl_tem_module = TEM(
+                dim, dim_latent, num_latent_tokens,
+                first_state_as_init_hidden=tem_first_state_as_init_hidden,
+                learn_relative_actions=tem_learn_relative_actions, device=device)
 
         # state-vector environments: the state as the frame's latents, and
         # the privileged critic state added to the value head's input
@@ -401,7 +493,7 @@ class DynamicsWorldModel(nn.Module):
         return (1 + self.num_spatial_tokens * self.num_video_views + int(self.has_proprio)
                 + int(self.should_pred_state) + self.num_register_tokens
                 + int(self.has_actions) + int(self.add_reward_embed_to_agent_token)
-                + self.num_agents)
+                + int(self.has_aug_conditioning) + self.num_agents)
 
     def state_to_latents(self, state):
         """(..., dim_state) -> (..., n, d_latent), the latents of a
@@ -421,8 +513,20 @@ class DynamicsWorldModel(nn.Module):
         """KV caches default to the trunk's compute dtype."""
         if dtype is None:
             dtype = self.dtype if self.dtype is not None else torch.float32
-        return DynamicsCache(main=self.transformer.init_cache(
-            batch, self.tokens_per_frame, max_time, dtype=dtype, device=self.device))
+
+        def make(trunk, space_len):
+            return trunk.init_cache(batch, space_len, max_time, dtype=dtype, device=self.device)
+
+        s = self.tokens_per_frame
+        return DynamicsCache(
+            main=make(self.transformer, s),
+            actor=make(self.actor_transformer, s) if self.actor_depth > 0 else None,
+            critic=make(self.critic_transformer, s) if self.critic_depth > 0 else None,
+            spatial=(make(self.spatial_pre_encoder,
+                          self.num_spatial_tokens * self.num_video_views)
+                     if self.spatial_pre_encoder_depth > 0 else None),
+            action=(make(self.action_pre_encoder, 1)
+                    if self.action_pre_encoder_depth > 0 else None))
 
     # ------------------------------------------------------- token builders
 
@@ -471,8 +575,10 @@ class DynamicsWorldModel(nn.Module):
     # ------------------------------------------------------------ prediction
 
     def _predict(self, noised_latents, noised_proprio, signal_levels, step_sizes_log2,
-                 action_tokens, reward_tokens, agent_tokens, cache: DynamicsCache | None = None,
-                 max_time: int | None = None):
+                 action_tokens, reward_tokens, aug_token, agent_tokens,
+                 cache: DynamicsCache | None = None, max_time: int | None = None):
+        """-> (Predictions, Embeds, aux, new cache); aux holds the main
+        trunk's `layer_hiddens` and its spatial outputs `space_out`."""
         b, t, v = noised_latents.shape[:3]
         dim = self.dim
         s_per_view = self.num_spatial_tokens
@@ -484,6 +590,20 @@ class DynamicsWorldModel(nn.Module):
         space_tokens = space_tokens.reshape(b, t, v * s_per_view, dim)
         if self.add_action_embed_to_spatial and action_tokens is not None:
             space_tokens = space_tokens + action_tokens
+
+        def sub_trunk(trunk, x, sub_cache):
+            return trunk(x, cache=sub_cache, max_time=max_time, return_intermediates=True,
+                         collect_normed_inputs=False)
+
+        spatial_interm = action_interm = None
+        if self.spatial_pre_encoder_depth > 0:
+            space_tokens, spatial_interm = sub_trunk(
+                self.spatial_pre_encoder, space_tokens,
+                cache.spatial if cache is not None else None)
+        if self.action_pre_encoder_depth > 0 and action_tokens is not None:
+            action_tokens, action_interm = sub_trunk(
+                self.action_pre_encoder, action_tokens,
+                cache.action if cache is not None else None)
 
         signal_emb = self.signal_levels_embed(signal_levels.long())          # (b, t, d/2)
         step_emb = self.step_size_embed(step_sizes_log2.long())              # (b, d/2)
@@ -504,6 +624,10 @@ class DynamicsWorldModel(nn.Module):
             if reward_tokens is None:
                 reward_tokens = (self.reward_learned_embed[0] * 0.0).expand(b, t, 1, dim)
             parts.append(reward_tokens)
+        if self.has_aug_conditioning:
+            if aug_token is None:
+                aug_token = self.aug_cond_embedding.weight[0].expand(b, t, 1, dim)
+            parts.append(aug_token)
         parts.append(agent_tokens)
         dt = parts[0].dtype
         for p in parts[1:]:
@@ -511,13 +635,23 @@ class DynamicsWorldModel(nn.Module):
         tokens = torch.cat([p.to(dt) for p in parts], dim=2)
         assert tokens.shape[2] == self.tokens_per_frame
 
-        tokens, interm = self.transformer(
-            tokens, cache=cache.main if cache is not None else None, max_time=max_time,
-            return_intermediates=True, collect_normed_inputs=False)
+        tokens, interm = sub_trunk(self.transformer, tokens,
+                                   cache.main if cache is not None else None)
+        # the actor and critic trunks read the main trunk's output
+        actor_interm = critic_interm = None
+        agent_out = tokens[:, :, -self.num_agents:]
+        actor_out = critic_out = agent_out
+        if self.actor_depth > 0:
+            actor_tokens, actor_interm = sub_trunk(self.actor_transformer, tokens,
+                                                   cache.actor if cache is not None else None)
+            actor_out = actor_tokens[:, :, -self.num_agents:]
+        if self.critic_depth > 0:
+            critic_tokens, critic_interm = sub_trunk(self.critic_transformer, tokens,
+                                                     cache.critic if cache is not None else None)
+            critic_out = critic_tokens[:, :, -self.num_agents:]
 
         n_space = v * s_per_view
         space_out = tokens[:, :, 1:1 + n_space]
-        agent_out = tokens[:, :, -self.num_agents:]
 
         h = self.latent_pred_norm(space_out.reshape(b, t, v, s_per_view, dim))
         if self.latent_pred_pool is not None:
@@ -537,22 +671,30 @@ class DynamicsWorldModel(nn.Module):
             if v == 1:
                 pred_state = pred_state[:, :, 0]    # single-view callers keep (b, t, n, d, 2)
 
-        new_cache = DynamicsCache(main=interm.cache) if interm.cache is not None else None
+        new_cache = None
+        if interm.cache is not None:
+            cache_of = lambda out: out.cache if out is not None else None
+            new_cache = DynamicsCache(main=interm.cache, actor=cache_of(actor_interm),
+                                      critic=cache_of(critic_interm),
+                                      spatial=cache_of(spatial_interm),
+                                      action=cache_of(action_interm))
+        aux = dict(layer_hiddens=interm.layer_hiddens, space_out=space_out)
         return (Predictions(flow=pred, proprio=pred_proprio, state=pred_state),
-                Embeds(agent=agent_out, state_pred=state_pred_out, actor=agent_out,
-                       critic=agent_out),
-                new_cache)
+                Embeds(agent=agent_out, state_pred=state_pred_out, actor=actor_out,
+                       critic=critic_out),
+                aux, new_cache)
 
     # --------------------------------------------------------------- forward
 
     def forward(self, *, latents, signal_levels=None, step_sizes=None, step_sizes_log2=None,
                 rewards=None, terminals=None, discrete_actions=None, continuous_actions=None,
-                shift_action_tokens: bool = True, proprio=None, lens=None,
-                action_token_mask=None,
-                reward_token_mask=None, latent_has_view_dim: bool = False, agent_index: int = 0,
-                cache: DynamicsCache | None = None, max_time: int | None = None,
-                latent_is_noised: bool = False, return_pred_only: bool = False,
-                return_intermediates: bool = False, shortcut_train: bool | None = None,
+                shift_action_tokens: bool = True, proprio=None, tasks=None, latent_gene_ids=None,
+                lens=None, action_token_mask=None, reward_token_mask=None, aug_id=None,
+                cfg_dropout_aug: bool | None = None, latent_has_view_dim: bool = False,
+                agent_index: int = 0, cache: DynamicsCache | None = None,
+                max_time: int | None = None, latent_is_noised: bool = False,
+                return_pred_only: bool = False, return_intermediates: bool = False,
+                return_layer_hiddens: bool = False, shortcut_train: bool | None = None,
                 is_training: bool = True, update_loss_ema: bool = True,
                 generator: torch.Generator | None = None):
         """Without signal levels, the training forward: draws signal levels
@@ -563,7 +705,14 @@ class DynamicsWorldModel(nn.Module):
         divided by their EMA's RMS, which moves with `update_loss_ema`.
         With `latent_is_noised` (or `return_pred_only`), the prediction:
         Predictions, or (Predictions, (Embeds, new_cache)). Draws come from
-        `generator` through `draw`."""
+        `generator` through `draw`.
+
+        `tasks` and `latent_gene_ids` (b,) ints add their embeddings to the
+        agent tokens. `aug_id` (an int, a bool meaning 2 for True, or (b,)
+        of either) picks the aug token; in training each row's id drops to
+        0 with probability `aug_cfg_dropout_prob` (`cfg_dropout_aug`,
+        default: in training). `return_layer_hiddens` appends the main
+        trunk's hiddens to the training forward's output."""
         device = self.device
         b, time = latents.shape[:2]
         if latents.ndim == 4 and not latent_has_view_dim:
@@ -628,8 +777,18 @@ class DynamicsWorldModel(nn.Module):
                 proprio_noise = rnd('proprio_noise', proprio.shape)
                 noised_proprio = proprio_noise + (proprio - proprio_noise) * times[..., None]
 
-        agent_tokens = self.agent_learned_embed[None, None].expand(
-            b, time, self.num_agents, self.dim)
+        agent_tokens = self.agent_learned_embed[None].expand(b, self.num_agents, self.dim)
+        if tasks is not None:
+            if self.num_tasks == 0:
+                raise ValueError('tasks need a model with num_tasks > 0')
+            agent_tokens = agent_tokens + self.task_embed(torch.as_tensor(
+                tasks, device=device).long())[:, None, :]
+        if latent_gene_ids is not None:
+            if self.num_latent_genes == 0:
+                raise ValueError('latent_gene_ids need a model with num_latent_genes > 0')
+            ids = torch.as_tensor(latent_gene_ids, device=device).long()
+            agent_tokens = agent_tokens + self.latent_genes[ids][:, None, :]
+        agent_tokens = agent_tokens[:, None].expand(b, time, self.num_agents, self.dim)
         is_sequential = cache is not None and time == 1
         reward_tokens = self._reward_tokens(rewards, time, reward_token_mask=reward_token_mask,
                                             agent_index=agent_index,
@@ -642,9 +801,23 @@ class DynamicsWorldModel(nn.Module):
                                             action_token_mask=action_token_mask,
                                             agent_index=agent_index)
 
-        pred, embeds, new_cache = self._predict(noised_latents, noised_proprio, signal_levels,
-                                                step_sizes_log2, action_tokens, reward_tokens,
-                                                agent_tokens, cache=cache, max_time=max_time)
+        aug_token = None
+        if self.has_aug_conditioning:
+            if cfg_dropout_aug is None:
+                cfg_dropout_aug = is_training and not is_inference
+            aug_ids = torch.as_tensor(0 if aug_id is None else aug_id, device=device)
+            # a bool id means 2 for True and 1 for False
+            aug_ids = aug_ids.long() + 1 if aug_ids.dtype == torch.bool else aug_ids.long()
+            aug_ids = aug_ids.expand(b)
+            if cfg_dropout_aug and self.aug_cfg_dropout_prob > 0.0:
+                drop = rnd('aug_drop', (b,), prob=self.aug_cfg_dropout_prob)
+                aug_ids = torch.where(drop, 0, aug_ids)
+            aug_token = self.aug_cond_embedding(aug_ids)[:, None, None, :].expand(
+                b, time, 1, self.dim)
+
+        pred, embeds, aux, new_cache = self._predict(
+            noised_latents, noised_proprio, signal_levels, step_sizes_log2, action_tokens,
+            reward_tokens, aug_token, agent_tokens, cache=cache, max_time=max_time)
         if return_pred_only:
             if not return_intermediates:
                 return pred
@@ -656,8 +829,8 @@ class DynamicsWorldModel(nn.Module):
             terminals=terminals, discrete_actions=discrete_actions,
             continuous_actions=continuous_actions, shift_action_tokens=shift_action_tokens,
             lens=lens, agent_index=agent_index, shortcut_train=bool(shortcut_train),
-            frozen_tokens=(action_tokens, reward_tokens, agent_tokens),
-            next_action_tokens=next_action_tokens)
+            frozen_tokens=(action_tokens, reward_tokens, aug_token, agent_tokens),
+            next_action_tokens=next_action_tokens, aux=aux, generator=generator)
         if self.use_loss_normalization:
             given = dict(flow=True, shortcut=True, reward=rewards is not None,
                          terminal=terminals is not None,
@@ -674,15 +847,23 @@ class DynamicsWorldModel(nn.Module):
                       + (losses.discrete_actions * w['discrete_actions']).sum()
                       + (losses.continuous_actions * w['continuous_actions']).sum()
                       + losses.state_pred * w['state_pred']
-                      + losses.agent_state_pred * w['agent_state_pred'])
+                      + losses.agent_state_pred * w['agent_state_pred']
+                      + losses.latent_ar * w['latent_ar']
+                      + losses.latent_ar_sigreg * w['latent_ar_sigreg']
+                      + losses.lapo_action * w['lapo_action']
+                      + losses.lapo_fdm * w['lapo_fdm']
+                      + losses.lapo_raw_latent_fdm * w['lapo_raw_latent_fdm']
+                      + losses.tem * w['tem'])
         if not return_intermediates:
             return total_loss
+        if return_layer_hiddens:
+            return total_loss, losses, embeds, aux['layer_hiddens']
         return total_loss, losses, embeds
 
     def _losses(self, latents, noised_latents, noise, pred, embeds, times, signal_levels,
                 step_sizes_log2, *, proprio, rewards, terminals, discrete_actions,
                 continuous_actions, shift_action_tokens, lens, agent_index, shortcut_train,
-                frozen_tokens, next_action_tokens) -> WorldModelLosses:
+                frozen_tokens, next_action_tokens, aux, generator) -> WorldModelLosses:
         b, time = latents.shape[:2]
         device = latents.device
         zero = torch.zeros((), device=device)
@@ -705,7 +886,7 @@ class DynamicsWorldModel(nn.Module):
         # full step
         shortcut_losses = None
         if shortcut_train:
-            action_tokens, reward_tokens, agent_tokens = frozen_tokens
+            action_tokens, reward_tokens, aug_token, agent_tokens = frozen_tokens
             half_log2 = step_sizes_log2 - 1
             half_step = 2 ** half_log2
             first_times = times[..., None]
@@ -715,8 +896,8 @@ class DynamicsWorldModel(nn.Module):
             def run_frozen(noised_flat, sig):
                 lat = noised_flat[..., :lat_size].reshape(latents.shape)
                 prop = noised_flat[..., lat_size:] if self.has_proprio else None
-                p, _, _ = self._predict(lat, prop, sig, half_log2, action_tokens, reward_tokens,
-                                        agent_tokens)
+                p = self._predict(lat, prop, sig, half_log2, action_tokens, reward_tokens,
+                                  aug_token, agent_tokens)[0]
                 return pack(p.flow, p.proprio)
 
             with torch.no_grad():
@@ -860,9 +1041,45 @@ class DynamicsWorldModel(nn.Module):
                 else:
                     action_losses[kind] = nl.mean(dim=(1, 2, 3))
 
+        def next_actions_or_zeros():
+            nat = next_action_tokens
+            return nat if nat is not None else torch.zeros((b, time, self.dim), device=device)
+
+        # latent AR on the main trunk's hiddens of the spatial tokens, from
+        # one layer to itself or to another, conditioned on the next action
+        latent_ar_loss = latent_ar_sigreg_loss = zero
+        if self.latent_ar and time > 1:
+            layer = self.latent_ar_layer
+            src_layer, tgt_layer = layer if isinstance(layer, tuple) else (layer, layer)
+            hiddens = aux['layer_hiddens']
+            n_space = self.num_spatial_tokens * self.num_video_views
+            src_h = hiddens[src_layer][:, :, 1:1 + n_space]
+            tgt_h = hiddens[tgt_layer][:, :, 1:1 + n_space]
+            cond = None
+            if self.latent_ar_action_conditioned:
+                nat = next_actions_or_zeros()
+                if nat.shape[1] == time - 1:
+                    nat = nn.functional.pad(nat, (0, 0, 0, 1))
+                cond = nat[:, :, None, :].expand(*src_h.shape[:-1], self.dim)
+            latent_ar_loss, latent_ar_sigreg_loss, _ = self.latent_ar_module(
+                src_h, target=None if src_layer == tgt_layer else tgt_h, mask=loss_mask,
+                cond=cond, generator=generator)
+
+        # the self-supervised losses: LAPO over the trunk's spatial outputs,
+        # TEM over the next action tokens, both against the raw latents
+        lapo = (zero, zero, zero)
+        if self.ssl_lapo and time > 1:
+            lapo = self.ssl_lapo_module(aux['space_out'], discrete_actions=discrete_actions,
+                                        continuous_actions=continuous_actions,
+                                        raw_latents=latents[:, :, 0])
+        tem_loss = zero
+        if self.ssl_tem:
+            tem_loss = self.ssl_tem_module(next_actions_or_zeros(), latents[:, :, 0])
+
         return WorldModelLosses(
             flow=flow_loss, shortcut=shortcut_loss, rewards=reward_loss,
             terminals=terminal_loss, discrete_actions=action_losses['discrete'],
             continuous_actions=action_losses['continuous'], state_pred=state_pred_loss,
-            agent_state_pred=agent_state_pred_loss, latent_ar=zero, latent_ar_sigreg=zero, lapo_action=zero,
-            lapo_fdm=zero, lapo_raw_latent_fdm=zero, tem=zero, h_net=zero)
+            agent_state_pred=agent_state_pred_loss, latent_ar=latent_ar_loss,
+            latent_ar_sigreg=latent_ar_sigreg_loss, lapo_action=lapo[0], lapo_fdm=lapo[1],
+            lapo_raw_latent_fdm=lapo[2], tem=tem_loss, h_net=zero)

@@ -56,6 +56,15 @@ def z_score(t: torch.Tensor, mask: torch.Tensor | None = None, eps: float = 1e-5
     return (t - mean) / var.clamp_min(eps).sqrt()
 
 
+def cosine_distance(x: torch.Tensor, y: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean of 1 - cos(x, y) over the rows of the last dim, counting
+    the positions `mask` keeps (as in `masked_mean`)."""
+    num = (x * y).sum(dim=-1)
+    den = torch.linalg.vector_norm(x, dim=-1) * torch.linalg.vector_norm(y, dim=-1)
+    return masked_mean(1.0 - num / den.clamp_min(1e-12), mask)
+
+
 def ramp_weight(times: torch.Tensor, slope: float = 0.9, intercept: float = 0.1) -> torch.Tensor:
     """Ramp loss weighting, eq (8) of the paper."""
     return slope * times + intercept

@@ -6,7 +6,8 @@ A model checkpoint is a directory:
                  free-form `extra` metadata
   weights.pt   — the state_dict, saved with `torch.save`
 A train-state checkpoint adds `train_meta.json` and `train_state.pt` (model
-state_dict, optimizer state_dict, EMA weights, step).
+state_dict, optimizer state_dict, EMA weights, step, and the state_dicts
+of the modules trained beside the model, by their prefix).
 """
 from __future__ import annotations
 
@@ -96,8 +97,10 @@ def save_train_state(path: str | Path, ts, extra: dict | None = None):
     path.mkdir(parents=True, exist_ok=True)
     (path / 'train_meta.json').write_text(json.dumps(
         dict(step=ts.step, has_ema=ts.ema_params is not None, extra=extra or {}), indent=2))
+    others = {prefix: m.state_dict() for prefix, m in ts.modules().items() if prefix}
     torch.save(dict(params=ts.model.state_dict(), opt_state=ts.optimizer.state_dict(),
-                    ema_params=ts.ema_params, step=ts.step), path / 'train_state.pt')
+                    ema_params=ts.ema_params, step=ts.step, modules=others),
+               path / 'train_state.pt')
 
 
 def load_train_state(path: str | Path, ts):
@@ -107,6 +110,12 @@ def load_train_state(path: str | Path, ts):
     meta = json.loads((path / 'train_meta.json').read_text())
     tree = torch.load(path / 'train_state.pt', map_location=ts.model.device)
     ts.model.load_state_dict(tree['params'])
+    others = {prefix: m for prefix, m in ts.modules().items() if prefix}
+    if set(others) != set(tree.get('modules', {})):
+        raise ValueError(f'the checkpoint trains modules {sorted(tree.get("modules", {}))} '
+                         f'beside the model, the train state {sorted(others)}')
+    for prefix, module in others.items():
+        module.load_state_dict(tree['modules'][prefix])
     ts.optimizer.load_state_dict(tree['opt_state'])
     ema = ts.ema_params
     if meta['has_ema']:

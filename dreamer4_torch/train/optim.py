@@ -68,26 +68,44 @@ def muon_label(name: str, param: torch.Tensor) -> str:
     return 'muon' if param.ndim == 2 and MUON_NAMES & set(name.split('.')) else 'adam'
 
 
-def transposed_from_flax(model: nn.Module) -> set[str]:
+def _as_prefixed(modules: nn.Module | dict[str, nn.Module]) -> dict[str, nn.Module]:
+    return {'': modules} if isinstance(modules, nn.Module) else modules
+
+
+def transposed_from_flax(modules: nn.Module | dict[str, nn.Module]) -> set[str]:
     """Names of the parameters whose torch layout is the transpose of
-    flax's: the weights of `nn.Linear` modules (see convert.py)."""
+    flax's: the weights of `nn.Linear` modules (see convert.py), named as
+    `named_train_parameters` names them."""
     return {f'{mod_name}.weight' if mod_name else 'weight'
-            for mod_name, mod in model.named_modules() if isinstance(mod, nn.Linear)}
+            for prefix, module in _as_prefixed(modules).items()
+            for mod_name, mod in module.named_modules(prefix=prefix)
+            if isinstance(mod, nn.Linear)}
+
+
+def named_train_parameters(modules: nn.Module | dict[str, nn.Module]):
+    """(name, parameter) of one module, under the parameters' own names,
+    or of a dict of modules, each under its key as a prefix ('' for none:
+    the counterpart keeps such a module's parameters under that top-level
+    key of its parameter tree)."""
+    for prefix, module in _as_prefixed(modules).items():
+        yield from module.named_parameters(prefix=prefix)
 
 
 class MuonAdamAtan2(torch.optim.Optimizer):
     """The counterpart's `muon_adam_atan2(learning_rate, muon_learning_rate,
-    weight_decay, clip_grad_norm, b1, b2, momentum)` over `model`'s
-    parameters. A parameter without a gradient counts as a zero gradient,
-    as every parameter has one in the counterpart."""
+    weight_decay, clip_grad_norm, b1, b2, momentum)` over the parameters
+    of `model`: one module, or a dict of modules by the prefix of their
+    parameters' names (see `named_train_parameters`). A parameter without
+    a gradient counts as a zero gradient, as every parameter has one in
+    the counterpart."""
 
-    def __init__(self, model: nn.Module, learning_rate: float = 3e-4,
+    def __init__(self, model: nn.Module | dict[str, nn.Module], learning_rate: float = 3e-4,
                  muon_learning_rate: float | None = None, weight_decay: float = 0.0,
                  clip_grad_norm: float | None = None, b1: float = 0.9, b2: float = 0.99,
                  momentum: float = 0.95, ns_steps: int = 5, a: float = 1.27, b: float = 1.0):
         transposed = transposed_from_flax(model)
         named = {'muon': [], 'adam': []}
-        for name, p in model.named_parameters():
+        for name, p in named_train_parameters(model):
             named[muon_label(name, p)].append((name, p))
         muon_lr = muon_learning_rate if muon_learning_rate is not None else learning_rate * 10.0
         groups = [dict(params=[p for _, p in named['muon']], kind='muon', lr=muon_lr,

@@ -31,30 +31,57 @@ from ..device import resolve_device
 from ..envs.interact import EnvInteractor
 from ..models.generate import generate
 from ..models.rl import ReturnStats, RLLossOutputs, rl_losses
+from ..models.self_flow import SelfFlowHead, self_flow_loss
 from ..models.tokenizer import TokenizerLosses, VideoTokenizer, latent_consistency_loss
 from ..models.world_model import DynamicsWorldModel, WorldModelLosses
 from ..nn.lpips import init_lpips, lpips_loss
 from .checkpoint import load_train_state, save_model, save_train_state
 from .ema import init_ema, update_ema
-from .optim import MuonAdamAtan2, with_grad_accum
+from .optim import MuonAdamAtan2, named_train_parameters, with_grad_accum
 
-# batch entries of the counterpart's train step that the port does not take yet
-_NOT_PORTED_BATCH = ('tasks',)
+# the self-flow head's key in the counterpart's parameter tree, and the
+# prefix of its parameters' names here
+SELF_FLOW_HEAD = 'self_flow_head'
 
 
 class TrainState(NamedTuple):
     """The counterpart's TrainState: `model` holds the parameters and the
     loss normalizers' state (its `params` and `state`), `optimizer` their
-    optimizer state (`opt_state`)."""
+    optimizer state (`opt_state`). A world-model trainer with self-flow
+    also trains `self_flow_head`, whose parameters the counterpart keeps
+    under `params['self_flow_head']`: here they are named
+    `self_flow_head.<name>` in the optimizer and the EMA weights."""
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None
     ema_params: dict | None
     step: int
+    self_flow_head: torch.nn.Module | None = None
+
+    def modules(self) -> dict[str, torch.nn.Module]:
+        """The trained modules, by the prefix of their parameters' names:
+        the model's carry none."""
+        if self.self_flow_head is None:
+            return {'': self.model}
+        return {'': self.model, SELF_FLOW_HEAD: self.self_flow_head}
+
+    def named_parameters(self) -> dict[str, torch.Tensor]:
+        """Every trained parameter: the model's, then the head's."""
+        return dict(named_train_parameters(self.modules()))
+
+    def model_ema(self) -> dict[str, torch.Tensor] | None:
+        """The model's own EMA weights (without the head's), by the model's
+        parameter names."""
+        if self.ema_params is None:
+            return None
+        return {k: v for k, v in self.ema_params.items()
+                if not k.startswith(SELF_FLOW_HEAD + '.')}
 
 
-def create_train_state(model, optimizer, with_ema: bool = False) -> TrainState:
-    ema = init_ema(dict(model.named_parameters())) if with_ema else None
-    return TrainState(model=model, optimizer=optimizer, ema_params=ema, step=0)
+def create_train_state(model, optimizer, with_ema: bool = False,
+                       self_flow_head: torch.nn.Module | None = None) -> TrainState:
+    ts = TrainState(model=model, optimizer=optimizer, ema_params=None, step=0,
+                    self_flow_head=self_flow_head)
+    return ts._replace(ema_params=init_ema(ts.named_parameters()) if with_ema else None)
 
 
 def _apply_update(ts: TrainState, ema_decay: float) -> TrainState:
@@ -65,7 +92,7 @@ def _apply_update(ts: TrainState, ema_decay: float) -> TrainState:
     if getattr(ts.optimizer, 'mini_step', 0) != 0:
         return ts
     if ts.ema_params is not None:
-        update_ema(ts.ema_params, dict(ts.model.named_parameters()), ema_decay)
+        update_ema(ts.ema_params, ts.named_parameters(), ema_decay)
     return ts._replace(step=ts.step + 1)
 
 
@@ -93,23 +120,33 @@ def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float
 
 
 def make_world_model_train_step(model: DynamicsWorldModel, optimizer: MuonAdamAtan2,
-                                ema_decay: float = 0.999):
+                                ema_decay: float = 0.999, self_flow_cfg: dict | None = None):
     """-> train_step(ts, batch, shortcut_train, generator=None) returning
     (ts, loss, losses): the training forward on `batch` (latents, rewards,
-    terminals, discrete_actions, continuous_actions, proprio, lens), its
-    gradients, one optimizer update and one EMA update."""
+    terminals, discrete_actions, continuous_actions, proprio, lens, tasks),
+    its gradients, one optimizer update and one EMA update.
+
+    `self_flow_cfg`: dict(head=SelfFlowHead, weight, student_layer,
+    teacher_layer) adds `weight` times the self-flow loss, whose teacher
+    runs on the EMA weights, so it needs `ts.ema_params` and a `generator`:
+    its forwards take the draws that follow the training forward's."""
 
     def train_step(ts: TrainState, batch: dict, shortcut_train: bool,
                    generator: torch.Generator | None = None):
-        for name in _NOT_PORTED_BATCH:
-            if batch.get(name) is not None:
-                raise NotImplementedError(f'batch entry {name} is not ported yet')
+        if self_flow_cfg is not None and (generator is None or ts.ema_params is None):
+            raise ValueError('the self-flow loss needs a generator, so that the teacher '
+                             'replays the student\'s draws, and EMA weights for the teacher')
         kwargs = {k: batch.get(k) for k in ('rewards', 'terminals', 'discrete_actions',
-                                            'continuous_actions', 'proprio', 'lens')}
+                                            'continuous_actions', 'proprio', 'lens', 'tasks')}
+        kwargs = dict(latents=batch['latents'], **kwargs, shortcut_train=shortcut_train)
         optimizer.zero_grad(set_to_none=True)
-        loss, losses, _ = model(latents=batch['latents'], **kwargs,
-                                shortcut_train=shortcut_train, return_intermediates=True,
-                                generator=generator)
+        loss, losses, _ = model(**kwargs, return_intermediates=True, generator=generator)
+        if self_flow_cfg is not None:
+            sf = self_flow_loss(model, self_flow_cfg['head'], ts.model_ema(), kwargs, generator,
+                                student_layer=self_flow_cfg.get('student_layer', -3),
+                                teacher_layer=self_flow_cfg.get('teacher_layer', -1),
+                                lens=batch.get('lens'))
+            loss = loss + sf * self_flow_cfg.get('weight', 1.0)
         loss.backward()
         ts = _apply_update(ts, ema_decay)
         return ts, loss.detach(), WorldModelLosses(*(l.detach() for l in losses))
@@ -137,10 +174,10 @@ class _CheckpointableTrainer:
         extra['_torch_generator'] = self.generator.get_state().tolist()
         save_model(target, self.model, extra=dict(step=step, **extra))
         if self.ts.ema_params is not None:
-            # EMA weights, with the model's buffers, as a standalone loadable
-            # model checkpoint
+            # the model's EMA weights, with its buffers, as a standalone
+            # loadable model checkpoint
             save_model(target / 'ema', self.model,
-                       state_dict={**self.model.state_dict(), **self.ts.ema_params},
+                       state_dict={**self.model.state_dict(), **self.ts.model_ema()},
                        extra=dict(step=step, ema=True))
         save_train_state(target, self.ts, extra=extra)
         if tag_step:
@@ -223,35 +260,47 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
     (probability `model.prob_shortcut_train`), then one train step. Runs on
     CUDA unless `device='cpu'` is given, and the models must live there.
 
-    Not ported yet, and refused when set: `aux_image_encoder_fn` and
-    `use_self_flow`."""
+    `use_self_flow` adds the self-flow loss (`self_flow_weight`, the
+    student's and the teacher's layers): the trainer holds a
+    `SelfFlowHead` (`self.self_flow_head`), trained with the model under
+    one optimizer and one EMA, and keeps the EMA on whatever `with_ema`
+    says, as the counterpart does. Not ported yet, and refused when set:
+    `aux_image_encoder_fn`."""
 
     def __init__(self, model: DynamicsWorldModel, *, tokenizer: VideoTokenizer | None = None,
                  aux_image_encoder_fn=None, learning_rate: float = 3e-4,
                  clip_grad_norm: float = 1.0, grad_accum: int = 1, with_ema: bool = True,
                  ema_decay: float = 0.999, seed: int = 0, use_self_flow: bool = False,
-                 device=None):
-        for name, value in (('aux_image_encoder_fn', aux_image_encoder_fn),
-                            ('use_self_flow', use_self_flow)):
-            if value:
-                raise NotImplementedError(f'{name} is not ported to dreamer4_torch yet')
+                 self_flow_weight: float = 1.0, self_flow_student_layer: int = -3,
+                 self_flow_teacher_layer: int = -1, device=None):
+        if aux_image_encoder_fn is not None:
+            raise NotImplementedError('aux_image_encoder_fn is not ported to dreamer4_torch yet')
         device = _check_device(model, device)
         if tokenizer is not None and tokenizer.device != device:
             raise ValueError(f'the tokenizer is on {tokenizer.device}, the trainer on {device}')
         self.model = model
         self.tokenizer = tokenizer
+        self.self_flow_head = SelfFlowHead(model.dim, device=device) if use_self_flow else None
+        self_flow_cfg = None
+        if use_self_flow:
+            self_flow_cfg = dict(head=self.self_flow_head, weight=self_flow_weight,
+                                 student_layer=self_flow_student_layer,
+                                 teacher_layer=self_flow_teacher_layer)
+        ts = create_train_state(model, None, with_ema=with_ema or use_self_flow,
+                                self_flow_head=self.self_flow_head)
         self.optimizer = with_grad_accum(
-            MuonAdamAtan2(model, learning_rate=learning_rate, clip_grad_norm=clip_grad_norm),
-            grad_accum)
-        self.ts = create_train_state(model, self.optimizer, with_ema=with_ema)
-        self._train_step = make_world_model_train_step(model, self.optimizer, ema_decay)
+            MuonAdamAtan2(ts.modules(), learning_rate=learning_rate,
+                          clip_grad_norm=clip_grad_norm), grad_accum)
+        self.ts = ts._replace(optimizer=self.optimizer)
+        self._train_step = make_world_model_train_step(model, self.optimizer, ema_decay,
+                                                       self_flow_cfg=self_flow_cfg)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
     def train_on_batch(self, batch: dict):
         """batch: latents (b, t, n, d), or video (b, c, t, h, w) with a
         tokenizer, and optional rewards, terminals, discrete_actions,
-        continuous_actions, proprio, lens, on the trainer's device.
+        continuous_actions, proprio, lens, tasks, on the trainer's device.
         -> (loss, losses)."""
         batch = dict(batch)
         if 'latents' not in batch:

@@ -1086,12 +1086,15 @@ def test_continuous_model_checkpoint_roundtrip(tmp_path):
 # ---------------------------------------------------------------- refusals
 
 def test_remaining_refusals():
-    """What stays refused: the latent AR loss and the `tasks` batch entry
-    (not ported yet), and proprioception in the interactor and the
-    wrapper, whose JAX counterparts cannot drive such a model. The agent's
-    state prediction builds with continuous actions."""
-    with pytest.raises(NotImplementedError, match='latent_ar'):
-        DynamicsWorldModel(**CFG, latent_ar=True, device='cpu')
+    """What stays refused: the GRU time layer and multi-view world models
+    (not ported yet), a `tasks` batch entry for a model without tasks, and
+    proprioception in the interactor and the wrapper, whose JAX
+    counterparts cannot drive such a model. The agent's state prediction
+    builds with continuous actions."""
+    with pytest.raises(NotImplementedError, match='use_time_rnn'):
+        DynamicsWorldModel(**CFG, use_time_rnn=True, device='cpu')
+    with pytest.raises(NotImplementedError, match='multi-view'):
+        DynamicsWorldModel(**CFG, num_video_views=2, device='cpu')
     assert DynamicsWorldModel(**CFG, agent_predicts_state=True,
                               device='cpu').agent_state_pred_net.Dense_0.in_features == 2 * 64
     _, _, tm = build_pair()
@@ -1103,7 +1106,7 @@ def test_remaining_refusals():
         DynamicsWorldModelWrapper(tm, device='cpu')
     trainer = BehaviorCloneTrainer(tm, device='cpu')
     batch = to_torch(reacher_batch(0, b=1, t=3))
-    with pytest.raises(NotImplementedError, match='tasks'):
+    with pytest.raises(ValueError, match='num_tasks'):
         trainer.train_on_batch({**batch, 'tasks': torch.zeros(1, dtype=torch.long)})
     with pytest.raises(ValueError, match='proprio'):
         tm(**{k: v for k, v in batch.items() if k != 'proprio'}, shortcut_train=False)

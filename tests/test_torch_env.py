@@ -255,7 +255,7 @@ def test_unported_environment_options_raise():
     for name in ('agent_predicts_state', 'actor_critic_latent_input'):
         EnvInteractor(DynamicsWorldModel(**SMALL, **STATE, **{name: True}, device='cpu'),
                       device='cpu')
-    for name, value in (('num_tasks', 2), ('latent_ar', True), ('ssl_lapo', True)):
+    for name, value in (('use_time_rnn', True), ('mot_temporal', True), ('h_net_layer', 1)):
         with pytest.raises(NotImplementedError, match=name):
             DynamicsWorldModel(**SMALL, **STATE, **{name: value}, device='cpu')
 

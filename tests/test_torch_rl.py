@@ -823,9 +823,10 @@ def test_rl_losses_refuses_unported_inputs(model_and_experience):
     model, exp = model_and_experience
     with pytest.raises(ValueError, match='objective'):
         rl_losses(model, exp, objective='a2c')
-    for name in ('latent_ar', 'ssl_lapo', 'ssl_tem'):
+    for name, value in (('time_attention_use_pope', True), ('h_net_layer', 1),
+                        ('use_time_rnn', True)):
         with pytest.raises(NotImplementedError, match=name):
-            DynamicsWorldModel(**SMALL, **{name: True}, device='cpu')
+            DynamicsWorldModel(**SMALL, **{name: value}, device='cpu')
     latent = DynamicsWorldModel(**SMALL, actor_critic_latent_input=True, device='cpu')
     with pytest.raises(ValueError, match='latent_input_full_model_ok'):
         rl_losses(latent, exp, only_learn_policy_value_heads=False)

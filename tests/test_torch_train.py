@@ -441,9 +441,12 @@ def test_trainer_device_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             BehaviorCloneTrainer(model)
-    for kw in (dict(aux_image_encoder_fn=lambda v: v), dict(use_self_flow=True)):
-        with pytest.raises(NotImplementedError):
-            BehaviorCloneTrainer(model, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='aux_image_encoder_fn'):
+        BehaviorCloneTrainer(model, device='cpu', aux_image_encoder_fn=lambda v: v)
+    # self-flow trains the EMA teacher's student: the EMA is on whatever
+    # with_ema says
+    assert BehaviorCloneTrainer(model, device='cpu', use_self_flow=True,
+                                with_ema=False).ts.ema_params is not None
     trainer = BehaviorCloneTrainer(model, device='cpu')
     with pytest.raises(ValueError):   # video needs a tokenizer to become latents
         trainer.train_on_batch({'video': torch.zeros(1)})

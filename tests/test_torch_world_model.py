@@ -117,7 +117,7 @@ def test_training_forward_and_unported_options_raise():
     with pytest.raises(ValueError):
         tm(latents=torch.zeros(1, 2, 4, 8))
     with pytest.raises(NotImplementedError):
-        DynamicsWorldModel(**SMALL, device='cpu', latent_ar=True)
+        DynamicsWorldModel(**SMALL, device='cpu', mot_temporal=True)
     with pytest.raises(TypeError):
         DynamicsWorldModel(**SMALL, device='cpu', no_such_option=1)
 
