@@ -209,10 +209,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
                head moving. Every K1 on the wgmma kernel; ms (first and
                warm), peak memory and launches per part, dreamed
                env-steps/s.
- 15. small   — K4 and K5 (the small-attention forward and backward) against
+ 15. tok-full — the tokenizer's remaining options, PoPE and MOSS, and
+               SUGAR's backward: a. the bench tokenizer (bf16 trunks,
+               `use_fused_small`) with the latent init from 4 x 4 patches,
+               slot attention initializing the encoder's latents and the
+               decoder's spatial tokens, the separate flow decoder, the aug
+               token (81 tokens per frame), BYOL through SEM against the
+               EMA teacher, the latent AR loss, time and space PoPE in
+               every trunk and a MOSS layer in the encoder and the decoder
+               (`TOK_FULL`), under `TokenizerTrainer` at b8 x T16: a main-
+               decoder and a flow-decoder step through the step function,
+               then two `train_on_batch` (K4 3, K5 2 each at B = 648: the
+               EMA teacher's encode, the student's encode, the decoder that
+               trains), the loss and the time-layer gradients through K4/K5
+               held against float32 for each decoder as in phase 6, the new
+               loss terms finite and nonzero, the idle decoder's gradient
+               zero, PoPE and slot attention moving, ms per step beside the
+               bench tokenizer's; b. encode with aug ids 0 and 2 (they
+               differ), a 4-step decode (step 0 on the main decoder, 1-3 on
+               the flow decoder), the streaming encode over 16 frames
+               through the four-part cache (the trunk's part with the MOSS
+               cache) held against one uncached encode, and
+               `latent_disagreement`; c. two steps of the bench tokenizer
+               with Beta(2, 1) flow times, the mean of 1e5 of the port's
+               Beta draws within 0.01 of 2/3, and SUGAR's gradient on a
+               (4096, 512) float32 tensor within 1e-6 of its float64 closed
+               form; d. the bench world model with time PoPE: a plain
+               b1 x T1024 step (K1-K3 2 / 2 / 2; the loss and the
+               time-layer gradients, PoPE's included, against float32 as
+               in phase 4) timed beside the bench model's, and the prompted
+               b16 x T192 dream (K1 2), its prompt pass held against
+               float32 as in phase 3.
+ 16. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
-               float32, without the softclamp, and at ragged shapes; timed
+               float32, without the softclamp, at the all-options
+               tokenizer's time layer (`tokfull_time`, B = 648, bf16), and
+               at ragged shapes; timed
                beside their bounds, their plain versions and the PyTorch
                call for the same function (SDPA, compiled
                `flex_attention`, flex's backward; at the ragged n = 13 shapes
@@ -554,6 +587,43 @@ WMOPT_LAUNCHES = {'wmopt_train_plain': (4, 3, 3, 0, 0),
                   'wmopt_generate': (4, 0, 0, 0, 0),
                   'wmopt_dream_trainer': (4, 0, 0, 0, 0),
                   'wmopt_rl_full': (4, 2, 2, 0, 0)}
+
+# the tok-full phase. a. the bench tokenizer with every option of the
+# tokenizer's last slice: the latent init from 4 x 4 patches, slot attention
+# initializing the encoder's latents and the decoder's spatial tokens, the
+# separate flow decoder, the aug token (81 tokens per frame), BYOL through
+# SEM against the EMA teacher, the latent AR loss, time and space PoPE in
+# every trunk and a MOSS layer after layer 1 of the encoder and the decoder
+TOK_FULL = dict(BENCH_TOKENIZER, latent_init_patch_size=4, slot_attention_initted_latents=True,
+                decoder_slot_attention_initted_spatial_tokens=True, separate_flow_decoder=True,
+                has_aug_conditioning=True, has_byol=True, byol_use_sem=True,
+                latent_ar_loss_weight=0.1, time_attention_use_pope=True,
+                space_attention_use_pope=True, encoder_moss_layers=(1,), decoder_moss_layers=(1,))
+TOK_FULL_TOKENS = 81
+TOK_FULL_NEW_LOSSES = ('byol', 'latent_ar', 'latent_ar_sigreg')
+# predicted before the first run: a train step runs K4 in the EMA teacher's
+# encode (no grad), the student's encode and the one decoder that trains,
+# K5 in the last two (B = 8 x 81 = 648, n = 16); space attention (n*h =
+# 648) and K1-K3 stay off. b. an uncached encode one K4, a 4-step decode
+# one per step (main decoder, then 3 flow-decoder steps), the streamed
+# frames none (cached calls take the plain attention), latent_disagreement
+# a decode and an encode. c. the bench tokenizer with Beta flow times, as
+# phase 6's step. d. the bench world model with time PoPE: a plain train
+# step as phase 4's, the prompted dream's prompt pass K1 in 2 time layers
+TOK_FULL_LAUNCHES = {'tokfull_step_main': (0, 0, 0, 3, 2), 'tokfull_step_flow': (0, 0, 0, 3, 2),
+                     'tokfull_train_on_batch_0': (0, 0, 0, 3, 2),
+                     'tokfull_train_on_batch_1': (0, 0, 0, 3, 2),
+                     'tokfull_encode': (0, 0, 0, 1, 0), 'tokfull_decode': (0, 0, 0, 4, 0),
+                     'tokfull_stream': (0, 0, 0, 0, 0), 'tokfull_disagreement': (0, 0, 0, 5, 0),
+                     'tokbeta_train_on_batch_0': (0, 0, 0, 2, 2),
+                     'tokbeta_train_on_batch_1': (0, 0, 0, 2, 2),
+                     'pope_wm_train_plain': LAUNCHES_PER_STEP[False],
+                     'pope_wm_generate': (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0)}
+TOK_BETA = (2.0, 1.0)
+TOK_BETA_DRAWS = 100_000
+TOK_BETA_MEAN_TOL = 0.01      # the mean of Beta(2, 1) is 2/3
+SUGAR_SHAPE = (4096, 512)
+SUGAR_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1186,11 +1256,12 @@ def check_experience(exp, b, T, P, dim, latent_shape, prompt=None):
             raise SystemExit('experience.actions do not keep the prompt actions')
 
 
-def compare_prefill(model, prompt, max_time):
+def compare_prefill(model, prompt, max_time, config=BENCH_MODEL):
     """The prompted rollout's prompt pass in bf16 through K1 and through the
     plain attention (`use_flash_attention` off), each held against the same
-    pass in float32 (plain attention, the bf16 weights upcast). Returns, per
-    output, (K1 error, plain error, K1 vs plain), and both bf16 times."""
+    pass in float32 (a model of `config`, plain attention, the weights
+    upcast). Returns, per output, (K1 error, plain error, K1 vs plain), and
+    both bf16 times."""
     from dreamer4_torch import DynamicsWorldModel
 
     K = model.max_steps
@@ -1208,7 +1279,7 @@ def compare_prefill(model, prompt, max_time):
             ms_plain = host_time_s(lambda: model(**kw), reps=3) * 1e3
         finally:
             model.transformer.use_flash_attention = True
-        ref_model = DynamicsWorldModel(**{**BENCH_MODEL, 'use_flash_attention': False})
+        ref_model = DynamicsWorldModel(**{**config, 'use_flash_attention': False})
         ref_model.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
         ref = outputs(ref_model(**kw))
         del ref_model
@@ -1657,6 +1728,7 @@ def small_kernel_cases():
             ('wm_time', 216, 32, 8, 64, 'causal')]      # b8 x 27 tokens, T = 32
     cases = [(name, dt, *shape, 50.0, dt == bf16) for name, *shape in main for dt in (bf16, f32)]
     cases.append(('tok_time_noclamp', bf16, 640, 16, 8, 64, 'causal', None, True))
+    cases.append(('tokfull_time', bf16, 648, 16, 8, 64, 'causal', 50.0, True))   # 8 x 81 tokens
     for dh in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'ragged_dh{dh}', dt, 96, 13, 4, dh, 'causal', 30.0, dt == bf16))
@@ -1733,6 +1805,9 @@ def time_small_library(q, k, v, do, h, mask, cfg, ref, grad_refs, tol, grad_tol)
 
 # the cases timed also with their inputs rotated over more than the L2
 SMALL_MAIN_CASES = ('tok_time', 'wm_space', 'wm_time')
+# bf16 cases of other main paths, reported in the kernels line beside the
+# main case: the all-options tokenizer's time layers (B = 8 x 81)
+SMALL_PATH_CASES = ('tokfull_time',)
 COLD_BYTES = 100e6    # twice the card's 50 MB L2
 
 
@@ -3318,6 +3393,323 @@ def run_tok_options_phase(seed: int = 0) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- tok-full
+
+def run_tok_full_phase(seed: int = 0) -> dict:
+    """The tokenizer's remaining options, PoPE and MOSS, and SUGAR's
+    backward: a. the bench tokenizer with every option (`TOK_FULL`) under
+    `TokenizerTrainer` with its EMA: a step of the main decoder and one of
+    the flow decoder through the step function, then two `train_on_batch`;
+    the loss and the time-layer gradients through K4/K5 (the encoder's and
+    the decoder's that trains) held against float32 for each decoder as in
+    phase 6, the new loss terms finite and nonzero, the idle decoder's
+    gradient zero, PoPE and slot attention moving; b. encode with two aug
+    ids, a 4-step decode (step 0 on the main decoder, 1-3 on the flow
+    decoder), the streaming encode over 16 frames through the four-part
+    cache with the MOSS cache against one uncached encode, and
+    `latent_disagreement`; c. two steps of the bench tokenizer with Beta
+    flow times, the mean of the port's Beta draws, SUGAR's gradient against
+    its closed form; d. the bench world model with time PoPE: a plain
+    b1 x T1024 step (loss and time-layer gradients, PoPE's included,
+    through K1-K3 against float32) timed beside the bench model's, and the
+    prompted b16 x T192 dream, its prompt pass held against float32 as in
+    phase 3. Returns the (K1..K5) launches by path."""
+    from dreamer4_torch import (BehaviorCloneTrainer, DynamicsWorldModel, TokenizerTrainer,
+                                VideoTokenizer, generate)
+    from dreamer4_torch.models import tokenizer as tokenizer_module
+    from dreamer4_torch.nn.activations import get_activation
+    from dreamer4_torch.train.trainers import (make_tokenizer_train_step,
+                                               make_world_model_train_step)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def part(label, fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, TOK_FULL_LAUNCHES[label])
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        return out, sec, got, torch.cuda.max_memory_allocated() / 2**30
+
+    # a. the all-options tokenizer, float32 master weights and bf16 trunks
+    torch.manual_seed(seed)
+    tok = VideoTokenizer(**TOK_FULL, dtype=torch.bfloat16)
+    if tok.device.type != 'cuda':
+        raise SystemExit(f'tokenizer built on {tok.device}, not on the card')
+    dev = tok.device
+    b, t = TOK_VIDEO['batch_size'], TOK_VIDEO['time_steps']
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    video = torch.rand((b, 3, t, 64, 64), generator=gen, device=dev)
+    trainer = TokenizerTrainer(tok, learning_rate=3e-4, clip_grad_norm=1.0, with_ema=True,
+                               seed=seed)
+    log(f'# tok-full ({gpu_name_and_power_limit()}): the bench tokenizer with the latent init '
+        f'patch, slot attention (encoder and decoder), the separate flow decoder, aug token, '
+        f'BYOL with SEM, latent AR, time and space PoPE and MOSS: '
+        f'{sum(p.numel() for p in tok.parameters()) / 1e6:.2f}M params, {TOK_FULL_TOKENS} '
+        f'tokens/frame, b{b} x T{t} video')
+    with torch.no_grad():
+        targets = tok.encode(video)   # a BYOL target for the gradient check
+
+    ref = VideoTokenizer(**{**TOK_FULL, 'use_fused_small': False})
+    ref.load_state_dict(tok.state_dict())
+    for flow in (False, True):
+        def loss_fn(model):
+            g = torch.Generator(device=dev).manual_seed(seed + 3)
+            return model(video, update_loss_ema=False, byol_target_latents=targets,
+                         train_flow_decoder=flow, generator=g)
+        dec = 'flow_decoder' if flow else 'decoder'
+        names = [f'{layer}.{w}.weight' for layer in ('encoder_transformer.attn_3',
+                                                     f'{dec}.transformer.attn_3')
+                 for w in ('to_q', 'to_k', 'to_v')]
+        check_grad_distances(f'tok-full grads ({dec})', compare_grads(
+            tok, ref, loss_fn, names, 'Attention', 'use_fused_small'))
+    del ref, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_fn = make_tokenizer_train_step(tok, trainer.optimizer, ema_decay=0.999)
+    watched = [n for n, _ in tok.named_parameters()
+               if n.startswith('slot_attention.') or '_pope.' in n]
+    start = {n: p.detach().clone() for n, p in tok.named_parameters() if n in watched}
+    idle_of = {False: 'flow_decoder.', True: 'decoder.'}
+    timings = {}
+    for flow in (False, True):
+        label = 'tokfull_step_flow' if flow else 'tokfull_step_main'
+        before = {n: p.detach().clone() for n, p in tok.named_parameters()}
+        ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+        ts_before = trainer.ts
+
+        def one_step():
+            trainer.ts, loss, losses = step_fn(trainer.ts, video, generator=trainer.generator,
+                                               train_flow_decoder=flow)
+            return loss, losses
+        (loss, losses), sec, got, peak = part(label, one_step)
+        n_grad = check_step(tok, ts_before, trainer.ts, loss, losses, before, ema_before, label)
+        recon = losses.flow_recon if flow else losses.recon
+        terms = {f: getattr(losses, f) for f in TOK_FULL_NEW_LOSSES}
+        check_finite(label, terms)
+        if not all(float(v) != 0.0 for v in (*terms.values(), recon)):
+            raise SystemExit(f'{label}: a loss term is zero: {losses}')
+        idle = [n for n, p in tok.named_parameters() if n.startswith(idle_of[flow])
+                and p.grad is not None and bool(p.grad.any())]
+        if idle:
+            raise SystemExit(f'{label}: the idle decoder has a gradient: {idle[:4]}')
+        del before, ema_before
+        sec_warm = host_time_s(one_step, reps=2)
+        timings[label] = (sec, sec_warm)
+        log(f'{label} b{b} T{t}: loss {loss.item():.5f} ({"flow_recon" if flow else "recon"} '
+            f'{recon.item():.5f}, ' + ', '.join(f'{k} {v.item():.4g}' for k, v in terms.items())
+            + f'); {n_grad} parameters with a gradient, all moved with their EMA, none of '
+            f'{idle_of[flow][:-1]}; {sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms/step warm '
+            f'(mean of 2); (K1..K5) {got}; peak memory {peak:.2f} GiB')
+    rng_state = trainer.rng.bit_generator.state
+    flows = [bool(trainer.rng.random() < tok.flow_decoder_train_prob) for _ in range(2)]
+    trainer.rng.bit_generator.state = rng_state
+    for i in range(2):
+        (loss, losses), sec, got, peak = part(f'tokfull_train_on_batch_{i}',
+                                              lambda: trainer.train_on_batch(video))
+        trained = 'flow_recon' if flows[i] else 'recon'
+        if not torch.isfinite(loss) or not float(getattr(losses, trained)) > 0:
+            raise SystemExit(f'tokfull_train_on_batch_{i}: loss {loss.item()}, {trained} '
+                             f'{getattr(losses, trained).item()}')
+        log(f'tokfull_train_on_batch_{i}: loss {loss.item():.5f} (the host draw chose the '
+            f'{"flow" if flows[i] else "main"} decoder); {sec * 1e3:.1f} ms; (K1..K5) {got}; '
+            f'peak memory {peak:.2f} GiB')
+    still = [n for n, p in tok.named_parameters() if n in watched and torch.equal(p, start[n])]
+    if still or not any('time_pope' in n for n in watched) or not any('space_pope' in n
+                                                                       for n in watched):
+        raise SystemExit(f'tok-full: PoPE or slot-attention parameters that did not move: '
+                         f'{still}')
+    plain_tok = VideoTokenizer(**BENCH_TOKENIZER, dtype=torch.bfloat16)
+    plain_trainer = TokenizerTrainer(plain_tok, learning_rate=3e-4, seed=seed)
+    plain_trainer.train_on_batch(video)
+    sec_plain = host_time_s(lambda: plain_trainer.train_on_batch(video), reps=3)
+    del plain_tok, plain_trainer
+    log('tok-full step time: ' + ', '.join(
+        f'{k} {v[1] * 1e3:.1f} ms warm ({v[1] / sec_plain:.2f} x)' for k, v in timings.items())
+        + f' against {sec_plain * 1e3:.1f} ms for the bench tokenizer without the options '
+        f'(phase 6\'s configuration, mean of 3, this run); {len(watched)} PoPE and slot '
+        f'attention parameters, all moved')
+    del step_fn, start
+    tok.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. inference on the same model
+    with torch.no_grad():
+        latents, sec, got, peak = part('tokfull_encode', lambda: tok.encode(video, aug_id=0))
+        aug2 = tok.encode(video, aug_id=2)
+        aug_diff = (latents - aug2).abs().max().item()
+        if not aug_diff > 0:
+            raise SystemExit('tokfull_encode: aug ids 0 and 2 give the same latents')
+        calls = {'decoder': 0, 'flow_decoder': 0}
+        hooks = [getattr(tok, name).register_forward_hook(
+            lambda *a, name=name: calls.__setitem__(name, calls[name] + 1)) for name in calls]
+        recon, sec_d, got_d, peak_d = part('tokfull_decode',
+                                           lambda: tok.decode(latents, generator=gen))
+        for hook in hooks:
+            hook.remove()
+        if calls != {'decoder': 1, 'flow_decoder': TOK_FULL['decoder_flow_steps'] - 1}:
+            raise SystemExit(f'tokfull_decode: decoder calls {calls}')
+        if tuple(recon.shape) != tuple(video.shape) or not bool(torch.isfinite(recon).all()):
+            raise SystemExit('tokfull_decode: wrong shape or not finite')
+
+        def stream():
+            cache, frames = None, []
+            for i in range(t):
+                kw = dict(max_time=t) if cache is None else dict(cache=cache)
+                frame, cache = tok.encode(video[:, :, i:i + 1], return_cache=True, **kw)
+                frames.append(frame)
+            return torch.cat(frames, dim=1), cache
+        (streamed, cache), sec_s, got_s, _ = part('tokfull_stream', stream)
+        uncached = tok.encode(video)
+        ref = VideoTokenizer(**{**TOK_FULL, 'use_fused_small': False})
+        ref.load_state_dict(tok.state_dict())
+        f32 = ref.encode(video)
+        del ref
+        dis, sec_l, got_l, _ = part('tokfull_disagreement',
+                                    lambda: tok.latent_disagreement(latents, generator=gen))
+    sm = cache.transformer.spatial_modules
+    if (cache.transformer.token_count != t or sm is None or len(sm) != 1
+            or tuple(sm[0].shape) != (b, 2, 8, 8, TOK_FULL['dim'])):
+        raise SystemExit('tokfull_stream: the trunk cache lacks its MOSS cache')
+    err = (streamed - uncached).abs().max().item()
+    err_f32 = (uncached - f32).abs().max().item()
+    tol = PIXEL_TOL_FACTOR * err_f32
+    ok = err <= tol
+    if tuple(dis.shape) != (b, t) or not bool(torch.isfinite(dis).all()):
+        raise SystemExit(f'tokfull_disagreement: shape {tuple(dis.shape)} or not finite')
+    log(f'tokfull inference b{b} T{t}: encode {sec * 1e3:.1f} ms (aug 0 vs 2 max |diff| '
+        f'{aug_diff:.3e}); decode (1 main + {calls["flow_decoder"]} flow-decoder steps) '
+        f'{sec_d * 1e3:.1f} ms, peak memory {peak_d:.2f} GiB; streamed {t} frames '
+        f'{sec_s * 1e3 / t:.2f} ms/frame, vs uncached max |diff| {err:.3e} (tol {tol:.3e}: '
+        f'{PIXEL_TOL_FACTOR} x the uncached bf16 encode\'s distance from float32, '
+        f'{err_f32:.3e}); latent_disagreement {sec_l * 1e3:.1f} ms, mean '
+        f'{dis.mean().item():.4f}; (K1..K5) encode {got}, decode {got_d}, stream {got_s}, '
+        f'disagreement {got_l}' + ('' if ok else '  FAIL'))
+    if not ok:
+        raise SystemExit('tokfull_stream: the streamed latents disagree with the uncached encode')
+    del tok, trainer, video, streamed, uncached, f32, cache, latents, aug2, recon, dis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. Beta flow times on the bench tokenizer, the draws, SUGAR
+    torch.manual_seed(seed)
+    btok = VideoTokenizer(**BENCH_TOKENIZER, decoder_flow_times_beta=TOK_BETA,
+                          dtype=torch.bfloat16)
+    bvideo = torch.rand((b, 3, t, 64, 64), generator=gen, device=dev)
+    btrainer = TokenizerTrainer(btok, learning_rate=3e-4, with_ema=True, seed=seed)
+    for i in range(2):
+        (loss, losses), sec, got, peak = part(f'tokbeta_train_on_batch_{i}',
+                                              lambda: btrainer.train_on_batch(bvideo))
+        check_finite(f'tokbeta_train_on_batch_{i}', {'loss': loss, **losses._asdict()})
+        log(f'tokbeta_train_on_batch_{i} b{b} T{t} (Beta{TOK_BETA} flow times): loss '
+            f'{loss.item():.5f}; {sec * 1e3:.1f} ms; (K1..K5) {got}; peak memory {peak:.2f} GiB')
+    del btok, btrainer, bvideo
+    u = tokenizer_module.draw('flow_times', (TOK_BETA_DRAWS,), generator=gen, device=dev,
+                              concentration=TOK_BETA)
+    want_mean = TOK_BETA[0] / (TOK_BETA[0] + TOK_BETA[1])
+    mean = u.mean().item()
+    x = torch.randn(SUGAR_SHAPE, generator=gen, device=dev)
+    xg = x.clone().requires_grad_()
+    y = get_activation('sugar_bsilu')(xg)
+    y.sum().backward()
+    x64 = x.double()
+    s64 = torch.sigmoid(x64)
+    sugar_err = (xg.grad.double() - (s64 + (x64 + 1.67) * s64 * (1 - s64))).abs().max().item()
+    relu_ok = torch.equal(y.detach(), torch.relu(x))
+    ok = abs(mean - want_mean) <= TOK_BETA_MEAN_TOL and sugar_err <= SUGAR_TOL and relu_ok
+    log(f'Beta{TOK_BETA} flow-time draws: mean of {TOK_BETA_DRAWS} {mean:.5f} (want '
+        f'{want_mean:.5f} +- {TOK_BETA_MEAN_TOL}); sugar_bsilu on {SUGAR_SHAPE} float32: forward '
+        f'{"equals" if relu_ok else "differs from"} ReLU, gradient vs its float64 closed form '
+        f'max |diff| {sugar_err:.3e} (tol {SUGAR_TOL})' + ('' if ok else '  FAIL'))
+    if not ok:
+        raise SystemExit('tok-full: the Beta draws or the SUGAR gradient are off')
+    del u, x, xg, y
+
+    # d. the bench world model with time PoPE
+    torch.manual_seed(seed)
+    pope_cfg = dict(BENCH_MODEL, time_attention_use_pope=True)
+    model = DynamicsWorldModel(**pope_cfg, dtype=torch.bfloat16)
+    batch = train_batch(model.device, seed + 2)
+    ref = DynamicsWorldModel(**{**pope_cfg, 'use_flash_attention': False})
+    ref.load_state_dict(model.state_dict())
+    names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
+             for w in ('to_q', 'to_k', 'to_v')] + ['transformer.time_pope.inv_freq']
+    check_grad_distances('pope wm grads', compare_grads(
+        model, ref, wm_plain_step_loss(batch, seed + 3), names, 'AxialSpaceTimeTransformer',
+        'use_flash_attention'))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    wtrainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                    with_ema=True, seed=seed)
+    wstep = make_world_model_train_step(model, wtrainer.optimizer, ema_decay=0.999)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ema_before = {n: e.clone() for n, e in wtrainer.ts.ema_params.items()}
+    ts_before = wtrainer.ts
+
+    def wm_step():
+        wtrainer.ts, loss, losses = wstep(wtrainer.ts, batch, shortcut_train=False,
+                                          generator=wtrainer.generator)
+        return loss, losses
+    (loss, losses), sec, got, peak = part('pope_wm_train_plain', wm_step)
+    n_grad = check_step(model, ts_before, wtrainer.ts, loss, losses, before, ema_before,
+                        'pope_wm_train_plain')
+    if torch.equal(model.transformer.time_pope.inv_freq, before['transformer.time_pope.inv_freq']):
+        raise SystemExit('pope_wm_train_plain: time_pope did not move')
+    del before, ema_before
+    sec_warm = host_time_s(wm_step, reps=3)
+    wtrainer.optimizer.zero_grad(set_to_none=True)
+    plain = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+    ptrainer = BehaviorCloneTrainer(plain, learning_rate=3e-4, clip_grad_norm=1.0,
+                                    with_ema=True, seed=seed)
+    pstep = make_world_model_train_step(plain, ptrainer.optimizer, ema_decay=0.999)
+
+    def plain_step():
+        ptrainer.ts = pstep(ptrainer.ts, batch, shortcut_train=False,
+                            generator=ptrainer.generator)[0]
+    plain_step()
+    sec_plain = host_time_s(plain_step, reps=3)
+    del plain, ptrainer, pstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'pope_wm_train_plain b{TRAIN["batch_size"]} T{TRAIN["time_steps"]}: loss '
+        f'{loss.item():.5f}; {n_grad} parameters with a gradient, all moved with their EMA, '
+        f'time_pope among them; {sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms/step warm '
+        f'(mean of 3) against {sec_plain * 1e3:.1f} ms for the bench model without PoPE '
+        f'({sec_warm / sec_plain:.2f} x, this run); (K1..K5) {got}, every K1 on the wgmma '
+        f'kernel; peak memory {peak:.2f} GiB')
+
+    prompt = bench_prompt(model, seed)
+    wgen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        exp, sec, got, peak = part('pope_wm_generate', lambda: generate(
+            model, wgen, **PROMPTED, **prompt))
+    check_experience(exp, PROMPTED['batch_size'], PROMPTED['time_steps'], PROMPT_LEN, model.dim,
+                     model.latent_shape, prompt=prompt)
+    errors, ms_k, ms_p = compare_prefill(model, prompt, PROMPTED['time_steps'], config=pope_cfg)
+    ok = True
+    for name, (e_kernel, e_plain, e_between) in errors.items():
+        good = e_kernel <= PREFILL_TOL_FACTOR * e_plain
+        ok = ok and good
+        log(f'pope prompt pass {name:<5}: max |bf16 K1 - f32| {e_kernel:.3e} (tol '
+            f'{PREFILL_TOL_FACTOR} x {e_plain:.3e}, max |bf16 plain - f32|); max |K1 - plain| '
+            f'{e_between:.3e}' + ('' if good else '  FAIL'))
+    b_w, T_w = PROMPTED['batch_size'], PROMPTED['time_steps']
+    log(f'pope_wm_generate b{b_w} T{T_w} P{PROMPT_LEN}: {sec * 1e3:.1f} ms (first), '
+        f'{b_w * (T_w - PROMPT_LEN) / sec:.1f} dreamed env-steps/s; prompt pass {ms_k:.2f} ms '
+        f'with K1, {ms_p:.2f} ms plain; (K1..K5) {got}; peak memory {peak:.2f} GiB')
+    if not ok:
+        raise SystemExit('pope prompt pass: K1 is further from float32 than the plain attention')
+    del model, wtrainer, wstep, batch, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# tok-full phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3361,11 +3753,16 @@ def main() -> int:
     launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
                 **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase(),
-                **run_recipe_phase(), **run_tok_options_phase(), **run_wm_options_phase()}
+                **run_recipe_phase(), **run_tok_options_phase(), **run_wm_options_phase(),
+                **run_tok_full_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)
     small_shape = small_results[('tok_time', torch.bfloat16)]
+    small_at = {which: {name: {x: small_results[(name, torch.bfloat16)][which][x]
+                               for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
+                        for name in SMALL_PATH_CASES}
+                for which in ('fwd', 'bwd')}
     if small_shape['fwd']['library_ms'] is None or small_shape['bwd']['library_ms'] is None:
         raise SystemExit('no library yardstick for K4 / K5 at the tokenizer time shape')
     totals = [sum(c[i] for c in launches.values()) for i in range(5)]
@@ -3402,12 +3799,14 @@ def main() -> int:
                     source='dreamer4_torch/csrc/small_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/small_attention.py:77',
                     launches=totals[3], launches_by_path=by_path(3), **small_shape['fwd'],
-                    library_covers='compiled flex_attention, softclamp as score_mod'),
+                    library_covers='compiled flex_attention, softclamp as score_mod',
+                    at_path_shapes=small_at['fwd']),
                dict(name='K5 small_attn_bwd', route='cuda',
                     source='dreamer4_torch/csrc/small_attn_bwd.cu',
                     replaces='dreamer4_tpu/ops/small_attention.py:94',
                     launches=totals[4], launches_by_path=by_path(4), **small_shape['bwd'],
-                    library_covers='flex_attention backward: dq, dk and dv together')]
+                    library_covers='flex_attention backward: dq, dk and dv together',
+                    at_path_shapes=small_at['bwd'])]
     missing = [k['name'] for k in kernels if k['launches'] == 0]
     if missing:
         raise SystemExit(f'kernels never launched on the main paths: {missing}')

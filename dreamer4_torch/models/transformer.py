@@ -7,9 +7,13 @@ space (special-token masking, batch folded to b*t). Ported: the value
 residual, per-head gates, QK norm, the attention pools over the shared
 normed-hidden buffer, the final special cross-attend, `init_cache`,
 `token_count`, the flash gate and the small-attention path
-(`use_fused_small`, uncached calls only). Not ported yet, and refused when
-set: the GRU time layer, MoT, MOSS spatial modules, H-Net, PoPE and ring
-attention.
+(`use_fused_small`, uncached calls only), learned per-head rotary (PoPE)
+on the time layers (`time_pope`) and axial PoPE on the space layers
+(`space_pope`, over the leading sh*sw grid tokens; the rest get no
+rotation), and MOSS spatial modules (`spatial_module_{i}`, after layer i's
+feedforward on the grid tokens, with a conv time cache each in
+`TransformerCache.spatial_modules`). Not ported yet, and refused when set:
+the GRU time layer, MoT, H-Net and ring attention.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ from ..device import resolve_device
 from ..nn.attention import (Attention, AttentionPool, FeedForward, FlashSpec, KVCache,
                             rms_normalize)
 from ..nn.dense import Dense
+from ..nn.moss import MOSS
 from ..nn.norms import RMSNorm
+from ..nn.pope import AxialPoPE, PoPE
 from ..ops.masks import build_attend_mask
 from ..ops.rotary import rotary_frequencies
 
@@ -30,6 +36,7 @@ from ..ops.rotary import rotary_frequencies
 class TransformerCache(NamedTuple):
     kv: tuple           # one KVCache per time layer
     token_count: int    # frames already in the cache (host int)
+    spatial_modules: tuple | None = None   # one conv time cache per MOSS layer
 
 
 class TransformerOutputs(NamedTuple):
@@ -63,9 +70,7 @@ def _from_space_major(x, bt_shape):
 # fields of the counterpart, with their defaults, that the port does not
 # have yet; any other value raises
 _NOT_PORTED = dict(
-    rnn_time=False, mot_temporal=False, time_attention_use_pope=False,
-    space_attention_use_pope=False, space_height=None, space_width=None,
-    spatial_module_layers=(), spatial_module_kernel_size=3, time_ring_axis=None,
+    rnn_time=False, mot_temporal=False, time_ring_axis=None,
     h_net_layer=None, h_net_depth=2, h_net_heads=4, h_net_dim_head=32,
     h_net_compression_ratio=4, h_net_dynamic=False,
 )
@@ -90,6 +95,9 @@ class AxialSpaceTimeTransformer(nn.Module):
                  final_norm: bool = True, value_residual: bool = True,
                  use_attn_pool: bool = True, use_flash_attention: bool = False,
                  flash_min_scores: int = 128 * 128, use_fused_small: bool | None = None,
+                 time_attention_use_pope: bool = False, space_attention_use_pope: bool = False,
+                 space_height: int | None = None, space_width: int | None = None,
+                 spatial_module_layers: tuple = (), spatial_module_kernel_size: int = 3,
                  ff_expansion_factor: float = 4.0,
                  ff_activation: str = 'silu', gate_values: bool = True,
                  rmsnorm_query: bool = False, rmsnorm_key: bool = True,
@@ -110,7 +118,15 @@ class AxialSpaceTimeTransformer(nn.Module):
         self.use_attn_pool = use_attn_pool
         self.use_flash_attention = use_flash_attention
         self.flash_min_scores = flash_min_scores
+        self.space_height, self.space_width = space_height, space_width
+        self.spatial_module_layers = tuple(spatial_module_layers)
+        self.spatial_module_kernel_size = spatial_module_kernel_size
         self.dtype = dtype
+
+        if time_attention_use_pope:
+            self.time_pope = PoPE(attn_dim_head, attn_heads, device=device)
+        if space_attention_use_pope:
+            self.space_pope = AxialPoPE(attn_dim_head, attn_heads, device=device)
 
         if value_residual:
             self.value_residual_norm = RMSNorm(dim, device=device)
@@ -126,6 +142,9 @@ class AxialSpaceTimeTransformer(nn.Module):
         for i in range(depth):
             setattr(self, f'attn_{i}', Attention(**attn_common, value_residual=value_residual))
             setattr(self, f'ff_{i}', FeedForward(**ff_kwargs))
+            if i in self.spatial_module_layers:
+                setattr(self, f'spatial_module_{i}',
+                        MOSS(dim, spatial_module_kernel_size, device=device))
             if use_attn_pool and i < depth - 1:
                 setattr(self, f'attn_pool_{i}', AttentionPool(dim, dtype=dtype, device=device))
         if self.should_special_cross_attend:
@@ -156,15 +175,32 @@ class AxialSpaceTimeTransformer(nn.Module):
     def init_cache(self, batch: int, space_len: int, max_time: int, dtype=torch.float32,
                    device=None) -> TransformerCache:
         """Preallocated decode cache buffers, on the trunk's device unless
-        `device` is given."""
+        `device` is given: the KV caches, and each MOSS layer's conv time
+        cache of zeros (the past before the first frame)."""
+        device = self.device if device is None else device
         kv = tuple(KVCache.create(batch * space_len, self.attn_heads, max_time,
-                                  self.attn_dim_head, dtype=dtype,
-                                  device=self.device if device is None else device)
+                                  self.attn_dim_head, dtype=dtype, device=device)
                    for _ in range(self.num_time_layers))
-        return TransformerCache(kv=kv, token_count=0)
+        spatial = None
+        if self.spatial_module_layers:
+            sh, sw = self._grid()
+            spatial = tuple(torch.zeros((batch, self.spatial_module_kernel_size - 1, sh, sw,
+                                         self.dim), dtype=dtype, device=device)
+                            for _ in self.spatial_module_layers)
+        return TransformerCache(kv=kv, token_count=0, spatial_modules=spatial)
+
+    def _grid(self):
+        if self.space_height is None or self.space_width is None:
+            raise ValueError('space PoPE and MOSS need space_height and space_width '
+                             '(the grid tokens lead each frame)')
+        return self.space_height, self.space_width
 
     def forward(self, tokens, cache: TransformerCache | None = None, max_time: int | None = None,
                 return_intermediates: bool = False, collect_normed_inputs: bool = True):
+        """tokens (b, t, s, d) -> (tokens, cache), or with
+        `return_intermediates` (tokens, TransformerOutputs). `cache`
+        continues a decode with the newest frame; `max_time` without one
+        builds a fresh cache for later calls."""
         b, t_full, s, d = tokens.shape
         device = tokens.device
         # the trunk owns the compute dtype: cast once at entry
@@ -209,15 +245,22 @@ class AxialSpaceTimeTransformer(nn.Module):
         else:
             time_mask = build_attend_mask(t, t, causal=True, device=device)
 
-        time_rotary = rotary_frequencies(self.attn_dim_head, t, offset=token_count,
-                                         device=device)
+        if hasattr(self, 'time_pope'):
+            time_rotary = self.time_pope(t, offset=token_count)
+        else:
+            time_rotary = rotary_frequencies(self.attn_dim_head, t, offset=token_count,
+                                             device=device)
+        space_rotary = None
+        if hasattr(self, 'space_pope'):
+            sh, sw = self._grid()
+            space_rotary = self.space_pope(sh, sw, num_special=s - sh * sw)
 
         residual_values = None
         if self.value_residual:
             rv = self.to_value_residual(self.value_residual_norm(tokens))
             residual_values = rv.reshape(b, t, s, self.attn_heads, self.attn_dim_head)
 
-        new_kv_caches = []
+        new_kv_caches, new_spatial_caches = [], []
         normed_time_inputs, normed_space_inputs = [], []
         layer_hiddens = []
 
@@ -227,18 +270,21 @@ class AxialSpaceTimeTransformer(nn.Module):
         # in-place write would bump the version of a prefix an earlier pool
         # saved for its backward, so each pool stacks the list instead (the
         # counterpart's functional `.at[].set` has no such conflict).
+        # The stack keeps the entry dtype, as the counterpart's buffer
+        # does, when a MOSS layer's float32 output promotes the stream.
         in_place = not torch.is_grad_enabled()
         normed = []
         normed_stack = None
+        stack_dtype = tokens.dtype
         if self.use_attn_pool and in_place:
-            normed_stack = torch.empty((1 + 2 * self.depth, b * t * s, d), dtype=tokens.dtype,
+            normed_stack = torch.empty((1 + 2 * self.depth, b * t * s, d), dtype=stack_dtype,
                                        device=device)
 
         def append_hidden(tok):
             layer_hiddens.append(tok)
             if not self.use_attn_pool:
                 return
-            n = rms_normalize(tok).reshape(-1, d)
+            n = rms_normalize(tok).reshape(-1, d).to(stack_dtype)
             if in_place:
                 normed_stack[len(normed)].copy_(n)
             normed.append(n)
@@ -268,13 +314,26 @@ class AxialSpaceTimeTransformer(nn.Module):
                 x_sm, bt_shape = _to_space_major(tokens)
                 rv_sm = (_to_space_major(residual_values)[0]
                          if residual_values is not None else None)
-                attn_out = attn(x_sm, mask=space_mask, residual_values=rv_sm,
-                                flash_spec=space_flash, allow_small=not has_cache)
+                attn_out = attn(x_sm, rotary=space_rotary, mask=space_mask,
+                                residual_values=rv_sm, flash_spec=space_flash,
+                                allow_small=not has_cache)
                 tokens = tokens + _from_space_major(attn_out.out, bt_shape)
                 normed_space_inputs.append(attn_out.normed_inputs)
 
             append_hidden(tokens)
             tokens = tokens + getattr(self, f'ff_{i}')(tokens)
+
+            if i in self.spatial_module_layers:
+                sh, sw = self._grid()
+                sm_idx = self.spatial_module_layers.index(i)
+                sm_cache = (cache.spatial_modules[sm_idx]
+                            if has_cache and cache.spatial_modules is not None else None)
+                grid = tokens[:, :, :sh * sw].reshape(b, t, sh, sw, d)
+                grid, sm_next = getattr(self, f'spatial_module_{i}')(grid, cache=sm_cache,
+                                                                    return_cache=True)
+                tokens = torch.cat([grid.reshape(b, t, sh * sw, d), tokens[:, :, sh * sw:]],
+                                   dim=2)
+                new_spatial_caches.append(sm_next)
             append_hidden(tokens)
 
             if self.use_attn_pool and i < self.depth - 1:
@@ -304,7 +363,9 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         new_cache = None
         if has_cache:
-            new_cache = TransformerCache(kv=tuple(new_kv_caches), token_count=token_count + t)
+            new_cache = TransformerCache(
+                kv=tuple(new_kv_caches), token_count=token_count + t,
+                spatial_modules=tuple(new_spatial_caches) if self.spatial_module_layers else None)
 
         if not return_intermediates:
             return out, new_cache

@@ -105,8 +105,7 @@ class DynamicsCache(NamedTuple):
 # fields of the counterpart, with their defaults, that the port does not
 # have yet; any other value raises
 _NOT_PORTED = dict(
-    time_attention_use_pope=False, use_time_rnn=False,
-    mot_temporal=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
+    use_time_rnn=False, mot_temporal=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
     h_net_dynamic=False, h_net_loss_weight=1.0,
 )
 
@@ -180,6 +179,7 @@ class DynamicsWorldModel(nn.Module):
                  normalize_advantages: bool | None = None, use_loss_normalization: bool = False,
                  use_flash_attention: bool = False, flash_min_scores: int = 128 * 128,
                  use_fused_small: bool | None = None, use_attn_pool: bool = True,
+                 time_attention_use_pope: bool = False,
                  dim_state: int | None = None, dim_critic_state: int | None = None,
                  latent_ar: bool = False, latent_ar_layer: int | tuple[int, int] | None = None,
                  latent_ar_action_conditioned: bool = False, latent_ar_num_slices: int = 256,
@@ -356,7 +356,8 @@ class DynamicsWorldModel(nn.Module):
             num_special_tokens=num_agents + int(has_aug_conditioning),
             final_norm=False, use_flash_attention=use_flash_attention,
             flash_min_scores=flash_min_scores, use_fused_small=use_fused_small,
-            use_attn_pool=use_attn_pool, dtype=dtype, device=device)
+            time_attention_use_pope=time_attention_use_pope, use_attn_pool=use_attn_pool,
+            dtype=dtype, device=device)
         self.transformer = AxialSpaceTimeTransformer(depth=depth, **trunk_kwargs)
         if actor_depth > 0:
             self.actor_transformer = AxialSpaceTimeTransformer(depth=actor_depth, **trunk_kwargs)

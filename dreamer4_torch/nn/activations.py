@@ -1,8 +1,8 @@
 """Activation registry (counterpart of `dreamer4_tpu/nn/activations.py`).
 
-`sugar_bsilu`'s straight-through (SUGAR) gradient is not ported: it
-computes its forward and refuses inputs that require grad, so that no
-training step takes ReLU's gradient in its place.
+`sugar_bsilu` is B-SiLU with a SUGAR straight-through gradient: ReLU in the
+forward, the derivative of B-SiLU(x) = (x + a) sigmoid(x) - a / 2 in the
+backward (the counterpart's `custom_vjp`).
 """
 from __future__ import annotations
 
@@ -16,12 +16,25 @@ def relu_squared(x):
     return F.relu(x).square()
 
 
+_BSILU_ALPHA = 1.67
+
+
+class _SugarBSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * (s + (x + _BSILU_ALPHA) * s * (1.0 - s))
+
+
 def sugar_bsilu(x):
-    """Forward of B-SiLU with the SUGAR gradient (ReLU forward)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("sugar_bsilu's SUGAR backward is not ported to "
-                                  'dreamer4_torch yet')
-    return F.relu(x)
+    """ReLU forward, B-SiLU's derivative as the gradient (SUGAR)."""
+    return _SugarBSiLU.apply(x)
 
 
 ACTIVATIONS: dict[str, Callable] = {

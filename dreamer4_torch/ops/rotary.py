@@ -1,5 +1,6 @@
-"""1-D rotary position embeddings for the time axis (counterpart of
-`dreamer4_tpu/ops/rotary.py`)."""
+"""Rotary position embeddings (counterpart of `dreamer4_tpu/ops/rotary.py`):
+the fixed 1-D frequencies of the time axis, and the application of a
+shared or per-head (PoPE) angle table to q and k."""
 from __future__ import annotations
 
 import torch
@@ -25,12 +26,20 @@ def _rotate(t: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rotations(rotations: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """rotations: (n, d) angles; t: (..., h, n, d). A table longer than the
-    sequence is tail-aligned (cached decode). The tables are float32; the
-    multiply-add runs in the stream dtype."""
+    """rotations: (n, d) angles, or (heads', n, d) per head (PoPE); t: (...,
+    h, n, d). A table longer than the sequence is tail-aligned (cached
+    decode); a per-head table with fewer heads than t is group-repeated
+    (GQA). The tables are float32; the multiply-add runs in the stream
+    dtype."""
     seq_len = t.shape[-2]
     if rotations.shape[-2] > seq_len:
         rotations = rotations[..., -seq_len:, :]
+    if rotations.ndim == 3 and rotations.shape[0] != t.shape[-3]:
+        heads = t.shape[-3]
+        if heads % rotations.shape[0] != 0:
+            raise ValueError(f'{heads} heads are not a multiple of the table\'s '
+                             f'{rotations.shape[0]}')
+        rotations = rotations.repeat_interleave(heads // rotations.shape[0], dim=0)
     return _rotate(t, rotations)
 
 

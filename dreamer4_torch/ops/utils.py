@@ -9,6 +9,11 @@ def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return t * torch.rsqrt(t.square().sum(dim=dim, keepdim=True) + eps)
 
 
+def l1norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
+    """t over the sum of its absolute values along `dim` (at least eps)."""
+    return t / t.abs().sum(dim=dim, keepdim=True).clamp_min(eps)
+
+
 def softclamp(t: torch.Tensor, value: float = 50.0) -> torch.Tensor:
     """Gemma-style logit soft clamp."""
     return torch.tanh(t / value) * value

@@ -98,17 +98,27 @@ def _apply_update(ts: TrainState, ema_decay: float) -> TrainState:
 
 def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float = 0.999,
                               lpips_fn=None):
-    """-> train_step(ts, video, time_lens=None, generator=None) returning
-    (ts, loss, losses): the training forward on `video` (b, c, t, h, w)
-    with `lpips_fn(recon, clean, generator, time_lens)` as its LPIPS term,
-    plus the latent consistency loss when the model weights it, their
-    gradients, one optimizer update and one EMA update."""
+    """-> train_step(ts, video, time_lens=None, generator=None,
+    train_flow_decoder=False) returning (ts, loss, losses): the training
+    forward on `video` (b, c, t, h, w) with `lpips_fn(recon, clean,
+    generator, time_lens)` as its LPIPS term, plus the latent consistency
+    loss when the model weights it, their gradients, one optimizer update
+    and one EMA update. With BYOL and EMA weights, the teacher's latents
+    are the EMA weights' encode of the clean video, without gradient.
+    `train_flow_decoder` picks the decoder a model with a separate flow
+    decoder trains."""
 
     def train_step(ts: TrainState, video, time_lens=None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, train_flow_decoder: bool = False):
+        byol_targets = None
+        if model.has_byol and ts.ema_params is not None:
+            with torch.no_grad():
+                byol_targets = torch.func.functional_call(model, ts.model_ema(), (video,),
+                                                          dict(return_latents=True))
         optimizer.zero_grad(set_to_none=True)
         loss, interm = model(video, time_lens=time_lens, return_intermediates=True,
-                             lpips_fn=lpips_fn, generator=generator)
+                             byol_target_latents=byol_targets, lpips_fn=lpips_fn,
+                             train_flow_decoder=train_flow_decoder, generator=generator)
         if model.latent_consistency_loss_weight > 0.0:
             loss = loss + model.latent_consistency_loss_weight * latent_consistency_loss(
                 model, interm.recon, interm.latents, time_lens=time_lens)
@@ -215,9 +225,11 @@ def _check_device(model, device) -> torch.device:
 
 class TokenizerTrainer(_CheckpointableTrainer):
     """Tokenizer training: one train step per batch of video. Runs on CUDA
-    unless `device='cpu'` is given, and the model must live there. The
-    counterpart's host draw chooses between the decoders only with a
-    separate flow decoder, which the port does not have.
+    unless `device='cpu'` is given, and the model must live there. With a
+    separate flow decoder, a host draw from the numpy `default_rng(seed)`
+    chooses the decoder each step trains (the flow decoder with
+    probability `model.flow_decoder_train_prob`), as in the counterpart,
+    which draws only for such a model.
 
     `use_lpips` (with a nonzero `model.lpips_loss_weight`) adds the LPIPS
     term on a frozen float32 VGG16 trunk that the trainer holds, outside
@@ -248,8 +260,11 @@ class TokenizerTrainer(_CheckpointableTrainer):
     def train_on_batch(self, video, time_lens=None):
         """video (b, c, t, h, w) on the trainer's device; time_lens (b,)
         or None. -> (loss, losses)."""
+        train_flow = (self.model.has_separate_flow_decoder
+                      and bool(self.rng.random() < self.model.flow_decoder_train_prob))
         self.ts, loss, losses = self._train_step(self.ts, video, time_lens,
-                                                 generator=self.generator)
+                                                 generator=self.generator,
+                                                 train_flow_decoder=train_flow)
         return loss, losses
 
 

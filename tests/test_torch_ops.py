@@ -156,13 +156,19 @@ def test_activations_match(name):
 
 
 def test_sugar_bsilu_refuses_grad():
-    """Its SUGAR backward is not ported: under autograd it raises instead of
-    training with ReLU's gradient."""
-    x = torch.randn(8, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        get_activation('sugar_bsilu')(x)
-    with torch.no_grad():
-        assert torch.equal(get_activation('sugar_bsilu')(x), torch.relu(x))
+    """Its SUGAR backward against the JAX `custom_vjp`: ReLU in the forward,
+    B-SiLU's derivative as the gradient (it no longer refuses autograd)."""
+    x = rand(np.random.default_rng(7), 64) * 4
+    w = rand(np.random.default_rng(8), 64)
+    j_fn = lambda x: (j_get_activation('sugar_bsilu')(x) * w).sum()
+    j_val, j_grad = jax.value_and_grad(j_fn)(jnp.asarray(x))
+    tx = torch.from_numpy(x.copy()).requires_grad_()
+    out = get_activation('sugar_bsilu')(tx)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert torch.equal(out.detach(), torch.relu(tx.detach()))
+    close(j_val, (out * torch.from_numpy(w)).sum().detach(), atol=1e-5)
+    close(j_grad, tx.grad, atol=1e-6)
+    assert (tx.grad[tx.detach() < 0] != 0).any()   # not ReLU's gradient
 
 
 def test_import_leaves_jax_out():

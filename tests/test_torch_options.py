@@ -131,10 +131,10 @@ CLASSES = {
 NOT_PORTED_VALUES = {
     'world_model': dict(use_time_rnn=True,
                         mot_temporal=True, h_net_layer=1, h_net_depth=3,
-                        time_attention_use_pope=True, h_net_loss_weight=2.0),
-    'tokenizer': dict(has_byol=True, latent_ar_loss_weight=0.1, slot_attention_iters=3,
-                      flow_decoder_train_prob=0.1, latent_ar_num_slices=8),
-    'transformer': dict(space_height=4, space_width=4, spatial_module_kernel_size=5,
+                        h_net_compression_ratio=8, h_net_loss_weight=2.0),
+    'tokenizer': dict(use_time_rnn=True, h_net_layer=1, h_net_depth=3,
+                      h_net_compression_ratio=8, h_net_loss_weight=2.0),
+    'transformer': dict(mot_temporal=True, time_ring_axis='time', h_net_dynamic=True,
                         h_net_heads=2, rnn_time=True),
 }
 

@@ -823,7 +823,7 @@ def test_rl_losses_refuses_unported_inputs(model_and_experience):
     model, exp = model_and_experience
     with pytest.raises(ValueError, match='objective'):
         rl_losses(model, exp, objective='a2c')
-    for name, value in (('time_attention_use_pope', True), ('h_net_layer', 1),
+    for name, value in (('mot_temporal', True), ('h_net_layer', 1),
                         ('use_time_rnn', True)):
         with pytest.raises(NotImplementedError, match=name):
             DynamicsWorldModel(**SMALL, **{name: value}, device='cpu')

@@ -413,19 +413,14 @@ def test_tokenizer_trainer_resume_continues_bit_for_bit(tmp_path):
 
 
 def test_unported_tokenizer_options_raise():
-    with pytest.raises(NotImplementedError):
-        VideoTokenizer(**SMALL, has_byol=True, device='cpu')
-    with pytest.raises(NotImplementedError):
-        VideoTokenizer(**SMALL, decoder_flow_times_beta=(2.0, 1.0), device='cpu')
+    """What stays refused: the GRU time layer and the H-Net fields, each
+    naming itself; an unknown name is a TypeError."""
+    for name, value in (('use_time_rnn', True), ('h_net_layer', 1), ('h_net_depth', 3),
+                        ('h_net_compression_ratio', 8), ('h_net_dynamic', True)):
+        with pytest.raises(NotImplementedError, match=name):
+            VideoTokenizer(**SMALL, **{name: value}, device='cpu')
     with pytest.raises(TypeError):
         VideoTokenizer(**SMALL, no_such_option=1, device='cpu')
-    tm = VideoTokenizer(**SMALL, device='cpu')
-    with pytest.raises(NotImplementedError):
-        tm.encode(torch.zeros(1, 3, 2, 32, 32), aug_id=torch.zeros(1, dtype=torch.long))
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 3, 2, 32, 32), byol_target_latents=torch.zeros(1, 2, 4, 8))
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 3, 2, 32, 32), train_flow_decoder=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             VideoTokenizer(**SMALL)
