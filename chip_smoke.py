@@ -32,7 +32,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
                (`wmopt_rl_full`: 112 rows, N = M = 192), each with the
                LSE, K2 and K3 at the same shapes, timed beside flex's
                backward, and its dream's prompt pass (`wmopt_prefill`:
-               448 rows, N = 96, M = 192).
+               448 rows, N = 96, M = 192), and the wm-subsystems phase's
+               MoT time attention at T1024 (`mot_main`: 42 rows;
+               `mot_special`: 1 row, 128 blocks), with the LSE, K2 and K3
+               at the same shapes, each timed beside flex's forward and
+               backward.
   3. model   — builds the bench world model (dim 512, depth 8, bf16) from a
                seed and drives `generate` twice: the unprompted b16 x T16
                rollout, which launches no kernel, and the prompted
@@ -240,7 +244,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
                in phase 4) timed beside the bench model's, and the prompted
                b16 x T192 dream (K1 2), its prompt pass held against
                float32 as in phase 3.
- 16. small   — K4 and K5 (the small-attention forward and backward) against
+ 16. wm-subsystems — the bench world model with the trunk's remaining
+               subsystems (`WMSUB_MODEL`: the GRU time layer, MoT, a fixed
+               H-Net after layer 3, two views; 43 tokens per frame): a. a
+               plain and a shortcut b1 x T1024 `BehaviorCloneTrainer` step
+               (K1-K3 4 / 4 / 4 and 12 / 4 / 4: each MoT time layer runs
+               K1 for the 42 main rows and for the special row), the loss
+               and the time layers' gradients through the kernels against
+               float32, nonzero gradients of the GRUs, the special
+               attentions, `view_emb` and the H-Net's scores, `losses.h_net`
+               finite, the GRU layers' share of the step; b. the plain step
+               with the dynamic H-Net (the boundary head learning); c. the
+               prompted b16 x T192 dream from a (b, 96, 2, n, d) prompt
+               (K1 4), its prompt pass against float32 as in phase 3, and
+               8 cached frames after a prefill against the parallel pass;
+               d. FIRE (every 2-D weight's Frobenius norm kept within
+               1e-3), FIRE with shrink-and-perturb and a latent-gene
+               evolution on the trained model; e. a BC step on b8 x T16
+               video through the bench tokenizer and an aux encoder of 4
+               tokens (K4 1, the tokenizer's encode).
+ 17. tok-subsystems — the bench tokenizer with the GRU time layer and a
+               fixed H-Net in its encoder: the loss and time-layer
+               gradients through K4/K5 against float32, a `TokenizerTrainer`
+               step (K4 2 / K5 2; the GRU and the H-Net's scores learning),
+               an uncached encode (K4 1) and the streamed encode over 16
+               frames, its distance from float32 within 2 x the uncached
+               encode's.
+ 18. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, at the all-options
@@ -625,6 +655,54 @@ TOK_BETA_MEAN_TOL = 0.01      # the mean of Beta(2, 1) is 2/3
 SUGAR_SHAPE = (4096, 512)
 SUGAR_TOL = 1e-6
 
+# the wm-subsystems phase: the bench world model with the trunk's remaining
+# subsystems: the GRU time layer before each time layer's attention, MoT
+# (the agent token, the last of 43 per frame, gets its own time attention,
+# feedforward and KV cache), a fixed-stride H-Net spliced after layer 3
+# (4 frames per chunk), two video views (2 x 16 spatial tokens) and 4
+# latent genes for the evolution step
+WMSUB_MODEL = dict(BENCH_MODEL, use_time_rnn=True, mot_temporal=True, h_net_layer=3,
+                   num_video_views=2, num_latent_genes=4)
+WMSUB_TOKENS = 43
+# the time attention of the b1 x T1024 step under MoT: the main tokens
+# (42 rows) and the special one (1 row: 8 heads x 16 query tiles, 128
+# blocks, under one wave of the card's 132 SMs), each causal at N = M = 1024
+MOT_MAIN_ATTENTION = dict(B=TRAIN['batch_size'] * (WMSUB_TOKENS - 1), Hq=8, H=8,
+                          N=TRAIN['time_steps'], M=TRAIN['time_steps'], D=64, causal=True,
+                          offset=0, kv_len=TRAIN['time_steps'], softclamp=50.0)
+MOT_SPECIAL_ATTENTION = dict(MOT_MAIN_ATTENTION, B=TRAIN['batch_size'])
+# e. BC on video (one view): the bench tokenizer's 16 latents and an aux
+# encoder's 4
+WMSUB_AUX_TOKENS = 4
+# predicted before the first run: a plain step runs K1 (with its LSE) twice
+# in each of the 2 time layers (the main and the special attention), K2 and
+# K3 as often in the backward; a shortcut step adds two no-grad half-step
+# passes of 4 K1 each; the dynamic H-Net changes nothing of that; the
+# prompt pass of the b16 x T192 dream runs K1 in both attentions of both
+# time layers (672 and 16 rows, N = 96, M = 192) and the frames none (their
+# 1 x 192 scores stay under the gate; the H-Net and the GRU are plain ops);
+# FIRE and evolution launch nothing; the BC step on b8 x T16 video runs K4
+# once in the tokenizer's encode, and the world model none (T = 16 and
+# 43 x 43 scores stay under the gate, no small path)
+WMSUB_LAUNCHES = {'wmsub_train_plain': (4, 4, 4, 0, 0),
+                  'wmsub_train_shortcut': (12, 4, 4, 0, 0),
+                  'wmsub_dynamic_plain': (4, 4, 4, 0, 0),
+                  'wmsub_generate': (4, 0, 0, 0, 0),
+                  'wmsub_fire': (0, 0, 0, 0, 0),
+                  'wmsub_aux_bc': (0, 0, 0, 1, 0)}
+# the cached frames of the subsystem model against its parallel pass: 4
+# rows of the prompt, 8 frames on the cache after a 96-frame prefill
+WMSUB_CACHED_ROWS, WMSUB_CACHED_FRAMES = 4, 8
+FIRE_NORM_TOL = 1e-3
+
+# the tok-subsystems phase: the bench tokenizer with the GRU time layer and
+# a fixed-stride H-Net after layer 3 of its encoder. Predicted before the
+# first run: a train step as phase 6's (K4 in each trunk's time layer, K5
+# in both backwards); an uncached encode one K4; the streamed frames none
+TOK_SUB = dict(BENCH_TOKENIZER, use_time_rnn=True, h_net_layer=3)
+TOK_SUB_LAUNCHES = {'toksub_train_step': (0, 0, 0, 2, 2), 'toksub_encode': (0, 0, 0, 1, 0),
+                    'toksub_stream': (0, 0, 0, 0, 0)}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -843,6 +921,10 @@ def kernel_cases():
     cases.append(('wmopt_prefill', bf16, dict(prefill, softclamp=50.0,
                                               B=WMOPT_TOKENS * DREAM['batch_size'])))
     cases.append(('wmopt_rl_full', bf16, dict(WMOPT_RL_FULL_ATTENTION, lse=True)))
+    # the wm-subsystems phase's train step under MoT: the main tokens' and
+    # the special token's time attention, each with the LSE
+    cases.append(('mot_main', bf16, dict(MOT_MAIN_ATTENTION, lse=True)))
+    cases.append(('mot_special', bf16, dict(MOT_SPECIAL_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -938,7 +1020,7 @@ K1_SM90_CASES = ('t1024', 'space_special_only_itself=False', 'space_special_only
 # bf16 K1 cases of the continuous and recipe phases' paths: the wgmma
 # kernel too
 K1_SM90_ONLY_CASES = ('cont_train', 'cont_rl_full', 'recipe_train', 'recipe_sim',
-                      'wmopt_prefill', 'wmopt_rl_full')
+                      'wmopt_prefill', 'wmopt_rl_full', 'mot_main', 'mot_special')
 
 
 def run_kernel_phase():
@@ -1047,6 +1129,8 @@ def bwd_kernel_cases():
     cases.append(('recipe_train', bf16, RECIPE_TRAIN_ATTENTION))
     cases.append(('recipe_sim', bf16, RECIPE_SIM_ATTENTION))
     cases.append(('wmopt_rl_full', bf16, WMOPT_RL_FULL_ATTENTION))
+    cases.append(('mot_main', bf16, MOT_MAIN_ATTENTION))
+    cases.append(('mot_special', bf16, MOT_SPECIAL_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -1122,7 +1206,7 @@ def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
 
 # backward cases timed beside flex_attention's backward (with a float32 one)
 BWD_LIBRARY_CASES = ('t1024', 'rl_full', 'sim', 'cont_train', 'cont_rl_full', 'recipe_train',
-                     'recipe_sim', 'wmopt_rl_full')
+                     'recipe_sim', 'wmopt_rl_full', 'mot_main', 'mot_special')
 
 
 def run_backward_kernel_phase():
@@ -1228,11 +1312,12 @@ def backward_device_times(row, calls):
 
 # -------------------------------------------------------------------- model
 
-def check_experience(exp, b, T, P, dim, latent_shape, prompt=None):
+def check_experience(exp, b, T, P, dim, latent_shape, prompt=None, views=1):
     """The rollout's record has the expected shapes and finite values, and
     keeps the prompt as given."""
     n, d = latent_shape
-    expect = dict(latents=(b, T, n, d), rewards=(b, T), agent_embed=(b, T, dim),
+    lat_shape = (b, T, n, d) if views == 1 else (b, T, views, n, d)
+    expect = dict(latents=lat_shape, rewards=(b, T), agent_embed=(b, T, dim),
                   values=(b, T), lens=(b,))
     for name, shape in expect.items():
         t = getattr(exp, name)
@@ -1290,11 +1375,14 @@ def compare_prefill(model, prompt, max_time, config=BENCH_MODEL):
 
 
 def bench_prompt(model, seed: int) -> dict:
-    """The prompted rollout's fixed 96-frame prompt, from `seed`."""
+    """The prompted rollout's fixed 96-frame prompt, from `seed`; a
+    multi-view model's with the view axis, (b, P, v, n, d)."""
     dev, b, P = model.device, PROMPTED['batch_size'], PROMPT_LEN
     pgen = torch.Generator(device=dev).manual_seed(seed + 1)
+    views = () if model.num_video_views == 1 else (model.num_video_views,)
     return dict(
-        prompt_latents=torch.rand((b, P, *model.latent_shape), generator=pgen, device=dev) * 2 - 1,
+        prompt_latents=torch.rand((b, P, *views, *model.latent_shape), generator=pgen,
+                                  device=dev) * 2 - 1,
         prompt_discrete_actions=torch.randint(0, 4, (b, P, 1), generator=pgen, device=dev))
 
 
@@ -3710,6 +3798,401 @@ def run_tok_full_phase(seed: int = 0) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ wm-subsystems
+
+def multiview_batch(device, seed, views):
+    """The train phase's b1 x T1024 batch, its latents with `views` views."""
+    batch = train_batch(device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    b, t = TRAIN['batch_size'], TRAIN['time_steps']
+    batch['latents'] = torch.randn((b, t, views, 16, 32), generator=g, device=device) * 0.5
+    batch['latent_has_view_dim'] = True
+    return batch
+
+
+def check_nonzero_grads(label, model, prefixes):
+    """Fails unless the parameters under each prefix have a nonzero gradient."""
+    flat = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+    zero = [x for x in prefixes if not any(bool(p.grad.any()) for n, p in flat
+                                           if n.startswith(x))]
+    if zero:
+        raise SystemExit(f'{label}: no gradient reaches {zero}')
+
+
+def gru_share_ms(model, rows: int, t: int) -> float:
+    """The GRU time layers of `model`'s main trunk alone, forward and
+    backward at the train step's shape ((rows, t, dim) in its compute
+    dtype), in ms: the recurrence's part of the step."""
+    layers = [m for n, m in model.transformer.named_children() if n.startswith('rnn_')]
+    g = torch.Generator(device=model.device).manual_seed(0)
+    x = torch.randn((rows, t, model.dim), generator=g, device=model.device).to(model.dtype)
+    x.requires_grad_(True)
+
+    def run():
+        for layer in layers:
+            out, _ = layer(x)
+            out.float().sum().backward()
+    run()
+    ms = host_time_s(run, reps=2) * 1e3
+    model.zero_grad(set_to_none=True)
+    return ms
+
+
+def compare_cached(model, prompt, config):
+    """The subsystem model's cached frames against its parallel pass: a
+    prefill of the prompt's first frames, then WMSUB_CACHED_FRAMES frames
+    one at a time on the cache, in bf16, and one parallel pass over all of
+    them in bf16 and in float32 (a model of `config`, plain attention, the
+    weights upcast). Returns, per output, (|cached - f32|, |parallel bf16 -
+    f32|)."""
+    from dreamer4_torch import DynamicsWorldModel
+
+    rows, n = WMSUB_CACHED_ROWS, WMSUB_CACHED_FRAMES
+    P = PROMPT_LEN - n
+    lat = prompt['prompt_latents'][:rows]
+    acts = prompt['prompt_discrete_actions'][:rows]
+    K = model.max_steps
+    kw = dict(signal_levels=K - 1, step_sizes=K // PROMPTED['num_steps'], latent_is_noised=True,
+              latent_has_view_dim=True, return_intermediates=True)
+    outputs = lambda out: dict(flow=out[0].flow.float(), agent=out[1][0].agent.float())
+    with torch.no_grad():
+        parallel = outputs(model(latents=lat, discrete_actions=acts, **kw))
+        out = model(latents=lat[:, :P], discrete_actions=acts[:, :P], max_time=PROMPT_LEN, **kw)
+        cache, frames = out[1][1], []
+        for i in range(P, PROMPT_LEN):
+            # a frame on the cache takes the action before it
+            out = model(latents=lat[:, i:i + 1], discrete_actions=acts[:, i - 1:i], cache=cache,
+                        **kw)
+            cache = out[1][1]
+            frames.append(outputs(out))
+        cached = {k: torch.cat([f[k] for f in frames], dim=1) for k in frames[0]}
+        ref_model = DynamicsWorldModel(**{**config, 'use_flash_attention': False})
+        ref_model.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+        ref = outputs(ref_model(latents=lat, discrete_actions=acts, **kw))
+        del ref_model
+    err = lambda a, b: (a - b).abs().max().item()
+    return {k: (err(cached[k], ref[k][:, P:]), err(parallel[k][:, P:], ref[k][:, P:]))
+            for k in ref}
+
+
+def run_wm_subsystems_phase(seed: int = 0) -> dict:
+    """The trunk's remaining subsystems at the bench model's width (the GRU
+    time layer, MoT, a fixed H-Net after layer 3, two views; 43 tokens per
+    frame), float32 master weights and bf16 compute: a. a plain and a
+    shortcut `BehaviorCloneTrainer` step at b1 x T1024, the loss and the
+    time layers' gradients (both MoT attentions) through K1-K3 held
+    against float32, the GRU, the special attention, the view embedding
+    and the H-Net's scores learning, the GRU's share of the step; b. the
+    same plain step with the dynamic H-Net; c. the prompted b16 x T192
+    dream from a (b, 96, 2, n, d) prompt, its prompt pass with K1 against
+    float32, and cached frames against the parallel pass; d. FIRE with and
+    without shrink-and-perturb and a latent-gene evolution on the trained
+    model; e. a BC step on b8 x T16 video through the bench tokenizer and
+    an aux encoder of 4 tokens. Returns the (K1..K5) launches by path."""
+    from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel, VideoTokenizer
+    from dreamer4_torch.models.generate import generate
+    from dreamer4_torch.ops.fire import apply_fire, evolve_params
+    from dreamer4_torch.train.trainers import make_world_model_train_step
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(seed)
+    model = DynamicsWorldModel(**WMSUB_MODEL, dtype=torch.bfloat16)
+    if model.device.type != 'cuda':
+        raise SystemExit(f'model built on {model.device}, not on the card')
+    if model.tokens_per_frame != WMSUB_TOKENS:
+        raise SystemExit(f'{model.tokens_per_frame} tokens per frame, not {WMSUB_TOKENS}')
+    dev = model.device
+    log(f'# wm-subsystems ({gpu_name_and_power_limit()}): '
+        f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, '
+        f'{model.tokens_per_frame} tokens/frame (GRU time layers, MoT, fixed H-Net after layer '
+        f'{WMSUB_MODEL["h_net_layer"]}, {model.num_video_views} views)')
+    launches = {}
+
+    def part(label, fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, WMSUB_LAUNCHES[label])
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        return out, sec, got, variants, torch.cuda.max_memory_allocated() / 2**30
+
+    # a. the loss and the time layers' gradients through the kernels
+    # against float32, then the steps
+    batch = multiview_batch(dev, seed + 2, model.num_video_views)
+    ref = DynamicsWorldModel(**{**WMSUB_MODEL, 'use_flash_attention': False})
+    ref.load_state_dict(model.state_dict())
+    names = [f'transformer.{a}_{i}.{w}.weight' for i in TIME_LAYERS
+             for a in ('attn', 'special_attn') for w in ('to_q', 'to_k', 'to_v')]
+    check_grad_distances('wmsub train grads', compare_grads(
+        model, ref, wm_plain_step_loss(batch, seed + 3), names, 'AxialSpaceTimeTransformer',
+        'use_flash_attention'))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    learners = ['view_emb', 'transformer.h_net.to_scores.'] + [
+        f'transformer.{m}_{i}.' for i in TIME_LAYERS for m in ('rnn', 'special_attn')]
+    trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0,
+                                   with_ema=True, seed=seed)
+    step_fn = make_world_model_train_step(model, trainer.optimizer, ema_decay=0.999)
+    step_ms = {}
+    for shortcut in (False, True):
+        label = 'wmsub_train_shortcut' if shortcut else 'wmsub_train_plain'
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+        ts_before = trainer.ts
+
+        def one_step():
+            trainer.ts, loss, losses = step_fn(trainer.ts, batch, shortcut_train=shortcut,
+                                               generator=trainer.generator)
+            return loss, losses
+        (loss, losses), sec, got, variants, peak = part(label, one_step)
+        n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before, label)
+        check_nonzero_grads(label, model, learners)
+        if not (torch.isfinite(losses.h_net) and losses.h_net.item() > 0):
+            raise SystemExit(f'{label}: losses.h_net {losses.h_net.item()}')
+        del before, ema_before
+        sec_warm = host_time_s(lambda: one_step(), reps=1)
+        step_ms[shortcut] = sec_warm * 1e3
+        log(f'{label} b{TRAIN["batch_size"]} T{TRAIN["time_steps"]}: loss {loss.item():.4f} '
+            f'(h_net {losses.h_net.item():.4f}); {n_grad} parameters with a gradient, all moved '
+            f'with their EMA; the GRUs, the special attentions, view_emb and the H-Net\'s scores '
+            f'learn; {sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms warm; (K1..K5) {got}, K1 '
+            f'by variant {variants}; peak memory {peak:.2f} GiB')
+    rows = TRAIN['batch_size'] * WMSUB_TOKENS
+    gru_ms = gru_share_ms(model, rows, TRAIN['time_steps'])
+    log(f'wmsub GRU time layers alone (2 layers, forward and backward at {rows} x '
+        f'{TRAIN["time_steps"]} x {model.dim}): {gru_ms:.1f} ms, '
+        f'{100 * gru_ms / step_ms[False]:.1f}% of the plain step\'s {step_ms[False]:.1f} ms')
+    del trainer, step_fn
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. the dynamic H-Net: one plain step
+    torch.manual_seed(seed)
+    dyn = DynamicsWorldModel(**{**WMSUB_MODEL, 'h_net_dynamic': True}, dtype=torch.bfloat16)
+    dtrainer = BehaviorCloneTrainer(dyn, learning_rate=3e-4, clip_grad_norm=1.0,
+                                    with_ema=False, seed=seed)
+
+    def dyn_step():
+        dtrainer.ts, loss, losses = dtrainer._train_step(dtrainer.ts, batch, shortcut_train=False,
+                                                         generator=dtrainer.generator)
+        return loss, losses
+    (loss, losses), sec, got, variants, peak = part('wmsub_dynamic_plain', dyn_step)
+    check_nonzero_grads('wmsub_dynamic_plain', dyn, ['transformer.h_net.boundary_head.',
+                                                     'view_emb'])
+    if not (torch.isfinite(loss) and torch.isfinite(losses.h_net)):
+        raise SystemExit(f'wmsub_dynamic_plain: loss {loss.item()}, h_net {losses.h_net.item()}')
+    sec_warm = host_time_s(lambda: dyn_step(), reps=1)
+    log(f'wmsub_dynamic_plain b{TRAIN["batch_size"]} T{TRAIN["time_steps"]} (dynamic H-Net): '
+        f'loss {loss.item():.4f} (h_net {losses.h_net.item():.6f}); the boundary head learns; '
+        f'{sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms warm; (K1..K5) {got}; peak memory '
+        f'{peak:.2f} GiB')
+    del dyn, dtrainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. the prompted dream from a two-view prompt
+    b, T, P = PROMPTED['batch_size'], PROMPTED['time_steps'], PROMPT_LEN
+    prompt = bench_prompt(model, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    with torch.no_grad():
+        exp, sec, got, variants, peak = part('wmsub_generate', lambda: generate(
+            model, gen, **PROMPTED, **prompt))
+    check_experience(exp, b, T, P, model.dim, model.latent_shape, prompt=prompt,
+                     views=model.num_video_views)
+    log(f'wmsub_generate b{b} T{T} P{P} (2 views): {sec * 1e3:.1f} ms (first), '
+        f'{b * (T - P) / sec:.1f} dreamed env-steps/s; (K1..K5) {got}, K1 by variant '
+        f'{variants}; peak memory {peak:.2f} GiB')
+    errors, ms_k, ms_p = compare_prefill(model, prompt, T, config=WMSUB_MODEL)
+    cached = compare_cached(model, prompt, WMSUB_MODEL)
+    ok = True
+    for name, (e_kernel, e_plain, e_between) in errors.items():
+        good = e_kernel <= PREFILL_TOL_FACTOR * e_plain
+        ok = ok and good
+        log(f'wmsub prompt pass {name:<5}: max |bf16 K1 - f32| {e_kernel:.3e} (tol '
+            f'{PREFILL_TOL_FACTOR} x {e_plain:.3e}, max |bf16 plain - f32|); max |K1 - plain| '
+            f'{e_between:.3e}' + ('' if good else '  FAIL'))
+    for name, (e_cached, e_parallel) in cached.items():
+        good = e_cached <= PREFILL_TOL_FACTOR * e_parallel
+        ok = ok and good
+        log(f'wmsub cached frames {name:<5}: max |bf16 cached - f32 parallel| {e_cached:.3e} '
+            f'(tol {PREFILL_TOL_FACTOR} x {e_parallel:.3e}, max |bf16 parallel - f32 parallel|)'
+            + ('' if good else '  FAIL'))
+    log(f'wmsub prompt pass: {ms_k:.2f} ms with K1, {ms_p:.2f} ms plain (the H-Net steps its '
+        f'cache frame by frame in both)')
+    if not ok:
+        raise SystemExit('wmsub: the kernels or the cache are further from float32 than the '
+                         'plain parallel pass')
+    del exp, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. FIRE, without and with shrink-and-perturb, then an evolution step
+    def fire_all():
+        norms = {n: p.detach().float().norm() for n, p in model.named_parameters()
+                 if p.ndim == 2}
+        apply_fire(model)
+        torch.cuda.synchronize()
+        drift = max(abs(p.detach().float().norm() / norms[n] - 1.0).item()
+                    for n, p in model.named_parameters() if n in norms)
+        fgen = torch.Generator(device=dev).manual_seed(seed + 6)
+        apply_fire(model, generator=fgen, shrink_perturb=True)
+        genes = model.latent_genes.detach().clone()
+        fitness = torch.tensor([0.5, 2.0, -1.0, 1.0], device=dev)
+        evolve_params(model, fitness, generator=fgen)
+        return drift, len(norms), genes, fitness
+    (drift, n_fired, genes, fitness), sec, got, _, _ = part('wmsub_fire', fire_all)
+    bad = [n for n, p in model.named_parameters() if not bool(torch.isfinite(p).all())]
+    kept = torch.equal(model.latent_genes[:2], genes[torch.tensor([1, 3], device=dev)])
+    if drift > FIRE_NORM_TOL or bad or not kept:
+        raise SystemExit(f'wmsub_fire: norm drift {drift:.2e}, non-finite {bad[:4]}, the fittest '
+                         f'genes kept {kept}')
+    log(f'wmsub_fire: FIRE over {n_fired} 2-D weights, largest Frobenius norm drift '
+        f'{drift:.2e} (tol {FIRE_NORM_TOL:.0e}), then with shrink-and-perturb, then the latent '
+        f'genes evolved (the 2 fittest kept first): {sec * 1e3:.1f} ms in all; (K1..K5) {got}')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # e. BC on video: the bench tokenizer's latents and the aux encoder's
+    torch.manual_seed(seed)
+    tok = VideoTokenizer(**BENCH_TOKENIZER, dtype=torch.bfloat16)
+    # one view: the tokenizer encodes one video
+    aux_model = DynamicsWorldModel(
+        **{**WMSUB_MODEL, 'num_video_views': 1, 'num_latent_tokens':
+           BENCH_TOKENIZER['num_latent_tokens'] + WMSUB_AUX_TOKENS}, dtype=torch.bfloat16)
+    wgen = torch.Generator(device=dev).manual_seed(seed + 8)
+    w_aux = torch.randn((3, WMSUB_AUX_TOKENS * 32), generator=wgen, device=dev) * 0.1
+
+    def aux_encoder(video):   # (b, c, t, h, w) -> (b, t, 4, 32)
+        pooled = video.mean(dim=(-2, -1)).transpose(1, 2)
+        return torch.tanh(pooled @ w_aux).reshape(*pooled.shape[:2], WMSUB_AUX_TOKENS, 32)
+    bc = BehaviorCloneTrainer(aux_model, tokenizer=tok, aux_image_encoder_fn=aux_encoder,
+                              learning_rate=3e-4, clip_grad_norm=1.0, with_ema=False, seed=seed)
+    vb, vt = TOK_VIDEO['batch_size'], TOK_VIDEO['time_steps']
+    video = torch.rand((vb, 3, vt, 64, 64), generator=wgen, device=dev)
+    vbatch = dict(video=video, rewards=torch.zeros((vb, vt), device=dev),
+                  discrete_actions=torch.zeros((vb, vt, 1), dtype=torch.long, device=dev))
+    (loss, losses), sec, got, _, peak = part('wmsub_aux_bc', lambda: bc.train_on_batch(vbatch))
+    if not torch.isfinite(loss):
+        raise SystemExit(f'wmsub_aux_bc: loss {loss.item()}')
+    log(f'wmsub_aux_bc b{vb} T{vt} video: {BENCH_TOKENIZER["num_latent_tokens"]} tokenizer + '
+        f'{WMSUB_AUX_TOKENS} aux tokens per frame; loss {loss.item():.4f}; {sec * 1e3:.1f} ms '
+        f'(first); (K1..K5) {got}; peak memory {peak:.2f} GiB')
+    del bc, tok, aux_model, video, vbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# wm-subsystems phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
+# ----------------------------------------------------------- tok-subsystems
+
+def run_tok_subsystems_phase(seed: int = 0) -> dict:
+    """The bench tokenizer with the GRU time layer and a fixed H-Net in its
+    encoder (`TOK_SUB`): the loss and the time layers' gradients through
+    K4/K5 held against float32, a `TokenizerTrainer` step (the GRU and the
+    H-Net's scores learning), an uncached encode, and the streamed encode
+    frame by frame against it. Returns the (K1..K5) launches by path."""
+    from dreamer4_torch import TokenizerTrainer, VideoTokenizer
+    from dreamer4_torch.train.trainers import make_tokenizer_train_step
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def part(label, fn):
+        out, sec, got, variants = counted(fn)
+        expect_launches(label, got, TOK_SUB_LAUNCHES[label])
+        launches[label] = got
+        return out, sec, got
+
+    torch.manual_seed(seed)
+    tok = VideoTokenizer(**TOK_SUB, dtype=torch.bfloat16)
+    if tok.device.type != 'cuda':
+        raise SystemExit(f'tokenizer built on {tok.device}, not on the card')
+    dev = tok.device
+    b, t = TOK_VIDEO['batch_size'], TOK_VIDEO['time_steps']
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    video = torch.rand((b, 3, t, 64, 64), generator=gen, device=dev)
+    log(f'# tok-subsystems ({gpu_name_and_power_limit()}): the bench tokenizer with the GRU time '
+        f'layer and a fixed H-Net after encoder layer {TOK_SUB["h_net_layer"]}: '
+        f'{sum(p.numel() for p in tok.parameters()) / 1e6:.2f}M params, b{b} x T{t} video')
+
+    ref = VideoTokenizer(**{**TOK_SUB, 'use_fused_small': False})
+    ref.load_state_dict(tok.state_dict())
+
+    def loss_fn(model):
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        return model(video, update_loss_ema=False, generator=g)
+
+    names = [f'{layer}.{w}.weight' for layer in TOK_TIME_LAYERS for w in ('to_q', 'to_k', 'to_v')]
+    check_grad_distances('tok-subsystems grads', compare_grads(tok, ref, loss_fn, names,
+                                                               'Attention', 'use_fused_small'))
+    del ref
+
+    trainer = TokenizerTrainer(tok, learning_rate=3e-4, clip_grad_norm=1.0, with_ema=True,
+                               seed=seed)
+    step_fn = make_tokenizer_train_step(tok, trainer.optimizer, ema_decay=0.999)
+    before = {n: p.detach().clone() for n, p in tok.named_parameters()}
+    ema_before = {n: e.clone() for n, e in trainer.ts.ema_params.items()}
+    ts_before = trainer.ts
+
+    def one_step():
+        trainer.ts, loss, losses = step_fn(trainer.ts, video, generator=trainer.generator)
+        return loss, losses
+    (loss, losses), sec, got = part('toksub_train_step', one_step)
+    n_grad = check_step(tok, ts_before, trainer.ts, loss, losses, before, ema_before,
+                        'toksub_train_step')
+    check_nonzero_grads('toksub_train_step', tok, ['encoder_transformer.rnn_3.',
+                                                   'encoder_transformer.h_net.to_scores.'])
+    del before, ema_before
+    sec_warm = host_time_s(lambda: one_step(), reps=2)
+    log(f'toksub_train_step b{b} T{t}: loss {loss.item():.5f}; {n_grad} parameters with a '
+        f'gradient, all moved with their EMA, the GRU and the H-Net\'s scores among them; '
+        f'{sec * 1e3:.1f} ms first, {sec_warm * 1e3:.1f} ms/step warm (mean of 2); (K1..K5) '
+        f'{got}')
+    del trainer, step_fn
+
+    # the streamed encode against one uncached encode, each against float32
+    with torch.no_grad():
+        uncached, sec_u, got_u = part('toksub_encode', lambda: tok.encode(video))
+
+        def stream():
+            cache, frames = None, []
+            for i in range(t):
+                kw = dict(max_time=t) if cache is None else {}
+                lat, cache = tok.encode(video[:, :, i:i + 1], cache=cache, return_cache=True,
+                                        **kw)
+                frames.append(lat)
+            return torch.cat(frames, dim=1), cache
+        (streamed, cache), sec_s, got_s = part('toksub_stream', stream)
+        f32 = VideoTokenizer(**{**TOK_SUB, 'use_fused_small': False})
+        f32.load_state_dict(tok.state_dict())
+        ref = f32.encode(video)
+        del f32
+    if cache.transformer.rnn is None or cache.transformer.h_net is None:
+        raise SystemExit('toksub_stream: the cache carries no GRU or H-Net state')
+    err = (streamed - uncached).abs().max().item()
+    err_f32 = {'streamed': (streamed - ref).abs().max().item(),
+               'uncached': (uncached - ref).abs().max().item()}
+    tol = PIXEL_TOL_FACTOR * err_f32['uncached']
+    ok = err_f32['streamed'] <= tol
+    log(f'toksub stream b{b} x {t} frames: {sec_s * 1e3:.1f} ms ({got_s}), uncached encode '
+        f'{sec_u * 1e3:.1f} ms ({got_u}); streamed vs uncached max |diff| {err:.3e}; the '
+        f'streamed latents\' distance from float32 {err_f32["streamed"]:.3e} (tol {tol:.3e}: '
+        f'{PIXEL_TOL_FACTOR} x the uncached bf16 encode\'s, {err_f32["uncached"]:.3e})'
+        + ('' if ok else '  FAIL'))
+    if not ok:
+        raise SystemExit('toksub: the streamed latents disagree with the uncached encode')
+    del tok, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'# tok-subsystems phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3754,7 +4237,8 @@ def main() -> int:
                 **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
                 **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase(),
                 **run_recipe_phase(), **run_tok_options_phase(), **run_wm_options_phase(),
-                **run_tok_full_phase()}
+                **run_tok_full_phase(), **run_wm_subsystems_phase(),
+                **run_tok_subsystems_phase()}
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)
@@ -3775,7 +4259,7 @@ def main() -> int:
                           for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
                    for name in K1_SM90_ONLY_CASES}
     bwd_at = {which: {name: {x: bwd_results[(name, torch.bfloat16)][which][x]
-                             for x in ('ms', 'library_ms', 'bound_ms')}
+                             for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
                       for name in BWD_LIBRARY_CASES if name != 't1024'}
               for which in ('dq', 'dkv')}
     kernels = [dict(name='K1 flash_attn_fwd', route='cuda',

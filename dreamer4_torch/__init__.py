@@ -20,8 +20,8 @@ epochs), and the data plane, the CLI and serving: the memmapped
 `data.replay_buffer.ReplayBuffer`, the video datasets, the native prefetch
 library (`native/prefetch.cpp`), Snake and the record wrappers,
 `envs.world_model_env.DynamicsWorldModelWrapper`, the HTTP servers
-(`serve.server`) and `python -m dreamer4_torch.cli` with its four commands.
-The flash-attention
+(`serve.server`) and `python -m dreamer4_torch.cli` with its four commands,
+and FIRE and latent-gene evolution (`ops.fire`). The flash-attention
 forward and backward (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
 `csrc/flash_attn_bwd_dkv.cu`) and the small-attention forward and backward
 (`csrc/small_attn_fwd.cu`, `csrc/small_attn_bwd.cu`, behind

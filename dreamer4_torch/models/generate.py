@@ -57,7 +57,7 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
              tasks: torch.Tensor | None = None,                      # (b,)
              latent_gene_ids: torch.Tensor | None = None,            # (b,)
              context_signal_noise: float = 0.1,
-             prompt_latents: torch.Tensor | None = None,            # (b, p, n, d)
+             prompt_latents: torch.Tensor | None = None,            # (b, p, [v,] n, d)
              prompt_discrete_actions: torch.Tensor | None = None,   # (b, p, na)
              prompt_continuous_actions: torch.Tensor | None = None,  # (b, p, na_c)
              prompt_rewards: torch.Tensor | None = None,            # (b, p)
@@ -98,6 +98,8 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
     if P >= T:
         raise ValueError('prompt must be shorter than requested time_steps')
     if prompt_latents is not None and prompt_latents.ndim == 4:
+        if V != 1:
+            raise ValueError('a multi-view model needs (b, p, v, n, d) prompt latents')
         prompt_latents = prompt_latents[:, :, None]
 
     # ------------------------------------------------------------- buffers
@@ -214,7 +216,9 @@ def generate(model: DynamicsWorldModel, generator: torch.Generator, *, time_step
         if return_agent_actions and model.has_actions:
             actor_src = critic_src = one_agent_embed
             if model.actor_critic_latent_input:
-                actor_src, critic_src = model.latent_actor_inputs(denoised[:, 0, 0])
+                # a multi-view model's encoders read every view
+                actor_src, critic_src = model.latent_actor_inputs(
+                    denoised[:, 0] if V > 1 else denoised[:, 0, 0])
             policy_embed = model.policy_head(actor_src)
             policy_embed_buf[:, i] = policy_embed
             sizes = model.action_embedder.discrete_sizes

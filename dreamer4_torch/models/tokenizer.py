@@ -40,9 +40,9 @@ without a dtype promote to their float32 parameters. The public video
 layout is (b, c, t, h, w), the internal one (b, t, h, w, c). Every random
 draw goes through a module-level `draw` (this module's, `ops.losses.draw`,
 `nn.lpips.draw`), so a test can replay the counterpart's draws. The
-counterpart's fields that the port does not have yet (`_NOT_PORTED`: the
-GRU time layer and H-Net) are accepted at their defaults and raise at any
-other value.
+encoder's trunk takes the GRU time layer (`use_time_rnn`) and the H-Net
+splice (`h_net_*`), whose ratio loss, weighted by `h_net_loss_weight`,
+joins the total (the counterpart's `TokenizerLosses` has no field for it).
 
 `encode` also streams: frame by frame (`cache=`, `max_time=`,
 `return_cache=`), as an environment's frames arrive, through the
@@ -73,7 +73,7 @@ from ..ops.dists import beta_sample
 from ..ops.losses import decorrelation_loss, sigreg
 from ..ops.utils import (frac_gradient, lens_to_mask, masked_mean, orthogonal_loss,
                          smooth_l1_loss)
-from .transformer import AxialSpaceTimeTransformer, TransformerCache, check_not_ported
+from .transformer import AxialSpaceTimeTransformer, TransformerCache
 
 
 class TokenizerLosses(NamedTuple):
@@ -106,13 +106,6 @@ class TokenizerCache(NamedTuple):
     transformer: TransformerCache
     post_conv: torch.Tensor | None
 
-
-# options of the counterpart, with their defaults, that the port does not
-# have yet; any other value raises
-_NOT_PORTED = dict(
-    use_time_rnn=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
-    h_net_dynamic=False, h_net_loss_weight=1.0,
-)
 
 # the parameters of the encoder (the counterpart's `ENCODER_PARAM_KEYS`):
 # the latent consistency loss re-encodes through them detached
@@ -277,13 +270,15 @@ class VideoTokenizer(nn.Module):
                  latent_consistency_loss_weight: float = 0.0, use_flash_attention: bool = False,
                  use_fused_small: bool | None = None, time_attention_use_pope: bool = False,
                  space_attention_use_pope: bool = False, encoder_moss_layers: tuple = (),
-                 decoder_moss_layers: tuple = (), dtype=None, device=None, **not_ported):
+                 decoder_moss_layers: tuple = (), use_time_rnn: bool = False,
+                 h_net_layer: int | None = None, h_net_depth: int = 2,
+                 h_net_compression_ratio: int = 4, h_net_dynamic: bool = False,
+                 h_net_loss_weight: float = 1.0, dtype=None, device=None):
         # the constructor's arguments, for checkpoints (train/checkpoint.py)
         config = {k: v for k, v in locals().items()
-                  if k not in ('self', '__class__', 'device', 'not_ported')}
+                  if k not in ('self', '__class__', 'device')}
         super().__init__()
-        self.config = {**config, **not_ported}
-        check_not_ported(not_ported, _NOT_PORTED)
+        self.config = config
         if image_height % patch_size or image_width % patch_size:
             raise ValueError('image sides must be multiples of the patch size')
         if latent_init_patch_size is not None and (latent_init_patch_size > patch_size or
@@ -320,6 +315,7 @@ class VideoTokenizer(nn.Module):
         self.decorr_sample_frac = decorr_sample_frac
         self.latent_sigreg_num_slices = latent_sigreg_num_slices
         self.latent_consistency_loss_weight = latent_consistency_loss_weight
+        self.h_net_loss_weight = h_net_loss_weight
 
         enc_channels = channels * (2 if encode_temporal_diff else 1)
         if use_shifted_patch_tokenization:
@@ -364,7 +360,9 @@ class VideoTokenizer(nn.Module):
             num_special_tokens=num_latent_tokens + int(has_aug_conditioning),
             full_spatial_attn=encoder_full_spatial_attn, final_norm=True,
             space_height=image_height // patch_size, space_width=image_width // patch_size,
-            spatial_module_layers=tuple(encoder_moss_layers))
+            spatial_module_layers=tuple(encoder_moss_layers), rnn_time=use_time_rnn,
+            h_net_layer=h_net_layer, h_net_depth=h_net_depth,
+            h_net_compression_ratio=h_net_compression_ratio, h_net_dynamic=h_net_dynamic)
         self.encoded_to_latents = Dense(dim, dim_latent, bias=False, device=device)
         self.latents_to_decoder = Dense(dim_latent, dim, bias=False, device=device)
         decoder_kwargs = dict(
@@ -774,6 +772,7 @@ class VideoTokenizer(nn.Module):
         total = losses['recon'] + losses['flow_recon']
         for name, weight in w.items():
             total = total + losses[name] * weight
+        total = total + interm.h_net_loss * self.h_net_loss_weight
 
         if not return_intermediates:
             return total

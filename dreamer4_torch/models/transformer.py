@@ -12,8 +12,16 @@ on the time layers (`time_pope`) and axial PoPE on the space layers
 (`space_pope`, over the leading sh*sw grid tokens; the rest get no
 rotation), and MOSS spatial modules (`spatial_module_{i}`, after layer i's
 feedforward on the grid tokens, with a conv time cache each in
-`TransformerCache.spatial_modules`). Not ported yet, and refused when set:
-the GRU time layer, MoT, H-Net and ring attention.
+`TransformerCache.spatial_modules`), the GRU time layer (`rnn_{i}` before
+each time layer's attention, its carry in `TransformerCache.rnn`), MoT
+(`mot_temporal`: on time layers the last `num_special_tokens` tokens get
+their own attention and feedforward, `special_attn_{i}` /
+`special_ff_{i}`, and their own KV cache, so `TransformerCache.kv[i]` is a
+(main, special) pair), and the H-Net splice after layer `h_net_layer`'s
+attention (`nn/hnet.py`, fixed-stride or with `h_net_dynamic` learned
+boundaries; its streaming cache in `TransformerCache.h_net`, its ratio loss
+in `TransformerOutputs.h_net_loss`). Not ported yet, and refused when set:
+ring attention (`time_ring_axis`).
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from ..device import resolve_device
 from ..nn.attention import (Attention, AttentionPool, FeedForward, FlashSpec, KVCache,
                             rms_normalize)
 from ..nn.dense import Dense
+from ..nn.gru import GRUCell
+from ..nn.hnet import DynamicChunkingTemporalTransformer, HierarchicalTemporalTransformer
 from ..nn.moss import MOSS
 from ..nn.norms import RMSNorm
 from ..nn.pope import AxialPoPE, PoPE
@@ -34,9 +44,11 @@ from ..ops.rotary import rotary_frequencies
 
 
 class TransformerCache(NamedTuple):
-    kv: tuple           # one KVCache per time layer
+    kv: tuple           # one KVCache per time layer; a (main, special) pair under MoT
     token_count: int    # frames already in the cache (host int)
     spatial_modules: tuple | None = None   # one conv time cache per MOSS layer
+    rnn: tuple | None = None               # one GRU carry (b*s, d) per time layer
+    h_net: object | None = None            # HNetCache / DynamicHNetCache
 
 
 class TransformerOutputs(NamedTuple):
@@ -46,6 +58,7 @@ class TransformerOutputs(NamedTuple):
     normed_space_inputs: torch.Tensor | None  # (num_space_layers, b*t, s, d)
     layer_hiddens: list
     token_count: int
+    h_net_loss: torch.Tensor | float = 0.0
 
 
 def _to_time_major(x):
@@ -69,11 +82,28 @@ def _from_space_major(x, bt_shape):
 
 # fields of the counterpart, with their defaults, that the port does not
 # have yet; any other value raises
-_NOT_PORTED = dict(
-    rnn_time=False, mot_temporal=False, time_ring_axis=None,
-    h_net_layer=None, h_net_depth=2, h_net_heads=4, h_net_dim_head=32,
-    h_net_compression_ratio=4, h_net_dynamic=False,
-)
+_NOT_PORTED = dict(time_ring_axis=None)
+
+
+class GRUTimeLayer(nn.Module):
+    """RMSNorm, then a GRU over time from the given carry (zeros when none),
+    in flax's layout (`GRUCell_0`, the name flax gives the cell inside the
+    counterpart's `nn.RNN`). x (B, t, d) -> (outputs, last carry). The cell
+    computes in the promoted type of its input and float32 weights; the
+    outputs return in the input's dtype and the carry in the carry's."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.dim = dim
+        self.norm = RMSNorm(dim, device=device)
+        self.GRUCell_0 = GRUCell(dim, dim, device=device)
+
+    def forward(self, x, carry=None):
+        x = self.norm(x)
+        if carry is None:
+            carry = torch.zeros((x.shape[0], self.dim), dtype=x.dtype, device=x.device)
+        out = self.GRUCell_0.scan(carry, x)
+        return out.to(x.dtype), out[:, -1].to(carry.dtype)
 
 
 def check_not_ported(not_ported: dict, table: dict) -> None:
@@ -98,7 +128,10 @@ class AxialSpaceTimeTransformer(nn.Module):
                  time_attention_use_pope: bool = False, space_attention_use_pope: bool = False,
                  space_height: int | None = None, space_width: int | None = None,
                  spatial_module_layers: tuple = (), spatial_module_kernel_size: int = 3,
-                 ff_expansion_factor: float = 4.0,
+                 rnn_time: bool = False, mot_temporal: bool = False,
+                 h_net_layer: int | None = None, h_net_depth: int = 2, h_net_heads: int = 4,
+                 h_net_dim_head: int = 32, h_net_compression_ratio: int = 4,
+                 h_net_dynamic: bool = False, ff_expansion_factor: float = 4.0,
                  ff_activation: str = 'silu', gate_values: bool = True,
                  rmsnorm_query: bool = False, rmsnorm_key: bool = True,
                  belief_attn: bool = True, dtype=None, device=None, **not_ported):
@@ -121,6 +154,11 @@ class AxialSpaceTimeTransformer(nn.Module):
         self.space_height, self.space_width = space_height, space_width
         self.spatial_module_layers = tuple(spatial_module_layers)
         self.spatial_module_kernel_size = spatial_module_kernel_size
+        self.rnn_time = rnn_time
+        self.use_mot = mot_temporal and num_special_tokens > 0
+        self.h_net_layer = h_net_layer
+        self.h_net_compression_ratio = h_net_compression_ratio
+        self.h_net_dynamic = h_net_dynamic
         self.dtype = dtype
 
         if time_attention_use_pope:
@@ -139,9 +177,15 @@ class AxialSpaceTimeTransformer(nn.Module):
                            use_fused_small=bool(use_fused_small), dtype=dtype, device=device)
         ff_kwargs = dict(dim=dim, expansion_factor=ff_expansion_factor,
                          activation=ff_activation, dtype=dtype, device=device)
-        for i in range(depth):
+        for i, is_time in enumerate(self.is_time_layer):
+            if is_time and rnn_time:
+                setattr(self, f'rnn_{i}', GRUTimeLayer(dim, device=device))
             setattr(self, f'attn_{i}', Attention(**attn_common, value_residual=value_residual))
             setattr(self, f'ff_{i}', FeedForward(**ff_kwargs))
+            if is_time and self.use_mot:
+                setattr(self, f'special_attn_{i}',
+                        Attention(**attn_common, value_residual=value_residual))
+                setattr(self, f'special_ff_{i}', FeedForward(**ff_kwargs))
             if i in self.spatial_module_layers:
                 setattr(self, f'spatial_module_{i}',
                         MOSS(dim, spatial_module_kernel_size, device=device))
@@ -154,6 +198,11 @@ class AxialSpaceTimeTransformer(nn.Module):
         if use_attn_pool:
             self.final_attn_pool = AttentionPool(dim, dtype=dtype, device=device)
         self.final_norm = RMSNorm(dim, device=device) if final_norm else None
+        if h_net_layer is not None:
+            cls = (DynamicChunkingTemporalTransformer if h_net_dynamic
+                   else HierarchicalTemporalTransformer)
+            self.h_net = cls(dim, depth=h_net_depth, heads=h_net_heads, dim_head=h_net_dim_head,
+                             compression_ratio=h_net_compression_ratio, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -175,19 +224,37 @@ class AxialSpaceTimeTransformer(nn.Module):
     def init_cache(self, batch: int, space_len: int, max_time: int, dtype=torch.float32,
                    device=None) -> TransformerCache:
         """Preallocated decode cache buffers, on the trunk's device unless
-        `device` is given: the KV caches, and each MOSS layer's conv time
-        cache of zeros (the past before the first frame)."""
+        `device` is given: the KV caches ((main, special) pairs under MoT),
+        each MOSS layer's conv time cache and each GRU carry of zeros (the
+        past before the first frame), and the H-Net's streaming cache
+        (float32, its chunk budget from `max_time`)."""
         device = self.device if device is None else device
-        kv = tuple(KVCache.create(batch * space_len, self.attn_heads, max_time,
-                                  self.attn_dim_head, dtype=dtype, device=device)
-                   for _ in range(self.num_time_layers))
+
+        def kv_cache(rows):
+            return KVCache.create(rows, self.attn_heads, max_time, self.attn_dim_head,
+                                  dtype=dtype, device=device)
+
+        ns = self.num_special_tokens
+        kv = tuple(((kv_cache(batch * (space_len - ns)), kv_cache(batch * ns)) if self.use_mot
+                    else kv_cache(batch * space_len)) for _ in range(self.num_time_layers))
         spatial = None
         if self.spatial_module_layers:
             sh, sw = self._grid()
             spatial = tuple(torch.zeros((batch, self.spatial_module_kernel_size - 1, sh, sw,
                                          self.dim), dtype=dtype, device=device)
                             for _ in self.spatial_module_layers)
-        return TransformerCache(kv=kv, token_count=0, spatial_modules=spatial)
+        rnn = None
+        if self.rnn_time:
+            rnn = tuple(torch.zeros((batch * space_len, self.dim), dtype=dtype, device=device)
+                        for _ in range(self.num_time_layers))
+        h_net = None
+        if self.h_net_layer is not None:
+            max_chunks = -(-max_time // self.h_net_compression_ratio)
+            if self.h_net_dynamic:
+                max_chunks *= 2   # the parallel path's slot budget
+            h_net = self.h_net.init_cache(batch * space_len, max_chunks, device=device)
+        return TransformerCache(kv=kv, token_count=0, spatial_modules=spatial, rnn=rnn,
+                                h_net=h_net)
 
     def _grid(self):
         if self.space_height is None or self.space_width is None:
@@ -221,7 +288,10 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         num_spatial_special = 0 if self.full_spatial_attn else self.num_special_tokens
         # time attention's k length is the cache buffer's when cached
-        time_k_len = cache.kv[0].k.shape[-2] if has_cache and self.num_time_layers > 0 else t
+        time_k_len = t
+        if has_cache and self.num_time_layers > 0:
+            first_kv = cache.kv[0]
+            time_k_len = (first_kv if isinstance(first_kv, KVCache) else first_kv[0]).k.shape[-2]
 
         # the flash gate, on the same static sizes as the counterpart
         use_flash_time = self.use_flash_attention and t * time_k_len >= self.flash_min_scores
@@ -260,9 +330,11 @@ class AxialSpaceTimeTransformer(nn.Module):
             rv = self.to_value_residual(self.value_residual_norm(tokens))
             residual_values = rv.reshape(b, t, s, self.attn_heads, self.attn_dim_head)
 
-        new_kv_caches, new_spatial_caches = [], []
+        new_kv_caches, new_spatial_caches, new_rnn_carries = [], [], []
         normed_time_inputs, normed_space_inputs = [], []
         layer_hiddens = []
+        h_net_loss = torch.zeros((), device=device)
+        new_h_net_cache = None
 
         # every pool reads the stack of the (unscaled) normalized hiddens so
         # far. Without grad they are written once each, in place, into ONE
@@ -277,7 +349,8 @@ class AxialSpaceTimeTransformer(nn.Module):
         normed_stack = None
         stack_dtype = tokens.dtype
         if self.use_attn_pool and in_place:
-            normed_stack = torch.empty((1 + 2 * self.depth, b * t * s, d), dtype=stack_dtype,
+            n_hiddens = 1 + 2 * self.depth + (self.num_time_layers if self.rnn_time else 0)
+            normed_stack = torch.empty((n_hiddens, b * t * s, d), dtype=stack_dtype,
                                        device=device)
 
         def append_hidden(tok):
@@ -294,18 +367,47 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         append_hidden(tokens)
 
+        def time_attend(attn, x, rv, layer_cache):
+            """(b, t, s', d) tokens -> (their update, the time attention's output)."""
+            x_tm, bs_shape = _to_time_major(x)
+            rv_tm = _to_time_major(rv)[0] if rv is not None else None
+            out = attn(x_tm, kv_cache=layer_cache, rotary=time_rotary, mask=time_mask,
+                       residual_values=rv_tm, flash_spec=time_flash, flash_offset=token_count,
+                       allow_small=not has_cache)
+            return _from_time_major(out.out, bs_shape), out
+
+        ns = self.num_special_tokens
         time_layer_idx = 0
         for i, layer_is_time in enumerate(self.is_time_layer):
             attn = getattr(self, f'attn_{i}')
-            if layer_is_time:
+            use_mot = layer_is_time and self.use_mot
+            if layer_is_time and self.rnn_time:
+                # the GRU over time, before the attention
                 x_tm, bs_shape = _to_time_major(tokens)
-                rv_tm = (_to_time_major(residual_values)[0]
-                         if residual_values is not None else None)
+                carry = cache.rnn[time_layer_idx] if has_cache and cache.rnn is not None else None
+                out_tm, carry = getattr(self, f'rnn_{i}')(x_tm, carry)
+                tokens = tokens + _from_time_major(out_tm, bs_shape)
+                new_rnn_carries.append(carry)
+                append_hidden(tokens)
+
+            if use_mot:
+                # separate weights and caches for the special tokens
+                lc_m, lc_s = cache.kv[time_layer_idx] if has_cache else (None, None)
+                rv = residual_values
+                delta_m, out_m = time_attend(attn, tokens[:, :, :-ns],
+                                             rv[:, :, :-ns] if rv is not None else None, lc_m)
+                delta_s, out_s = time_attend(getattr(self, f'special_attn_{i}'),
+                                             tokens[:, :, -ns:],
+                                             rv[:, :, -ns:] if rv is not None else None, lc_s)
+                tokens = tokens + torch.cat([delta_m, delta_s], dim=2)
+                if out_m.cache is not None:
+                    new_kv_caches.append((out_m.cache, out_s.cache))
+                normed_time_inputs.append(out_m.normed_inputs)
+                time_layer_idx += 1
+            elif layer_is_time:
                 layer_cache = cache.kv[time_layer_idx] if has_cache else None
-                attn_out = attn(x_tm, kv_cache=layer_cache, rotary=time_rotary,
-                                mask=time_mask, residual_values=rv_tm, flash_spec=time_flash,
-                                flash_offset=token_count, allow_small=not has_cache)
-                tokens = tokens + _from_time_major(attn_out.out, bs_shape)
+                delta, attn_out = time_attend(attn, tokens, residual_values, layer_cache)
+                tokens = tokens + delta
                 if attn_out.cache is not None:
                     new_kv_caches.append(attn_out.cache)
                 normed_time_inputs.append(attn_out.normed_inputs)
@@ -320,8 +422,29 @@ class AxialSpaceTimeTransformer(nn.Module):
                 tokens = tokens + _from_space_major(attn_out.out, bt_shape)
                 normed_space_inputs.append(attn_out.normed_inputs)
 
+            if i == self.h_net_layer:
+                x_tm, bs_shape = _to_time_major(tokens)
+                if continuing:
+                    x_tm, _, new_h_net_cache = self.h_net(x_tm, cache=cache.h_net)
+                elif has_cache:
+                    # a fresh-cache prefill steps the streaming path per
+                    # frame, so the cache it returns continues the decode
+                    hn_cache, outs = cache.h_net, []
+                    for ti in range(t):
+                        o, _, hn_cache = self.h_net(x_tm[:, ti:ti + 1], cache=hn_cache)
+                        outs.append(o)
+                    x_tm, new_h_net_cache = torch.cat(outs, dim=1), hn_cache
+                else:
+                    x_tm, h_net_loss, _ = self.h_net(x_tm)
+                tokens = _from_time_major(x_tm, bs_shape)
+
             append_hidden(tokens)
-            tokens = tokens + getattr(self, f'ff_{i}')(tokens)
+            if use_mot:
+                main, special = tokens[:, :, :-ns], tokens[:, :, -ns:]
+                tokens = torch.cat([main + getattr(self, f'ff_{i}')(main),
+                                    special + getattr(self, f'special_ff_{i}')(special)], dim=2)
+            else:
+                tokens = tokens + getattr(self, f'ff_{i}')(tokens)
 
             if i in self.spatial_module_layers:
                 sh, sw = self._grid()
@@ -365,7 +488,8 @@ class AxialSpaceTimeTransformer(nn.Module):
         if has_cache:
             new_cache = TransformerCache(
                 kv=tuple(new_kv_caches), token_count=token_count + t,
-                spatial_modules=tuple(new_spatial_caches) if self.spatial_module_layers else None)
+                spatial_modules=tuple(new_spatial_caches) if self.spatial_module_layers else None,
+                rnn=tuple(new_rnn_carries) if self.rnn_time else None, h_net=new_h_net_cache)
 
         if not return_intermediates:
             return out, new_cache
@@ -376,4 +500,4 @@ class AxialSpaceTimeTransformer(nn.Module):
                                 if collect and normed_time_inputs else None),
             normed_space_inputs=(torch.stack(normed_space_inputs)
                                  if collect and normed_space_inputs else None),
-            layer_hiddens=layer_hiddens, token_count=token_count + t)
+            layer_hiddens=layer_hiddens, token_count=token_count + t, h_net_loss=h_net_loss)

@@ -27,9 +27,13 @@ spatial and action pre-encoders (`spatial_pre_encoder_depth`,
 `action_pre_encoder_depth`), the augmentation token with its CFG dropout
 (`has_aug_conditioning`), the latent autoregressive loss on the trunk's
 hiddens (`latent_ar`), LAPO (`ssl_lapo`), TEM (`ssl_tem`) and the hiddens
-self-flow reads (`return_layer_hiddens`). The counterpart's fields listed
-in `_NOT_PORTED` are not ported yet: each is accepted at its default,
-and another value raises.
+self-flow reads (`return_layer_hiddens`); the trunk's subsystems: the GRU
+time layer (`use_time_rnn`) and MoT (`mot_temporal`) on every trunk over
+the tokens, the H-Net splice on the main trunk (`h_net_*`, its ratio loss
+as `losses.h_net`, weighted by `h_net_loss_weight`); and multi-view video
+(`num_video_views > 1`: a learned `view_emb` per view added to its spatial
+tokens, per-view state heads and losses, the latent encoders' mean over
+views). Every field of the counterpart is ported.
 
 Every random draw of the training forward goes through the module-level
 `draw` (the latent AR loss's sigreg through `ops.losses.draw`), so a test
@@ -57,12 +61,12 @@ from ..ops import dists
 from ..ops.codecs import get_reward_encoder
 from ..ops.mtp import create_multi_token_prediction_targets
 from ..ops.utils import frac_gradient, lens_to_mask, masked_mean, ramp_weight
-from .transformer import AxialSpaceTimeTransformer, TransformerCache, check_not_ported
+from .transformer import AxialSpaceTimeTransformer, TransformerCache
 
 
 class WorldModelLosses(NamedTuple):
     """The counterpart's loss record; the losses of options that are off
-    (and H-Net's, not ported yet) are zeros."""
+    are zeros."""
     flow: torch.Tensor
     shortcut: torch.Tensor
     rewards: torch.Tensor             # (multi_token_pred_len,)
@@ -100,14 +104,6 @@ class DynamicsCache(NamedTuple):
     critic: TransformerCache | None = None
     spatial: TransformerCache | None = None
     action: TransformerCache | None = None
-
-
-# fields of the counterpart, with their defaults, that the port does not
-# have yet; any other value raises
-_NOT_PORTED = dict(
-    use_time_rnn=False, mot_temporal=False, h_net_layer=None, h_net_depth=2, h_net_compression_ratio=4,
-    h_net_dynamic=False, h_net_loss_weight=1.0,
-)
 
 
 # the loss normalizers' names -> the WorldModelLosses field each normalizes
@@ -189,15 +185,15 @@ class DynamicsWorldModel(nn.Module):
                  ssl_tem: bool = False, tem_first_state_as_init_hidden: bool = True,
                  tem_learn_relative_actions: bool = False, lapo_action_loss_weight: float = 1.0,
                  lapo_fdm_loss_weight: float = 1.0, lapo_raw_latent_fdm_loss_weight: float = 1.0,
-                 tem_loss_weight: float = 1.0, dtype=None, device=None, **not_ported):
+                 tem_loss_weight: float = 1.0, use_time_rnn: bool = False,
+                 mot_temporal: bool = False, h_net_layer: int | None = None, h_net_depth: int = 2,
+                 h_net_compression_ratio: int = 4, h_net_dynamic: bool = False,
+                 h_net_loss_weight: float = 1.0, dtype=None, device=None):
         # the constructor's arguments, for checkpoints (train/checkpoint.py)
         config = {k: v for k, v in locals().items()
-                  if k not in ('self', '__class__', 'device', 'not_ported')}
+                  if k not in ('self', '__class__', 'device')}
         super().__init__()
-        self.config = {**config, **not_ported}
-        check_not_ported(not_ported, _NOT_PORTED)
-        if num_video_views != 1:
-            raise NotImplementedError('multi-view world models are not ported yet')
+        self.config = config
         if max_steps & (max_steps - 1) != 0:
             raise ValueError('max_steps must be a power of 2')
         if dim % 2 != 0:
@@ -225,7 +221,7 @@ class DynamicsWorldModel(nn.Module):
                                  lapo_action=lapo_action_loss_weight,
                                  lapo_fdm=lapo_fdm_loss_weight,
                                  lapo_raw_latent_fdm=lapo_raw_latent_fdm_loss_weight,
-                                 tem=tem_loss_weight)
+                                 tem=tem_loss_weight, h_net=h_net_loss_weight)
         self.terminal_pos_weight = terminal_pos_weight
         self.gae_discount_factor = gae_discount_factor
         # RL hyperparameters, read by models/rl.py
@@ -357,8 +353,12 @@ class DynamicsWorldModel(nn.Module):
             final_norm=False, use_flash_attention=use_flash_attention,
             flash_min_scores=flash_min_scores, use_fused_small=use_fused_small,
             time_attention_use_pope=time_attention_use_pope, use_attn_pool=use_attn_pool,
-            dtype=dtype, device=device)
-        self.transformer = AxialSpaceTimeTransformer(depth=depth, **trunk_kwargs)
+            rnn_time=use_time_rnn, mot_temporal=mot_temporal, dtype=dtype, device=device)
+        # the H-Net splices into the main trunk only
+        self.transformer = AxialSpaceTimeTransformer(
+            depth=depth, h_net_layer=h_net_layer, h_net_depth=h_net_depth,
+            h_net_compression_ratio=h_net_compression_ratio, h_net_dynamic=h_net_dynamic,
+            **trunk_kwargs)
         if actor_depth > 0:
             self.actor_transformer = AxialSpaceTimeTransformer(depth=actor_depth, **trunk_kwargs)
         if critic_depth > 0:
@@ -382,6 +382,8 @@ class DynamicsWorldModel(nn.Module):
         if has_aug_conditioning:
             self.aug_cond_embedding = nn.Embedding(3, dim, device=device)
             embed_normal_(self.aug_cond_embedding.weight)
+        if num_video_views > 1:
+            self.view_emb = param((num_video_views, dim), 1e-2)
 
         if latent_ar:
             if latent_ar_layer is None:
@@ -506,9 +508,14 @@ class DynamicsWorldModel(nn.Module):
         """(..., n, d_latent) -> (actor_in, critic_in), each (..., dim): the
         policy and value heads' inputs with `actor_critic_latent_input`,
         read from the latents (data that concurrent world-model training
-        cannot shift) through the two latent encoders."""
+        cannot shift) through the two latent encoders. A multi-view model
+        takes (..., v, n, d_latent) and means the encoders' outputs over
+        the views."""
         flat = latents.reshape(*latents.shape[:-2], -1)
-        return self.actor_latent_encoder(flat), self.critic_latent_encoder(flat)
+        a, c = self.actor_latent_encoder(flat), self.critic_latent_encoder(flat)
+        if self.num_video_views > 1:
+            a, c = a.mean(dim=-2), c.mean(dim=-2)
+        return a, c
 
     def init_cache(self, batch: int, max_time: int, dtype=None) -> DynamicsCache:
         """KV caches default to the trunk's compute dtype."""
@@ -588,6 +595,8 @@ class DynamicsWorldModel(nn.Module):
             space_tokens = noised_latents
         else:
             space_tokens = self.latents_to_spatial_tokens(noised_latents)   # (b, t, v, s, d)
+        if self.num_video_views > 1:
+            space_tokens = space_tokens + self.view_emb[:, None, :]
         space_tokens = space_tokens.reshape(b, t, v * s_per_view, dim)
         if self.add_action_embed_to_spatial and action_tokens is not None:
             space_tokens = space_tokens + action_tokens
@@ -679,7 +688,8 @@ class DynamicsWorldModel(nn.Module):
                                       critic=cache_of(critic_interm),
                                       spatial=cache_of(spatial_interm),
                                       action=cache_of(action_interm))
-        aux = dict(layer_hiddens=interm.layer_hiddens, space_out=space_out)
+        aux = dict(layer_hiddens=interm.layer_hiddens, space_out=space_out,
+                   h_net_loss=interm.h_net_loss)
         return (Predictions(flow=pred, proprio=pred_proprio, state=pred_state),
                 Embeds(agent=agent_out, state_pred=state_pred_out, actor=actor_out,
                        critic=critic_out),
@@ -854,7 +864,8 @@ class DynamicsWorldModel(nn.Module):
                       + losses.lapo_action * w['lapo_action']
                       + losses.lapo_fdm * w['lapo_fdm']
                       + losses.lapo_raw_latent_fdm * w['lapo_raw_latent_fdm']
-                      + losses.tem * w['tem'])
+                      + losses.tem * w['tem']
+                      + losses.h_net * w['h_net'])
         if not return_intermediates:
             return total_loss
         if return_layer_hiddens:
@@ -969,12 +980,15 @@ class DynamicsWorldModel(nn.Module):
         # state prediction: Beta NLL of the next frame's latents, mapped
         # from [-1, 1] into (0, 1)
         state_pred_loss = zero
+        multi_view = self.num_video_views > 1
         if self.should_pred_state and time > 1:
-            target = ((latents[:, 1:, 0] + 1.0) / 2.0).clamp(self.eps_latent_pred,
-                                                             1.0 - self.eps_latent_pred)
+            target = latents[:, 1:] if multi_view else latents[:, 1:, 0]
+            target = ((target + 1.0) / 2.0).clamp(self.eps_latent_pred, 1.0 - self.eps_latent_pred)
             nll = -dists.continuous_log_prob(pred.state[:, :-1], target, 'beta')
-            state_pred_loss = (masked_mean(nll, mask_without_last[..., None, None])
-                               if is_var_len else nll.mean())
+            state_pred_loss = (
+                masked_mean(nll, mask_without_last.reshape(*mask_without_last.shape,
+                                                            *([1] * (nll.ndim - 2))))
+                if is_var_len else nll.mean())
 
         # the agent's state prediction: Beta NLL of the next frame's latents
         # from the agent token (only `agent_predicts_state_frac_gradient` of
@@ -1016,7 +1030,8 @@ class DynamicsWorldModel(nn.Module):
             if self.actor_critic_latent_input:
                 # the policy head learns from the input RL gives it: the
                 # latent encoder over the clean latents
-                actor_tokens, _ = self.latent_actor_inputs(latents[:, :, 0])
+                actor_tokens, _ = self.latent_actor_inputs(
+                    latents if multi_view else latents[:, :, 0])
             else:
                 actor_tokens = embeds.actor[:, :, agent_index]
             policy_embed = self.policy_head(actor_tokens[:, :num_targets])
@@ -1083,4 +1098,4 @@ class DynamicsWorldModel(nn.Module):
             continuous_actions=action_losses['continuous'], state_pred=state_pred_loss,
             agent_state_pred=agent_state_pred_loss, latent_ar=latent_ar_loss,
             latent_ar_sigreg=latent_ar_sigreg_loss, lapo_action=lapo[0], lapo_fdm=lapo[1],
-            lapo_raw_latent_fdm=lapo[2], tem=tem_loss, h_net=zero)
+            lapo_raw_latent_fdm=lapo[2], tem=tem_loss, h_net=aux['h_net_loss'])

@@ -177,8 +177,8 @@ class Attention(nn.Module):
             k, v, kv_len = new_cache.k, new_cache.v, new_cache.length
 
         if flash_spec is not None:
-            out = flash_attend(
-                q.contiguous(), k.contiguous(), v.contiguous(), int(flash_offset), int(kv_len),
+            out = flash_attend_centered(
+                q, k, v, int(flash_offset), int(kv_len),
                 softclamp_value=self.softclamp_value, causal=flash_spec.causal,
                 num_special=flash_spec.num_special,
                 special_seq_len=flash_spec.special_seq_len,
@@ -243,6 +243,25 @@ class Attention(nn.Module):
             out = out * gates.reshape(B, nh, 1)
 
         return AttentionOut(self.to_out(out.reshape(B, n, h * dh)), None, normed_inputs)
+
+
+def flash_attend_centered(q, k, v, offset: int, kv_len: int, **cfg):
+    """`flash_attend` (K1, and K2/K3 under grad) on the values centered on
+    their mean over the valid keys, the mean added back to the output.
+    Each query's weights sum to 1 (every query of the trunk's masks sees a
+    key), so attention(v - c) + c is attention(v). The kernels' bf16
+    output, and the backward's delta = rowsum(dO * O) taken from it, then
+    carry the values' variation instead of their mean: a token whose
+    values barely change over time (MoT's special token) keeps its
+    gradient. The counterpart takes delta from the bf16 output as is
+    (ROADMAP queue 3)."""
+    c = v[..., :kv_len, :].float().mean(dim=-2, keepdim=True)
+    out = flash_attend(q.contiguous(), k.contiguous(), (v.float() - c).to(v.dtype).contiguous(),
+                       offset, kv_len, **cfg)
+    groups = q.shape[-3] // k.shape[-3]
+    if groups > 1:
+        c = c.repeat_interleave(groups, dim=-3)
+    return (out.float() + c).to(out.dtype)
 
 
 class FeedForward(nn.Module):

@@ -279,8 +279,12 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
     student's and the teacher's layers): the trainer holds a
     `SelfFlowHead` (`self.self_flow_head`), trained with the model under
     one optimizer and one EMA, and keeps the EMA on whatever `with_ema`
-    says, as the counterpart does. Not ported yet, and refused when set:
-    `aux_image_encoder_fn`."""
+    says, as the counterpart does.
+
+    `aux_image_encoder_fn(video) -> (b, t, n_aux, d_latent)` adds tokens of
+    its own to a video batch's latents, after the tokenizer's along the
+    token axis (build the model with `num_latent_tokens` = the tokenizer's
+    + n_aux); without a tokenizer its tokens are the latents."""
 
     def __init__(self, model: DynamicsWorldModel, *, tokenizer: VideoTokenizer | None = None,
                  aux_image_encoder_fn=None, learning_rate: float = 3e-4,
@@ -288,13 +292,12 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
                  ema_decay: float = 0.999, seed: int = 0, use_self_flow: bool = False,
                  self_flow_weight: float = 1.0, self_flow_student_layer: int = -3,
                  self_flow_teacher_layer: int = -1, device=None):
-        if aux_image_encoder_fn is not None:
-            raise NotImplementedError('aux_image_encoder_fn is not ported to dreamer4_torch yet')
         device = _check_device(model, device)
         if tokenizer is not None and tokenizer.device != device:
             raise ValueError(f'the tokenizer is on {tokenizer.device}, the trainer on {device}')
         self.model = model
         self.tokenizer = tokenizer
+        self.aux_image_encoder_fn = aux_image_encoder_fn
         self.self_flow_head = SelfFlowHead(model.dim, device=device) if use_self_flow else None
         self_flow_cfg = None
         if use_self_flow:
@@ -314,15 +317,22 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
 
     def train_on_batch(self, batch: dict):
         """batch: latents (b, t, n, d), or video (b, c, t, h, w) with a
-        tokenizer, and optional rewards, terminals, discrete_actions,
-        continuous_actions, proprio, lens, tasks, on the trainer's device.
-        -> (loss, losses)."""
+        tokenizer or an aux image encoder, and optional rewards, terminals,
+        discrete_actions, continuous_actions, proprio, lens, tasks, on the
+        trainer's device. -> (loss, losses)."""
         batch = dict(batch)
         if 'latents' not in batch:
-            if self.tokenizer is None or 'video' not in batch:
-                raise ValueError('a batch without latents needs video and a tokenizer')
+            if (self.tokenizer is None and self.aux_image_encoder_fn is None) \
+                    or 'video' not in batch:
+                raise ValueError('a batch without latents needs video and a tokenizer or an '
+                                 'aux image encoder')
             with torch.no_grad():
-                batch['latents'] = self.tokenizer.encode(batch['video'])
+                parts = []
+                if self.tokenizer is not None:
+                    parts.append(self.tokenizer.encode(batch['video']))
+                if self.aux_image_encoder_fn is not None:
+                    parts.append(self.aux_image_encoder_fn(batch['video']))
+                batch['latents'] = torch.cat(parts, dim=-2)
         batch.pop('video', None)
         shortcut = bool(self.rng.random() < self.model.prob_shortcut_train)
         self.ts, loss, losses = self._train_step(self.ts, batch, shortcut_train=shortcut,

@@ -1086,15 +1086,15 @@ def test_continuous_model_checkpoint_roundtrip(tmp_path):
 # ---------------------------------------------------------------- refusals
 
 def test_remaining_refusals():
-    """What stays refused: the GRU time layer and multi-view world models
-    (not ported yet), a `tasks` batch entry for a model without tasks, and
+    """What stays refused (the GRU time layer and multi-view world models,
+    refused here before, now build): a `tasks` batch entry for a model
+    without tasks, and
     proprioception in the interactor and the wrapper, whose JAX
     counterparts cannot drive such a model. The agent's state prediction
     builds with continuous actions."""
-    with pytest.raises(NotImplementedError, match='use_time_rnn'):
-        DynamicsWorldModel(**CFG, use_time_rnn=True, device='cpu')
-    with pytest.raises(NotImplementedError, match='multi-view'):
-        DynamicsWorldModel(**CFG, num_video_views=2, device='cpu')
+    assert hasattr(DynamicsWorldModel(**CFG, use_time_rnn=True, device='cpu').transformer,
+                   'rnn_1')
+    assert DynamicsWorldModel(**CFG, num_video_views=2, device='cpu').view_emb.shape == (2, 64)
     assert DynamicsWorldModel(**CFG, agent_predicts_state=True,
                               device='cpu').agent_state_pred_net.Dense_0.in_features == 2 * 64
     _, _, tm = build_pair()

@@ -241,8 +241,8 @@ def test_unported_environment_options_raise():
     """The model takes proprioception, and the interactor refuses it,
     naming the counterpart's interactor as the cause; the state-prediction
     head and its entropy bonus are taken, so are the agent's state
-    prediction and the latent-input heads; the options that stay refused
-    raise, naming the field."""
+    prediction and the latent-input heads, and the trunk's subsystems
+    (refused here before)."""
     model = DynamicsWorldModel(**SMALL, dim_proprio=4, device='cpu')
     with pytest.raises(NotImplementedError, match='EnvInteractor.*policy_step'):
         EnvInteractor(model, device='cpu')
@@ -255,9 +255,10 @@ def test_unported_environment_options_raise():
     for name in ('agent_predicts_state', 'actor_critic_latent_input'):
         EnvInteractor(DynamicsWorldModel(**SMALL, **STATE, **{name: True}, device='cpu'),
                       device='cpu')
+    # the trunk's subsystems build, and the interactor takes such a model
     for name, value in (('use_time_rnn', True), ('mot_temporal', True), ('h_net_layer', 1)):
-        with pytest.raises(NotImplementedError, match=name):
-            DynamicsWorldModel(**SMALL, **STATE, **{name: value}, device='cpu')
+        EnvInteractor(DynamicsWorldModel(**SMALL, **STATE, **{name: value}, device='cpu'),
+                      device='cpu')
 
 
 # ------------------------------------------------------- streaming encode

@@ -129,12 +129,18 @@ CLASSES = {
 # a value other than the default for some field of each class that the port
 # does not implement
 NOT_PORTED_VALUES = {
+    'world_model': {},
+    'tokenizer': {},
+    'transformer': dict(time_ring_axis='time'),
+}
+# values the port refused before the trunk's subsystems were ported: they build
+PORTED_VALUES = {
     'world_model': dict(use_time_rnn=True,
                         mot_temporal=True, h_net_layer=1, h_net_depth=3,
                         h_net_compression_ratio=8, h_net_loss_weight=2.0),
     'tokenizer': dict(use_time_rnn=True, h_net_layer=1, h_net_depth=3,
                       h_net_compression_ratio=8, h_net_loss_weight=2.0),
-    'transformer': dict(mot_temporal=True, time_ring_axis='time', h_net_dynamic=True,
+    'transformer': dict(mot_temporal=True, h_net_layer=1, h_net_dynamic=True,
                         h_net_heads=2, rnn_time=True),
 }
 
@@ -160,14 +166,18 @@ def test_constructors_take_every_jax_field_at_its_default(which, tmp_path):
 @pytest.mark.parametrize('which', list(CLASSES))
 def test_constructors_refuse_unported_values_and_unknown_names(which):
     """A field the port does not implement raises NotImplementedError
-    naming it when set off its default; a name the JAX class does not
-    have raises TypeError."""
+    naming it when set off its default (only the trunk's ring attention is
+    left); the fields ported since build and keep their values; a name the
+    JAX class does not have raises TypeError."""
     jcls, tcls, required = CLASSES[which]
     fields = jax_fields(jcls)
     for name, value in NOT_PORTED_VALUES[which].items():
         assert value != fields[name], name
         with pytest.raises(NotImplementedError, match=name):
             tcls(**required, **{name: value}, device='cpu')
+    ported = PORTED_VALUES[which]
+    assert all(ported[name] != fields[name] for name in ported)
+    assert tcls(**required, **ported, device='cpu').config.items() >= ported.items()
     with pytest.raises(TypeError, match='agent_predicts_stat\\b'):
         tcls(**required, agent_predicts_stat=True, device='cpu')
 

@@ -815,8 +815,9 @@ def test_torch_dream_trainer_prompt_fn():
 # ---------------------------------------------------------------- refusals
 
 def test_rl_losses_refuses_unported_inputs(model_and_experience):
-    """What stays refused: an unknown objective, the world model's options
-    not ported yet, full-model RL of latent-input heads without
+    """What stays refused: an unknown objective (the world model's options
+    that were refused here, the trunk's subsystems, now build), full-model
+    RL of latent-input heads without
     `latent_input_full_model_ok` (it cannot train the trunk), and a
     full-model replay of proprio by a model without `dim_proprio` (its
     forward has no proprio token to take it)."""
@@ -825,8 +826,7 @@ def test_rl_losses_refuses_unported_inputs(model_and_experience):
         rl_losses(model, exp, objective='a2c')
     for name, value in (('mot_temporal', True), ('h_net_layer', 1),
                         ('use_time_rnn', True)):
-        with pytest.raises(NotImplementedError, match=name):
-            DynamicsWorldModel(**SMALL, **{name: value}, device='cpu')
+        assert DynamicsWorldModel(**SMALL, **{name: value}, device='cpu').config[name] == value
     latent = DynamicsWorldModel(**SMALL, actor_critic_latent_input=True, device='cpu')
     with pytest.raises(ValueError, match='latent_input_full_model_ok'):
         rl_losses(latent, exp, only_learn_policy_value_heads=False)

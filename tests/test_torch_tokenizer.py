@@ -413,12 +413,13 @@ def test_tokenizer_trainer_resume_continues_bit_for_bit(tmp_path):
 
 
 def test_unported_tokenizer_options_raise():
-    """What stays refused: the GRU time layer and the H-Net fields, each
-    naming itself; an unknown name is a TypeError."""
+    """The GRU time layer and the H-Net fields, refused here before, build
+    (the H-Net's with a splice layer); an unknown name is a TypeError."""
     for name, value in (('use_time_rnn', True), ('h_net_layer', 1), ('h_net_depth', 3),
                         ('h_net_compression_ratio', 8), ('h_net_dynamic', True)):
-        with pytest.raises(NotImplementedError, match=name):
-            VideoTokenizer(**SMALL, **{name: value}, device='cpu')
+        extra = {} if name in ('use_time_rnn', 'h_net_layer') else dict(h_net_layer=0)
+        assert VideoTokenizer(**SMALL, **extra, **{name: value},
+                              device='cpu').config[name] == value
     with pytest.raises(TypeError):
         VideoTokenizer(**SMALL, no_such_option=1, device='cpu')
     if not torch.cuda.is_available():

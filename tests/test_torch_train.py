@@ -441,8 +441,10 @@ def test_trainer_device_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             BehaviorCloneTrainer(model)
-    with pytest.raises(NotImplementedError, match='aux_image_encoder_fn'):
-        BehaviorCloneTrainer(model, device='cpu', aux_image_encoder_fn=lambda v: v)
+    # the aux image encoder is taken (tests/test_torch_multiview_fire.py runs it)
+    aux = lambda v: v
+    assert BehaviorCloneTrainer(model, device='cpu',
+                                aux_image_encoder_fn=aux).aux_image_encoder_fn is aux
     # self-flow trains the EMA teacher's student: the EMA is on whatever
     # with_ema says
     assert BehaviorCloneTrainer(model, device='cpu', use_self_flow=True,

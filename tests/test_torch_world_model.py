@@ -112,12 +112,11 @@ def test_heads_match():
 
 def test_training_forward_and_unported_options_raise():
     """The training forward needs the trainer's shortcut choice, as in the
-    counterpart; options not ported yet raise."""
+    counterpart; MoT, refused here before, builds; an unknown name raises."""
     tm = DynamicsWorldModel(**SMALL, device='cpu')
     with pytest.raises(ValueError):
         tm(latents=torch.zeros(1, 2, 4, 8))
-    with pytest.raises(NotImplementedError):
-        DynamicsWorldModel(**SMALL, device='cpu', mot_temporal=True)
+    assert DynamicsWorldModel(**SMALL, device='cpu', mot_temporal=True).transformer.use_mot
     with pytest.raises(TypeError):
         DynamicsWorldModel(**SMALL, device='cpu', no_such_option=1)
 
