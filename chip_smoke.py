@@ -270,7 +270,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
                an uncached encode (K4 1) and the streamed encode over 16
                frames, its distance from float32 within 2 x the uncached
                encode's.
- 18. small   — K4 and K5 (the small-attention forward and backward) against
+ 18. parallel — the port's parallelism (`dreamer4_torch/parallel`). a. the
+               flash ring's block math in one process (`flash_ring_blocks`,
+               the step functions the distributed ring runs) at the train
+               step's time attention (27 x 8 heads, N = 1024, D = 64, bf16,
+               causal) for P = 4 and 8 virtual ranks: P^2 launches each of
+               K1, K2 and K3 (every K1 on the wgmma kernel, at offsets down
+               to -(P - 1) N / P), its output and dq/dk/dv within 2 x the
+               single full-length call's distance from float32 plain
+               attention; a block no query sees alone (finite K1 rows, LSE
+               near -1e30, zero K2/K3); the ring timed beside the single
+               call. b. NCCL initialized at world size 1 on the card and a
+               (data, model) mesh over it: one data-parallel
+               `BehaviorCloneTrainer` step of the bench model (b1 x T1024)
+               through the mesh, its loss and updated weights against the
+               plain step's. c. the bench trunk with `time_ring_axis` over
+               that group: one T1024 step's loss and time-layer gradients
+               through the ring against float32, within 2 x the plain bf16
+               step's. The card holds one rank: NCCL puts no two ranks on
+               one device, so the distributed ring itself is held on the
+               CPU over gloo (tests/test_torch_parallel.py).
+ 19. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, at the all-options
@@ -1409,9 +1429,9 @@ def run_model_phase(seed: int = 0) -> dict:
 
     gen = torch.Generator(device=dev)
     launches = {}
-    for name, kw, extra, want, reps in (('headline', HEADLINE, {}, (0, 0, 0, 0, 0), 5),
+    for name, kw, extra, want, reps in (('headline', HEADLINE, {}, (0, 0, 0, 0, 0), 3),
                                         ('prompted', PROMPTED, prompt,
-                                         (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0), 2)):
+                                         (K1_PER_PROMPTED_ROLLOUT, 0, 0, 0, 0), 1)):
         gen.manual_seed(seed)
         zero_counts()
         exp = generate(model, gen, **kw, **extra)
@@ -1746,14 +1766,14 @@ def run_dream_phase(seed: int = 0) -> dict:
     def one_step():
         nonlocal exp, out
         exp, out = trainer.step()
-    step_s = host_time_s(one_step, reps=2)
+    step_s = host_time_s(one_step, reps=1)
     check_rl_outputs('timed dream step', out)
 
     def one_update():
         trainer.rl_state = trainer._update(trainer.rl_state, exp)[0]
     update_s = host_time_s(one_update, reps=3) * trainer.update_epochs
     env_steps = b * (T - P)
-    log(f'dream step b{b} T{T} P{P}: {step_s * 1e3:.1f} ms/step (mean of 2 after a warm step), '
+    log(f'dream step b{b} T{T} P{P}: {step_s * 1e3:.1f} ms/step (one after a warm step), '
         f'{env_steps / step_s:.1f} dreamed env-steps/s; of a step, the heads-only update '
         f'{update_s * 1e3:.1f} ms (mean of 3 apart, x {trainer.update_epochs} epochs) and the '
         f'dream the rest, {(step_s - update_s) * 1e3:.1f} ms')
@@ -4195,6 +4215,198 @@ def run_tok_subsystems_phase(seed: int = 0) -> dict:
 
 # ------------------------------------------------------------------- main
 
+# ----------------------------------------------------------------- parallel
+
+# the parallel phase. a: the flash ring's block math in one process at the
+# train step's time attention (b1 x T1024, 27 tokens per frame, 8 heads of
+# 64), causal, softclamp 50, for P virtual ranks; P = 8 puts 128 rows on a
+# rank, the flash gate's floor. Every (rank, block) pair runs K1 forward and
+# K2/K3 backward, so P^2 launches each, every K1 on the wgmma kernel.
+# b: one data-parallel train step over NCCL at world size 1 (2/2/2, a plain
+# step); c: the bench trunk's time layers as a ring over that group (P = 1:
+# one block per layer, 2/2/2 over the two time layers).
+RING_ATTENTION = dict(B=27, Hq=8, H=8, N=1024, D=64)
+RING_SIZES = (4, 8)
+RING_TOL_FACTOR = 2.0   # the repo's "within 2x" of the single call's distance
+PARALLEL_LAUNCHES = {'parallel_ring_p4': (16, 16, 16, 0, 0),
+                     'parallel_ring_p8': (64, 64, 64, 0, 0),
+                     'parallel_dp_step': (2, 2, 2, 0, 0),
+                     'parallel_trunk_ring': (2, 2, 2, 0, 0)}
+# the data-parallel step against the plain one: the loss within float32
+# summation order; a weight within one bf16 step of Muon's orthogonalized
+# update (entries below 8) at the muon rate, 10 x 3e-4
+DP_LOSS_RTOL = 1e-5
+DP_WEIGHT_ATOL = 10 * 3e-4 * 8 * 2 ** -8
+
+
+def rel_l2(x, ref):
+    ref = ref.float()
+    return ((x.float() - ref).norm() / ref.norm()).item()
+
+
+def run_ring_blocks(seed: int) -> dict:
+    """Part a: `flash_ring_blocks` at P = 4 and 8 against the single
+    full-length K1/K2/K3 call, each held against float32 plain attention;
+    a block no query sees checked alone; ring and single timed."""
+    from dreamer4_torch.ops import flash_attention as fa
+    from dreamer4_torch.ops.attention import naive_attend
+    from dreamer4_torch.parallel.ring_attention import flash_ring_blocks
+
+    B, Hq, H, N, D = (RING_ATTENTION[k] for k in ('B', 'Hq', 'H', 'N', 'D'))
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    q, k, v, do = (torch.randn((B, h, N, D), generator=g, device='cuda', dtype=torch.bfloat16)
+                   for h in (Hq, H, H, Hq))
+    cfg = dict(causal=True, softclamp_value=50.0)
+
+    # float32 plain attention and its gradients
+    mask = torch.ones((N, N), dtype=torch.bool, device='cuda').tril()
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    ref = naive_attend(qf, kf, vf, mask=mask, softclamp_value=50.0)
+    ref_grads = torch.autograd.grad((ref * do.float()).sum(), (qf, kf, vf))
+    ref = ref.detach()
+    del qf, kf, vf
+
+    single_o, single_lse = fa.flash_attend(q, k, v, 0, N, return_lse=True, **cfg)
+    single_grads = fa.flash_attend_bwd(q, k, v, single_o, single_lse, do, 0, N, **cfg)
+    single = dict(out=rel_l2(single_o, ref), **{n: rel_l2(x, r) for n, x, r in
+                                              zip(('dq', 'dk', 'dv'), single_grads, ref_grads)})
+
+    # a block after every query of a rank: finite K1 rows, LSE near -1e30,
+    # and zero K2/K3 from a finite LSE
+    n = N // RING_SIZES[0]
+    rows = lambda t, r: t[..., r * n:(r + 1) * n, :].contiguous()
+    o_m, lse_m = fa.flash_attend(rows(q, 0), rows(k, 1), rows(v, 1), -n, n, return_lse=True,
+                                 **cfg)
+    zero_grads = fa.flash_attend_bwd(rows(q, 0), rows(k, 1), rows(v, 1), rows(single_o, 0),
+                                     rows(single_lse[..., None], 0)[..., 0].contiguous(),
+                                     rows(do, 0), -n, n, **cfg)
+    if not (bool(torch.isfinite(o_m).all()) and bool((lse_m < -1e29).all())
+            and all(not bool(t.any()) for t in zero_grads)):
+        raise SystemExit('parallel: a block no query sees gave a non-finite output, an LSE '
+                         'above -1e29 or a nonzero gradient')
+    log(f'parallel ring: a block no query sees (offset -{n}): K1 finite, LSE max '
+        f'{lse_m.max().item():.3e}; K2/K3 exactly zero')
+
+    bound = {'fwd': attention_bound_ms(q, k, mask, 50.0, return_lse=True),
+             'dq': backward_bound_ms(q, k, mask, 'dq', 50.0),
+             'dkv': backward_bound_ms(q, k, mask, 'dkv', 50.0)}
+    single_ms = {'fwd': cuda_time_ms(lambda: fa.flash_attend(q, k, v, 0, N, return_lse=True,
+                                                             **cfg)),
+                 'bwd': cuda_time_ms(lambda: fa.flash_attend_bwd(q, k, v, single_o, single_lse,
+                                                                 do, 0, N, **cfg))}
+    launches, results = {}, {}
+    for P in RING_SIZES:
+        label = f'parallel_ring_p{P}'
+        (out, lse, grads), _, got, variants = counted(
+            lambda: flash_ring_blocks(q, k, v, P, do, **cfg))
+        expect_launches(label, got, PARALLEL_LAUNCHES[label])
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        dist = dict(out=rel_l2(out, ref), **{n_: rel_l2(x, r) for n_, x, r in
+                                             zip(('dq', 'dk', 'dv'), grads, ref_grads)})
+        for name, d in dist.items():
+            good = d <= RING_TOL_FACTOR * single[name]
+            log(f'{label} {name:<3}: |ring - f32| {d:.3e} (tol {RING_TOL_FACTOR} x '
+                f'{single[name]:.3e}, |single call - f32|)' + ('' if good else '  FAIL'))
+            if not good:
+                raise SystemExit(f'{label}: the ring\'s {name} is further from float32 than '
+                                 f'{RING_TOL_FACTOR} x the single call\'s')
+        fwd_ms = cuda_time_ms(lambda: flash_ring_blocks(q, k, v, P, **cfg), iters=10)
+        all_ms = cuda_time_ms(lambda: flash_ring_blocks(q, k, v, P, do, **cfg), iters=10)
+        results[label] = dict(fwd_ms=fwd_ms, bwd_ms=all_ms - fwd_ms)
+        log(f'{label} (B={B}, Hq={Hq}, N={N}, D={D}, {P} x {N // P} rows): forward '
+            f'{fwd_ms:.3f} ms ({P * P} K1 + merges; single K1 {single_ms["fwd"]:.3f} ms, bound '
+            f'{bound["fwd"][0]:.3f} ms), backward {all_ms - fwd_ms:.3f} ms ({P * P} K2 + K3; '
+            f'single K2 + K3 {single_ms["bwd"]:.3f} ms, bound '
+            f'{bound["dq"][0] + bound["dkv"][0]:.3f} ms) ({gpu_name_and_power_limit()})')
+    print(json.dumps({'parallel_ring': dict(shape=RING_ATTENTION, single_ms=single_ms,
+                                            bound_ms={k_: b[0] for k_, b in bound.items()},
+                                            **results)}))
+    return launches
+
+
+def run_parallel_phase(seed: int = 0) -> dict:
+    """a. the flash ring's block math in one process (`run_ring_blocks`);
+    b. NCCL at world size 1 and one data-parallel `BehaviorCloneTrainer`
+    step of the bench model through the mesh, against the plain step;
+    c. the bench trunk's time layers as a ring over that group, its loss
+    and time-layer gradients against float32 beside the plain step's.
+    Returns the (K1..K5) launches by path."""
+    import torch.distributed as tdist
+
+    from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel
+    from dreamer4_torch.parallel import distributed as pdist
+    from dreamer4_torch.parallel.mesh import set_mesh
+
+    t_phase = time.perf_counter()
+    log(f'# parallel ({gpu_name_and_power_limit()})')
+    launches = run_ring_blocks(seed)
+
+    device = pdist.initialize(coordinator_address=f'localhost:{free_port()}', num_processes=1,
+                              process_id=0, timeout=300)
+    try:
+        log(f'parallel: NCCL {".".join(map(str, torch.cuda.nccl.version()))} initialized on '
+            f'{device} (backend {tdist.get_backend()}, world size {tdist.get_world_size()})')
+        mesh = pdist.create_global_mesh(data=-1)
+        if mesh.device_type != 'cuda' or tuple(mesh.shape) != (1, 1):
+            raise SystemExit(f'parallel: mesh {mesh}, expected (1, 1) on the card')
+
+        # b. one data-parallel step against the plain step on equal weights
+        torch.manual_seed(seed)
+        model = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+        plain = DynamicsWorldModel(**BENCH_MODEL, dtype=torch.bfloat16)
+        plain.load_state_dict(model.state_dict())
+        batch = train_batch(model.device, seed + 2)
+        # a trainer seed whose first branch draw is the plain step
+        tseed = next(s for s in range(100)
+                     if np.random.default_rng(s).random() >= model.prob_shortcut_train)
+        dp = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0, seed=tseed,
+                                  mesh=mesh)
+        ref = BehaviorCloneTrainer(plain, learning_rate=3e-4, clip_grad_norm=1.0, seed=tseed)
+        label = 'parallel_dp_step'
+        (dp_loss, _), _, got, variants = counted(lambda: dp.train_on_batch(batch))
+        expect_launches(label, got, PARALLEL_LAUNCHES[label])
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        ref_loss, _ = ref.train_on_batch(batch)
+        loss_rel = abs(dp_loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        w_diff = max((p.detach().float() - q.detach().float()).abs().max().item()
+                     for p, q in zip(model.parameters(), plain.parameters()))
+        log(f'{label}: loss {dp_loss.item():.6f} vs plain {ref_loss.item():.6f} (rel '
+            f'{loss_rel:.2e}, tol {DP_LOSS_RTOL}); weights after it max |diff| {w_diff:.3e} '
+            f'(tol {DP_WEIGHT_ATOL:.3e}); (K1..K5) {got}')
+        if loss_rel > DP_LOSS_RTOL or w_diff > DP_WEIGHT_ATOL:
+            raise SystemExit(f'{label}: the data-parallel step differs from the plain one')
+        del dp, ref, plain
+
+        # c. the trunk's plain time layers as a ring over the 1-rank group
+        f32 = DynamicsWorldModel(**{**BENCH_MODEL, 'use_flash_attention': False})
+        f32.load_state_dict(model.state_dict())
+        names = [f'transformer.attn_{i}.{w}.weight' for i in TIME_LAYERS
+                 for w in ('to_q', 'to_k', 'to_v')]
+        loss_fn = wm_plain_step_loss(batch, seed + 3)
+        label = 'parallel_trunk_ring'
+        model.transformer.time_ring_axis = 'data'
+        with set_mesh(mesh):
+            ring, _, got, variants = counted(lambda: step_grads(model, loss_fn, names))
+        expect_launches(label, got, PARALLEL_LAUNCHES[label])
+        expect_sm90(label, got, variants)
+        launches[label] = got
+        model.transformer.time_ring_axis = None
+        model.transformer.use_flash_attention = False
+        bf16_plain = step_grads(model, loss_fn, names)
+        model.transformer.use_flash_attention = True
+        ref32 = step_grads(f32, loss_fn, names)
+        distances = {'loss': (abs(ring[0] - ref32[0]), abs(bf16_plain[0] - ref32[0]))}
+        for name, r in ref32[1].items():
+            distances[name] = (rel_l2(ring[1][name], r), rel_l2(bf16_plain[1][name], r))
+        check_grad_distances('parallel trunk ring grads', distances)
+    finally:
+        tdist.destroy_process_group()
+    log(f'# parallel phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4233,12 +4445,15 @@ def main() -> int:
     train_shape = bwd_results[('t1024', torch.bfloat16)]
     if t1024_calls is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
-    launches = {**run_model_phase(), **run_train_phase(), **run_dream_phase(),
-                **run_tokenizer_phase(), **run_wm_fused_phase(), **run_sim_phase(),
-                **run_pixel_phase(), **run_cli_phase(), **run_continuous_phase(),
-                **run_recipe_phase(), **run_tok_options_phase(), **run_wm_options_phase(),
-                **run_tok_full_phase(), **run_wm_subsystems_phase(),
-                **run_tok_subsystems_phase()}
+    launches = {}
+    for phase in (run_model_phase, run_train_phase, run_dream_phase, run_tokenizer_phase,
+                  run_wm_fused_phase, run_sim_phase, run_pixel_phase, run_cli_phase,
+                  run_continuous_phase, run_recipe_phase, run_tok_options_phase,
+                  run_wm_options_phase, run_tok_full_phase, run_wm_subsystems_phase,
+                  run_tok_subsystems_phase, run_parallel_phase):
+        t_phase = time.perf_counter()
+        launches.update(phase())
+        log(f'# {phase.__name__}: {time.perf_counter() - t_phase:.1f} s')
     small_results = run_small_kernel_phase()
     forward_device_times(kernel_results, k1_device_calls)
     backward_device_times(train_shape, t1024_calls)
@@ -4294,6 +4509,7 @@ def main() -> int:
     missing = [k['name'] for k in kernels if k['launches'] == 0]
     if missing:
         raise SystemExit(f'kernels never launched on the main paths: {missing}')
+    log(f'# chip_smoke: {time.perf_counter() - t0:.1f} s from the kernels\' build')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

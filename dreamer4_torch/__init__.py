@@ -21,7 +21,12 @@ epochs), and the data plane, the CLI and serving: the memmapped
 library (`native/prefetch.cpp`), Snake and the record wrappers,
 `envs.world_model_env.DynamicsWorldModelWrapper`, the HTTP servers
 (`serve.server`) and `python -m dreamer4_torch.cli` with its four commands,
-and FIRE and latent-gene evolution (`ops.fire`). The flash-attention
+and FIRE and latent-gene evolution (`ops.fire`), and parallelism
+(`parallel`): the process group and its (data, model) mesh over
+`torch.distributed` (NCCL on cards, gloo on the CPU), data-parallel
+training in every trainer (`mesh=`), weights sharded over `model` as
+DTensors, and ring attention over time (`time_ring_axis`). The port now
+covers every module of the JAX package. The flash-attention
 forward and backward (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
 `csrc/flash_attn_bwd_dkv.cu`) and the small-attention forward and backward
 (`csrc/small_attn_fwd.cu`, `csrc/small_attn_bwd.cu`, behind

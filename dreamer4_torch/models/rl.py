@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from ..data.experience import Experience
 from ..ops.scan import calc_gae
-from ..ops.utils import frac_gradient, lens_to_mask, masked_mean, z_score
+from ..ops.utils import frac_gradient, lens_to_mask, z_score
+from ..parallel.distributed import batch_gather, batch_mean, batch_sum
 from .world_model import DynamicsWorldModel
 
 OBJECTIVES = ('ppo', 'pmpo', 'spo')
@@ -51,8 +52,9 @@ class RLLossOutputs(NamedTuple):
 def _masked_quantile_clip(x, mask, quantiles):
     """Clamp x to the quantiles of its values where `mask` holds (the others
     are NaN to `nanquantile`, which interpolates linearly, as
-    `jnp.nanquantile` does)."""
-    big = torch.where(mask, x, torch.nan)
+    `jnp.nanquantile` does); of the global batch's values under data
+    parallelism."""
+    big = batch_gather(torch.where(mask, x, torch.nan))
     lo = torch.nanquantile(big.flatten(), quantiles[0])
     hi = torch.nanquantile(big.flatten(), quantiles[1])
     return torch.minimum(torch.maximum(x, lo), hi)
@@ -178,8 +180,8 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
         if return_stats is None:
             raise ValueError('keep_reward_ema_stats needs return_stats')
         clipped = _masked_quantile_clip(returns, mask, model.reward_quantile_filter)
-        r_mean = masked_mean(clipped, loss_weights)
-        r_var = masked_mean((clipped - r_mean).square(), loss_weights)
+        r_mean = batch_mean(clipped, loss_weights)
+        r_var = batch_mean((clipped - r_mean).square(), loss_weights)
         decay = 1.0 - model.reward_ema_decay
         new_mean = return_stats.mean + decay * (r_mean - return_stats.mean)
         new_var = return_stats.var + decay * (r_var - return_stats.var)
@@ -194,7 +196,7 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
                                 if model.normalize_advantages is not None
                                 else objective != 'pmpo')
     if normalize_advantages:
-        advantage = z_score(advantage, mask=loss_weights, eps=eps)
+        advantage = z_score(advantage, mask=loss_weights, eps=eps, mean=batch_mean)
 
     # the heads' inputs read from the latents, which concurrent world-model
     # training cannot shift
@@ -239,9 +241,9 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
         scaled = gated_lp * torch.tanh(advantage).abs()
         if alive is not None:
             scaled = scaled * alive
-        pos_loss = torch.where(pos, scaled, 0.0).sum()
-        neg_loss = torch.where(neg, scaled, 0.0).sum()
-        num_adv = loss_weights.sum().clamp_min(1.0)
+        pos_loss = batch_sum(torch.where(pos, scaled, 0.0).sum())
+        neg_loss = batch_sum(torch.where(neg, scaled, 0.0).sum())
+        num_adv = batch_sum(loss_weights.sum()).clamp_min(1.0)
         policy_loss = -model.pmpo_pos_to_neg_weight * (pos_loss - neg_loss) / num_adv
 
         if model.pmpo_kl_div_loss_weight > 0.0 and old_action_unembeds is not None:
@@ -249,7 +251,7 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
             kl_in, kl_tgt = new_unembeds, old_action_unembeds
             if model.pmpo_reverse_kl:
                 kl_in, kl_tgt = kl_tgt, kl_in
-            kl_loss = sum(masked_mean(kl, loss_weights)
+            kl_loss = sum(batch_mean(kl, loss_weights)
                           for kl in model.action_embedder.kl_div(kl_in, kl_tgt)
                           if kl is not None)
             policy_loss = policy_loss + kl_loss * model.pmpo_kl_div_loss_weight
@@ -260,7 +262,7 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
                  - (advantage.abs() * (ratio - 1.0).square()) / (2.0 * model.ppo_eps_clip))
         if use_delight_gating:
             loss = loss * delight_gate
-        policy_loss = masked_mean(loss, loss_weights)
+        policy_loss = batch_mean(loss, loss_weights)
 
     else:  # ppo
         ratio = torch.exp(log_probs - old_lp)
@@ -268,9 +270,9 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
         loss = -torch.minimum(ratio * advantage, clipped * advantage)
         if use_delight_gating:
             loss = loss * delight_gate
-        policy_loss = masked_mean(loss, loss_weights)
+        policy_loss = batch_mean(loss, loss_weights)
 
-    entropy_loss = masked_mean(-entropy.sum(dim=-1), loss_weights)
+    entropy_loss = batch_mean(-entropy.sum(dim=-1), loss_weights)
     total_policy_loss = policy_loss + entropy_loss * model.policy_entropy_weight
 
     # the actor's self-predictive rollout, its KL read through the action
@@ -303,22 +305,22 @@ def rl_losses(model: DynamicsWorldModel, experience: Experience, objective: str 
         clipped_loss = -(return_bins * clipped_bins.clamp_min(1e-20).log()).sum(dim=-1)
         value_loss_t = torch.maximum(value_loss_t, clipped_loss)
 
-    value_loss = masked_mean(value_loss_t, loss_weights)
+    value_loss = batch_mean(value_loss_t, loss_weights)
 
     with torch.no_grad():
-        mean_advantage = masked_mean(advantage, mask)
+        mean_advantage = batch_mean(advantage, mask)
         stats = dict(
-            mean_return=masked_mean(returns, mask),
+            mean_return=batch_mean(returns, mask),
             mean_advantage=mean_advantage,
-            adv_std=masked_mean((advantage - mean_advantage).square(), mask).sqrt(),
-            mean_value=masked_mean(values, mask),
-            entropy=masked_mean(entropy.sum(dim=-1), mask),
-            approx_kl=masked_mean(old_lp - log_probs, mask),
+            adv_std=batch_mean((advantage - mean_advantage).square(), mask).sqrt(),
+            mean_value=batch_mean(values, mask),
+            entropy=batch_mean(entropy.sum(dim=-1), mask),
+            approx_kl=batch_mean(old_lp - log_probs, mask),
         )
         if experience.terminal_probs is not None:
-            stats['mean_terminal_prob'] = masked_mean(experience.terminal_probs, mask)
+            stats['mean_terminal_prob'] = batch_mean(experience.terminal_probs, mask)
         if alive is not None:
-            stats['mean_alive'] = masked_mean(alive, mask)
+            stats['mean_alive'] = batch_mean(alive, mask)
 
     return RLLossOutputs(policy_loss=total_policy_loss, value_loss=value_loss, stats=stats,
                          return_stats=new_return_stats)

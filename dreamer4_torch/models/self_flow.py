@@ -9,6 +9,7 @@ from torch import nn
 
 from ..nn.attention import FeedForward
 from ..ops.utils import cosine_distance, lens_to_mask
+from ..parallel.distributed import batch_mean
 
 
 class SelfFlowHead(nn.Module):
@@ -23,7 +24,8 @@ class SelfFlowHead(nn.Module):
         pred = self.student_predict_head(student_hidden)
         if mask is not None:
             mask = mask.reshape(*mask.shape, *(1,) * (pred.ndim - 1 - mask.ndim))
-        return cosine_distance(pred, teacher_hidden.detach().to(pred.dtype), mask=mask)
+        return cosine_distance(pred, teacher_hidden.detach().to(pred.dtype), mask=mask,
+                               mean=batch_mean)
 
 
 def self_flow_loss(model, head: SelfFlowHead, ema_params: dict, batch_kwargs: dict,

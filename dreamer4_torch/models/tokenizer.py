@@ -71,8 +71,8 @@ from ..nn.slot_attention import SlotAttention
 from ..nn.spt import ShiftedPatchTokenization
 from ..ops.dists import beta_sample
 from ..ops.losses import decorrelation_loss, sigreg
-from ..ops.utils import (frac_gradient, lens_to_mask, masked_mean, orthogonal_loss,
-                         smooth_l1_loss)
+from ..ops.utils import frac_gradient, lens_to_mask, orthogonal_loss, smooth_l1_loss
+from ..parallel.distributed import batch_gather, batch_mean, local_rows
 from .transformer import AxialSpaceTimeTransformer, TransformerCache
 
 
@@ -447,8 +447,8 @@ class VideoTokenizer(nn.Module):
             aug_id = aug_id.long() + 1
         aug_id = aug_id.broadcast_to((batch,)).long()
         if cfg_dropout and self.aug_cfg_dropout_prob > 0.0:
-            drop = draw('aug_dropout', (batch,), generator=generator, device=device,
-                        prob=self.aug_cfg_dropout_prob)
+            drop = local_rows(lambda s: draw('aug_dropout', s, generator=generator, device=device,
+                                             prob=self.aug_cfg_dropout_prob), (batch,))
             aug_id = torch.where(drop, 0, aug_id)
         return aug_id
 
@@ -539,10 +539,15 @@ class VideoTokenizer(nn.Module):
         if mask_patches or patch_mask is not None:
             if patch_mask is None:
                 lo, hi = self.per_image_patch_mask_prob
-                mask_prob = draw('mask_prob', (b, t), generator=generator, device=video.device,
-                                 low=lo, high=hi)
-                patch_mask = draw('patch_mask', (b, t, hp, wp), generator=generator,
-                                  device=video.device, prob=mask_prob[..., None, None])
+                # under data parallelism both draws are made at the global
+                # batch (`local_rows`), the second from every rank's first
+                mask_prob = local_rows(lambda s: draw('mask_prob', s, generator=generator,
+                                                      device=video.device, low=lo, high=hi),
+                                       (b, t))
+                global_prob = batch_gather(mask_prob)[..., None, None]
+                patch_mask = local_rows(lambda s: draw('patch_mask', s, generator=generator,
+                                                       device=video.device, prob=global_prob),
+                                        (b, t, hp, wp))
             tokens = torch.where(patch_mask[..., None], self.mask_token, tokens)
             if init_tokens is not None:
                 scale = self.patch_size // self.latent_init_patch_size
@@ -688,8 +693,8 @@ class VideoTokenizer(nn.Module):
             video = video[:, :, None]
         video_internal = video_to_internal(video)
         b, t, height, width, _ = video_internal.shape
-        rnd = lambda kind, shape, **kw: draw(kind, shape, generator=generator,
-                                             device=video.device, **kw)
+        rnd = lambda kind, shape, **kw: local_rows(
+            lambda s: draw(kind, s, generator=generator, device=video.device, **kw), shape)
 
         latents, hiddens, interm, aug_ids, _ = self._encode(
             video, mask_patches=mask_patches, patch_mask=patch_mask, aug_id=aug_id,
@@ -704,7 +709,7 @@ class VideoTokenizer(nn.Module):
                 hiddens, mask=mask, generator=generator)
         if w['latent_sigreg'] > 0.0:
             losses['latent_sigreg'] = sigreg(latents[None], num_slices=self.latent_sigreg_num_slices,
-                                             generator=generator)
+                                             generator=generator, mean=batch_mean)
         clean = video_internal[..., :self.channels]
 
         use_flow_decoder = False
@@ -739,11 +744,11 @@ class VideoTokenizer(nn.Module):
             recon_video = self.decode_step(latents, height=height, width=width, aug_id=aug_ids)
             target, pred = clean, recon_video
 
+        # every mean over the batch is the global batch's under data
+        # parallelism (`batch_mean`), so the normalizers' EMAs agree
         recon_err = (pred - target).square()
-        if time_lens is not None:
-            recon = masked_mean(recon_err, lens_to_mask(time_lens, t)[:, :, None, None, None])
-        else:
-            recon = recon_err.mean()
+        frames = None if time_lens is None else lens_to_mask(time_lens, t)
+        recon = batch_mean(recon_err, None if frames is None else frames[:, :, None, None, None])
         losses['flow_recon' if use_flow_decoder else 'recon'] = recon
 
         use_lpips = lpips_fn is not None and w['lpips'] > 0.0
@@ -753,14 +758,16 @@ class VideoTokenizer(nn.Module):
             for kind, normed in (('time', interm.normed_time_inputs),
                                  ('space', interm.normed_space_inputs)):
                 if normed is not None:
+                    # (layers, b * rows, ...): the global batch's rows
                     losses[f'{kind}_decorr'] = decorrelation_loss(
-                        normed, self.decorr_sample_frac, generator=generator)
+                        batch_gather(normed, dim=1), self.decorr_sample_frac,
+                        generator=generator)
         if w['latent_ortho'] > 0.0:
-            losses['latent_ortho'] = orthogonal_loss(latents)
+            losses['latent_ortho'] = orthogonal_loss(latents, mean=batch_mean)
         if self.has_byol and byol_target_latents is not None:
             h = self.byol_sem(latents) if self.byol_use_sem else latents
-            losses['byol'] = smooth_l1_loss(self.byol_predictor(h),
-                                            byol_target_latents.detach()).mean()
+            losses['byol'] = batch_mean(smooth_l1_loss(self.byol_predictor(h),
+                                                       byol_target_latents.detach()))
 
         # the decoder this step did not train keeps its normalizer as it is
         skip = {'recon' if use_flow_decoder else 'flow_recon'} | (
@@ -793,5 +800,5 @@ def latent_consistency_loss(model: VideoTokenizer, recon_video, latents, time_le
         model, frozen, (video_to_external(recon_video),), dict(return_latents=True))
     err = (recon_latents - latents.detach()).square()
     if time_lens is not None:
-        return masked_mean(err, lens_to_mask(time_lens, latents.shape[1])[:, :, None, None])
-    return err.mean()
+        return batch_mean(err, lens_to_mask(time_lens, latents.shape[1])[:, :, None, None])
+    return batch_mean(err)

@@ -20,8 +20,10 @@ their own attention and feedforward, `special_attn_{i}` /
 (main, special) pair), and the H-Net splice after layer `h_net_layer`'s
 attention (`nn/hnet.py`, fixed-stride or with `h_net_dynamic` learned
 boundaries; its streaming cache in `TransformerCache.h_net`, its ratio loss
-in `TransformerOutputs.h_net_loss`). Not ported yet, and refused when set:
-ring attention (`time_ring_axis`).
+in `TransformerOutputs.h_net_loss`), and ring attention over time
+(`time_ring_axis`: the plain time layers' uncached attention runs as a ring
+over that axis of the ambient mesh, `parallel.mesh.set_mesh`; the MoT time
+layers and cached calls stay dense, as in the counterpart).
 """
 from __future__ import annotations
 
@@ -80,11 +82,6 @@ def _from_space_major(x, bt_shape):
     return x.reshape(*bt_shape, *x.shape[1:])
 
 
-# fields of the counterpart, with their defaults, that the port does not
-# have yet; any other value raises
-_NOT_PORTED = dict(time_ring_axis=None)
-
-
 class GRUTimeLayer(nn.Module):
     """RMSNorm, then a GRU over time from the given carry (zeros when none),
     in flax's layout (`GRUCell_0`, the name flax gives the cell inside the
@@ -106,17 +103,6 @@ class GRUTimeLayer(nn.Module):
         return out.to(x.dtype), out[:, -1].to(carry.dtype)
 
 
-def check_not_ported(not_ported: dict, table: dict) -> None:
-    """Refuse a field the port does not implement when its value differs
-    from the counterpart's default, and a name the counterpart lacks."""
-    for name, value in not_ported.items():
-        if name not in table:
-            raise TypeError(f'unexpected argument {name}')
-        if value != table[name]:
-            raise NotImplementedError(f'{name}={value!r} is not ported to dreamer4_torch yet '
-                                      f'(only its default {table[name]!r} is)')
-
-
 class AxialSpaceTimeTransformer(nn.Module):
     def __init__(self, dim: int, depth: int, attn_heads: int = 8, attn_dim_head: int = 64,
                  query_heads: int | None = None, attn_softclamp_value: float | None = 50.0,
@@ -134,12 +120,12 @@ class AxialSpaceTimeTransformer(nn.Module):
                  h_net_dynamic: bool = False, ff_expansion_factor: float = 4.0,
                  ff_activation: str = 'silu', gate_values: bool = True,
                  rmsnorm_query: bool = False, rmsnorm_key: bool = True,
-                 belief_attn: bool = True, dtype=None, device=None, **not_ported):
+                 belief_attn: bool = True, time_ring_axis: str | None = None, dtype=None,
+                 device=None):
         config = {k: v for k, v in locals().items()
-                  if k not in ('self', '__class__', 'device', 'not_ported')}
+                  if k not in ('self', '__class__', 'device')}
         super().__init__()
-        self.config = {**config, **not_ported}
-        check_not_ported(not_ported, _NOT_PORTED)
+        self.config = config
         device = resolve_device(device)
         self.dim, self.depth = dim, depth
         self.attn_heads, self.attn_dim_head = attn_heads, attn_dim_head
@@ -159,6 +145,7 @@ class AxialSpaceTimeTransformer(nn.Module):
         self.h_net_layer = h_net_layer
         self.h_net_compression_ratio = h_net_compression_ratio
         self.h_net_dynamic = h_net_dynamic
+        self.time_ring_axis = time_ring_axis
         self.dtype = dtype
 
         if time_attention_use_pope:
@@ -367,13 +354,17 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         append_hidden(tokens)
 
-        def time_attend(attn, x, rv, layer_cache):
-            """(b, t, s', d) tokens -> (their update, the time attention's output)."""
+        def time_attend(attn, x, rv, layer_cache, ring_axis=None):
+            """(b, t, s', d) tokens -> (their update, the time attention's
+            output); with `ring_axis`, causal ring attention over it."""
             x_tm, bs_shape = _to_time_major(x)
             rv_tm = _to_time_major(rv)[0] if rv is not None else None
-            out = attn(x_tm, kv_cache=layer_cache, rotary=time_rotary, mask=time_mask,
-                       residual_values=rv_tm, flash_spec=time_flash, flash_offset=token_count,
-                       allow_small=not has_cache)
+            ring = ring_axis is not None
+            out = attn(x_tm, kv_cache=layer_cache, rotary=time_rotary,
+                       mask=None if ring else time_mask, residual_values=rv_tm,
+                       flash_spec=None if ring else time_flash, flash_offset=token_count,
+                       allow_small=not has_cache, ring_axis=ring_axis,
+                       ring_use_flash=self.use_flash_attention)
             return _from_time_major(out.out, bs_shape), out
 
         ns = self.num_special_tokens
@@ -406,7 +397,8 @@ class AxialSpaceTimeTransformer(nn.Module):
                 time_layer_idx += 1
             elif layer_is_time:
                 layer_cache = cache.kv[time_layer_idx] if has_cache else None
-                delta, attn_out = time_attend(attn, tokens, residual_values, layer_cache)
+                delta, attn_out = time_attend(attn, tokens, residual_values, layer_cache,
+                                              ring_axis=None if has_cache else self.time_ring_axis)
                 tokens = tokens + delta
                 if attn_out.cache is not None:
                     new_kv_caches.append(attn_out.cache)

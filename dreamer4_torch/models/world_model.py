@@ -60,7 +60,8 @@ from ..nn.ssl import LAPO, TEM, ActorSPR
 from ..ops import dists
 from ..ops.codecs import get_reward_encoder
 from ..ops.mtp import create_multi_token_prediction_targets
-from ..ops.utils import frac_gradient, lens_to_mask, masked_mean, ramp_weight
+from ..ops.utils import frac_gradient, lens_to_mask, ramp_weight
+from ..parallel.distributed import batch_mean, batch_sum, local_rows
 from .transformer import AxialSpaceTimeTransformer, TransformerCache
 
 
@@ -757,7 +758,10 @@ class DynamicsWorldModel(nn.Module):
 
         is_inference = signal_levels is not None
         return_pred_only = return_pred_only or latent_is_noised
-        rnd = lambda kind, shape, **kw: draw(kind, shape, generator=generator, device=device, **kw)
+        # a draw of shape (b, ...) is made at the global batch under
+        # data parallelism, and this rank's rows are taken
+        rnd = lambda kind, shape, **kw: local_rows(
+            lambda s: draw(kind, s, generator=generator, device=device, **kw), shape)
 
         # training-time signal levels (diffusion forcing)
         if not is_inference:
@@ -937,9 +941,10 @@ class DynamicsWorldModel(nn.Module):
         is_var_len = lens is not None
         loss_mask = lens_to_mask(lens, time) if is_var_len else None
         mask_without_last = loss_mask[:, :-1] if is_var_len else None
-        mean = ((lambda t, m: masked_mean(t, m)) if is_var_len else (lambda t, m: t.mean()))
-        flow_loss = mean(flow_losses, loss_mask[..., None] if is_var_len else None)
-        shortcut_loss = (mean(shortcut_losses, loss_mask[..., None] if is_var_len else None)
+        # every mean over the batch is the global batch's under data
+        # parallelism (`batch_mean`, `batch_sum`)
+        flow_loss = batch_mean(flow_losses, loss_mask[..., None] if is_var_len else None)
+        shortcut_loss = (batch_mean(shortcut_losses, loss_mask[..., None] if is_var_len else None)
                          if shortcut_train else zero)
 
         # rewards: CE over MTP targets from the shifted agent tokens
@@ -952,10 +957,10 @@ class DynamicsWorldModel(nn.Module):
             ce = torch.where(rmask, -(targets * logp).sum(dim=-1), 0.0)
             if is_var_len:
                 denom = mask_without_last[..., None] & rmask
-                reward_loss = (torch.where(denom, ce, 0.0).sum(dim=(0, 1))
-                               / denom.sum(dim=(0, 1)).clamp_min(1.0))
+                reward_loss = (batch_sum(torch.where(denom, ce, 0.0).sum(dim=(0, 1)))
+                               / batch_sum(denom.sum(dim=(0, 1)).float()).clamp_min(1.0))
             else:
-                reward_loss = ce.mean(dim=(0, 1))
+                reward_loss = batch_mean(ce, dim=(0, 1))
 
         # terminals: BCE with DreamerV3 label smoothing
         terminal_loss = zero
@@ -975,7 +980,7 @@ class DynamicsWorldModel(nn.Module):
             if self.terminal_pos_weight != 1.0:
                 # upweight the (smoothed) positive frames
                 bce = bce * (1.0 + (self.terminal_pos_weight - 1.0) * terminals_seq)
-            terminal_loss = masked_mean(bce, mask_without_last) if is_var_len else bce.mean()
+            terminal_loss = batch_mean(bce, mask_without_last)
 
         # state prediction: Beta NLL of the next frame's latents, mapped
         # from [-1, 1] into (0, 1)
@@ -986,9 +991,9 @@ class DynamicsWorldModel(nn.Module):
             target = ((target + 1.0) / 2.0).clamp(self.eps_latent_pred, 1.0 - self.eps_latent_pred)
             nll = -dists.continuous_log_prob(pred.state[:, :-1], target, 'beta')
             state_pred_loss = (
-                masked_mean(nll, mask_without_last.reshape(*mask_without_last.shape,
+                batch_mean(nll, mask_without_last.reshape(*mask_without_last.shape,
                                                             *([1] * (nll.ndim - 2))))
-                if is_var_len else nll.mean())
+                if is_var_len else batch_mean(nll))
 
         # the agent's state prediction: Beta NLL of the next frame's latents
         # from the agent token (only `agent_predicts_state_frac_gradient` of
@@ -1012,8 +1017,8 @@ class DynamicsWorldModel(nn.Module):
                 self.eps_latent_pred, 1.0 - self.eps_latent_pred)
             nll = -dists.continuous_log_prob(s, target, 'beta')
             agent_state_pred_loss = (
-                masked_mean(nll, mask_without_last[:, :seq_len, None, None, None])
-                if is_var_len else nll.mean())
+                batch_mean(nll, mask_without_last[:, :seq_len, None, None, None])
+                if is_var_len else batch_mean(nll))
 
         # actions: MTP log likelihood of the next actions under the policy head
         action_losses = {'discrete': torch.zeros((mtp,), device=device),
@@ -1052,10 +1057,11 @@ class DynamicsWorldModel(nn.Module):
                 if is_var_len:
                     action_mask = mask_without_last if pred_len == time - 1 else loss_mask
                     m = action_mask[None, :, :num_targets, None] & amask[..., None]
-                    action_losses[kind] = (torch.where(m, nl, 0.0).sum(dim=(1, 2, 3))
-                                           / m.sum(dim=(1, 2, 3)).clamp_min(1.0))
+                    dims = (1, 2, 3)
+                    action_losses[kind] = (batch_sum(torch.where(m, nl, 0.0).sum(dim=dims))
+                                           / batch_sum(m.sum(dim=dims).float()).clamp_min(1.0))
                 else:
-                    action_losses[kind] = nl.mean(dim=(1, 2, 3))
+                    action_losses[kind] = batch_mean(nl, dim=(1, 2, 3))
 
         def next_actions_or_zeros():
             nat = next_action_tokens

@@ -9,7 +9,10 @@ in place; its length is a host int, so the flash kernel's offset and
 kv_len need no device-to-host sync. With `use_fused_small`, uncached
 self-attention with a static 2-D mask takes `_small_path`, which runs the
 whole block in the flat (B, n*h, dh) layout around K4/K5
-(`ops/small_attention.py`). Ring attention is not ported.
+(`ops/small_attention.py`). With `ring_axis`, an uncached self-attention
+runs causal ring attention over that axis of the ambient mesh
+(`parallel/ring_attention.py`): global tokens in and out, each rank of the
+ring attending its slice of the time rows.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from ..ops.attention import naive_attend
 from ..ops.flash_attention import flash_attend
 from ..ops.rotary import apply_rotations, apply_rotations_flat
 from ..ops.small_attention import small_attend_flat, small_attention_viable
+from ..parallel.ring_attention import process_group, ring_attention_global
 from ..ops.utils import l2norm, softclamp
 from .activations import get_activation
 from .dense import Dense
@@ -123,9 +127,13 @@ class Attention(nn.Module):
 
     def forward(self, tokens, context=None, kv_cache: KVCache | None = None, rotary=None,
                 mask=None, residual_values=None, flash_spec: FlashSpec | None = None,
-                flash_offset: int = 0, allow_small: bool = True) -> AttentionOut:
+                flash_offset: int = 0, allow_small: bool = True, ring_axis=None,
+                ring_use_flash: bool = False) -> AttentionOut:
         """`allow_small=False` keeps the call off the small path (the trunk
-        passes it for cached calls, whose masks are not static)."""
+        passes it for cached calls, whose masks are not static). `ring_axis`
+        (a mesh axis name or a process group) runs causal ring attention
+        over it instead of `mask` / `flash_spec`, with the kernels when
+        `ring_use_flash` holds (`ring_attend_centered`)."""
         if self.pre_rmsnorm:
             tokens = self.norm(tokens)
         normed_inputs = tokens
@@ -138,8 +146,9 @@ class Attention(nn.Module):
             context = tokens
 
         use_small = (self.use_fused_small and allow_small and flash_spec is None
-                     and kv_cache is None and not has_context and self.q_heads == self.heads
-                     and tokens.ndim == 3 and (mask is None or mask.ndim == 2))
+                     and ring_axis is None and kv_cache is None and not has_context
+                     and self.q_heads == self.heads and tokens.ndim == 3
+                     and (mask is None or mask.ndim == 2))
         if use_small:
             dtype = self.dtype if self.dtype is not None else tokens.dtype
             use_small = small_attention_viable(tokens.shape[-2], self.heads, self.dim_head,
@@ -176,7 +185,12 @@ class Attention(nn.Module):
             new_cache = kv_cache.append(k, v)
             k, v, kv_len = new_cache.k, new_cache.v, new_cache.length
 
-        if flash_spec is not None:
+        if ring_axis is not None:
+            if kv_cache is not None or has_context:
+                raise ValueError('ring attention is uncached self-attention')
+            out = ring_attend_centered(q, k, v, ring_axis, softclamp_value=self.softclamp_value,
+                                       use_flash=ring_use_flash)
+        elif flash_spec is not None:
             out = flash_attend_centered(
                 q, k, v, int(flash_offset), int(kv_len),
                 softclamp_value=self.softclamp_value, causal=flash_spec.causal,
@@ -245,23 +259,48 @@ class Attention(nn.Module):
         return AttentionOut(self.to_out(out.reshape(B, n, h * dh)), None, normed_inputs)
 
 
-def flash_attend_centered(q, k, v, offset: int, kv_len: int, **cfg):
-    """`flash_attend` (K1, and K2/K3 under grad) on the values centered on
-    their mean over the valid keys, the mean added back to the output.
-    Each query's weights sum to 1 (every query of the trunk's masks sees a
-    key), so attention(v - c) + c is attention(v). The kernels' bf16
-    output, and the backward's delta = rowsum(dO * O) taken from it, then
-    carry the values' variation instead of their mean: a token whose
-    values barely change over time (MoT's special token) keeps its
-    gradient. The counterpart takes delta from the bf16 output as is
-    (ROADMAP queue 3)."""
+def attend_centered(attend, q, k, v, kv_len: int | None = None):
+    """`attend(q, k, v - c) + c`, c the values' float32 mean over the
+    first `kv_len` keys (all by default). Each query's weights sum to 1
+    (every query of the trunk's masks sees a key), so this is
+    `attend(q, k, v)`. The kernels' bf16 output, and the backward's
+    delta = rowsum(dO * O) taken from it, then carry the values' variation
+    instead of their mean: a token whose values barely change over time
+    (MoT's special token) keeps its gradient. The counterpart takes delta
+    from the bf16 output as is (ROADMAP queue 3)."""
     c = v[..., :kv_len, :].float().mean(dim=-2, keepdim=True)
-    out = flash_attend(q.contiguous(), k.contiguous(), (v.float() - c).to(v.dtype).contiguous(),
-                       offset, kv_len, **cfg)
+    out = attend(q, k, (v.float() - c).to(v.dtype))
     groups = q.shape[-3] // k.shape[-3]
     if groups > 1:
         c = c.repeat_interleave(groups, dim=-3)
     return (out.float() + c).to(out.dtype)
+
+
+def flash_attend_centered(q, k, v, offset: int, kv_len: int, **cfg):
+    """`flash_attend` (K1, and K2/K3 under grad) on the values centered
+    on their mean over the valid keys (`attend_centered`)."""
+    return attend_centered(
+        lambda q, k, v: flash_attend(q.contiguous(), k.contiguous(), v.contiguous(), offset,
+                                     kv_len, **cfg), q, k, v, kv_len)
+
+
+def ring_attend_centered(q, k, v, ring_axis, *, softclamp_value, use_flash: bool):
+    """Causal ring attention of whole (B, h, T, d) q, k, v over `ring_axis`
+    (the counterpart's `shard_map` of `ring_attend`, `mask=None`): each
+    rank of the ring attends its T / P time rows and the output is gathered
+    whole. The kernels run per block when `use_flash` holds and a rank's
+    slice is at least 128 rows (one tile), as in the counterpart; then the
+    values are centered on their mean over all T keys, which every rank
+    holds (`attend_centered`), as off the ring."""
+    group = process_group(ring_axis)
+    use_flash = use_flash and q.shape[-2] // torch.distributed.get_world_size(group) >= 128
+    if not use_flash:
+        return ring_attention_global(q, k, v, group, causal=True,
+                                     softclamp_value=softclamp_value)
+    return attend_centered(
+        lambda q, k, v: ring_attention_global(q, k, v, group, causal=True,
+                                              softclamp_value=softclamp_value, use_flash=True),
+        q, k, v)
 
 
 class FeedForward(nn.Module):

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..ops.masks import build_attend_mask
 from ..ops.rotary import rotary_frequencies
+from ..parallel.distributed import batch_mean
 from .attention import Attention, FeedForward, KVCache
 from .dense import Dense
 from .norms import RMSNorm
@@ -113,7 +114,7 @@ class HierarchicalTemporalTransformer(nn.Module):
             summaries = torch.einsum('bcr,bcrd->bcd', weights, chunks)
             # keep the selection decisive: its entropy, normalized
             entropy = -(weights * torch.log(weights.clamp_min(1e-9))).sum(dim=-1)
-            ratio_loss = entropy.mean() / math.log(float(R))
+            ratio_loss = batch_mean(entropy) / math.log(float(R))
 
             h = summaries
             rot = rotary_frequencies(self.dim_head, C, device=x.device)
@@ -260,7 +261,7 @@ class DynamicChunkingTemporalTransformer(nn.Module):
 
             slots = torch.arange(C, device=dev)
             chunk_valid = slots[None, :] < (chunk_id[:, -1] + 1)[:, None]
-            ratio_loss = ((p_bound.mean(dim=1) - 1.0 / R) ** 2).mean()
+            ratio_loss = batch_mean((p_bound.mean(dim=1) - 1.0 / R) ** 2)
 
             causal = slots[:, None] >= slots[None, :]
             mask = causal[None] & chunk_valid[:, None, :]

@@ -8,7 +8,8 @@ import torch
 from torch import nn
 
 from ..ops.losses import sigreg
-from ..ops.utils import l2norm, masked_mean, smooth_l1_loss
+from ..ops.utils import l2norm, smooth_l1_loss
+from ..parallel.distributed import batch_mean
 from .dense import Dense
 from .mlp import MLP
 from .norms import RMSNorm
@@ -84,9 +85,9 @@ class LatentAutoregressiveLoss(nn.Module):
         loss_mask = mask[:, 1:] if mask is not None else None
         if loss_mask is not None:
             bmask = loss_mask.reshape(*loss_mask.shape, *(1,) * (losses.ndim - loss_mask.ndim))
-            loss = masked_mean(losses, bmask)
+            loss = batch_mean(losses, bmask)
         else:
-            loss = losses.mean()
+            loss = batch_mean(losses)
 
         # sigreg on the targets (and, across layers, on the inputs too)
         if is_same_layer:
@@ -109,5 +110,5 @@ class LatentAutoregressiveLoss(nn.Module):
             sig_mask = sig_mask.reshape(*sig_mask.shape, *(1,) * extra)
             sig_mask = sig_mask.expand(sig_input.shape[:-1])
         sig_loss = sigreg(sig_input, num_slices=self.sigreg_num_slices, mask=sig_mask,
-                          generator=generator)
+                          generator=generator, mean=batch_mean)
         return loss, sig_loss, pred

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import batch_gather, batch_span, batch_sum
 from .init import lecun_normal_
 
 # VGG16's conv plan: (out_channels, convs) per stage
@@ -113,17 +114,23 @@ def lpips_loss(module: VGG16Features, pred, target, generator: torch.Generator |
     """pred, target (b, t, h, w, c) video: the mean over `feature_layers`
     of the MSE between the features of `sampled_frames` random frames per
     row (drawn inside each row's `time_lens`). The gradient reaches `pred`
-    only."""
+    only. Under data parallelism the frames are drawn from the global
+    batch: each rank takes the features of those in its rows, and the
+    squared errors are summed over the ranks."""
     b, t = pred.shape[:2]
-    num = b * sampled_frames
+    start, total = batch_span(b)
+    num = total * sampled_frames
     device = pred.device
-    batch_idx = draw('frame_batch', (num,), generator=generator, device=device, low=0, high=b)
+    batch_idx = draw('frame_batch', (num,), generator=generator, device=device, low=0,
+                     high=total)
     if time_lens is not None:
-        lens = time_lens[batch_idx].long().clamp_min(1)
+        lens = batch_gather(time_lens)[batch_idx].long().clamp_min(1)
         u = draw('frame_time_frac', (num,), generator=generator, device=device)
         time_idx = torch.minimum((u * lens).long(), lens - 1)
     else:
         time_idx = draw('frame_time', (num,), generator=generator, device=device, low=0, high=t)
+    own = (batch_idx >= start) & (batch_idx < start + b)
+    batch_idx, time_idx = batch_idx[own] - start, time_idx[own]
 
     pred_frames = pred[batch_idx, time_idx].float()
     target_frames = target[batch_idx, time_idx].detach().float()
@@ -131,5 +138,6 @@ def lpips_loss(module: VGG16Features, pred, target, generator: torch.Generator |
         pred_frames = pred_frames.repeat(1, 1, 1, 3)
         target_frames = target_frames.repeat(1, 1, 1, 3)
     pred_feats, target_feats = module(pred_frames), module(target_frames)
-    loss = sum((pred_feats[i] - target_feats[i]).square().mean() for i in feature_layers)
+    loss = sum(batch_sum((pred_feats[i] - target_feats[i]).square().sum())
+               / (num * pred_feats[i].shape[1:].numel()) for i in feature_layers)
     return loss / len(feature_layers)

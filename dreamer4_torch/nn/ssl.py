@@ -14,7 +14,8 @@ from torch import nn
 from ..ops.attention import naive_attend
 from ..ops.losses import sigreg
 from ..ops.masks import causal_mask
-from ..ops.utils import l2norm, masked_mean, smooth_l1_loss
+from ..ops.utils import l2norm, smooth_l1_loss
+from ..parallel.distributed import batch_mean
 from .dense import Dense
 from .gru import GRUCell
 from .init import normal_
@@ -90,10 +91,10 @@ class LAPO(nn.Module):
                     logp = torch.log_softmax(getattr(self, f'action_readout_d{i}')(latent_action),
                                              dim=-1)
                     tgt = discrete_actions[:, :seq, i].long()
-                    terms.append(-logp.gather(-1, tgt[..., None]).mean())
+                    terms.append(batch_mean(-logp.gather(-1, tgt[..., None])))
             if self.num_continuous_actions > 0 and continuous_actions is not None:
                 pred_c = self.action_readout_c(latent_action)
-                terms.append((pred_c - continuous_actions[:, :seq]).square().mean())
+                terms.append(batch_mean((pred_c - continuous_actions[:, :seq]).square()))
             if terms:
                 action_loss = sum(terms) / len(terms)
 
@@ -101,11 +102,11 @@ class LAPO(nn.Module):
         fdm_in = torch.cat([state, latent_action], dim=-1)
         if self.use_fdm:
             pred_next = self.to_pred_next_state(fdm_in)
-            fdm_loss = (l2norm(pred_next) - l2norm(next_state).detach()).square().mean()
+            fdm_loss = batch_mean((l2norm(pred_next) - l2norm(next_state).detach()).square())
         if self.has_raw_latent_fdm and raw_latents is not None:
             b, t = raw_latents.shape[:2]
             target = raw_latents.reshape(b, t, -1)[:, 1:]
-            raw_fdm_loss = (self.to_pred_raw_latent(fdm_in) - target.detach()).square().mean()
+            raw_fdm_loss = batch_mean((self.to_pred_raw_latent(fdm_in) - target.detach()).square())
         return action_loss, fdm_loss, raw_fdm_loss
 
 
@@ -206,7 +207,7 @@ class TEM(nn.Module):
         loss = torch.zeros((), device=raw_latents.device)
         if t > 1:
             target = raw_latents.reshape(b, t, -1)[:, 1:]
-            loss = (pred_raw[:, 1:] - target.detach()).square().mean()
+            loss = batch_mean((pred_raw[:, 1:] - target.detach()).square())
         if not return_preds:
             return loss
         return loss, pred_raw.reshape(b, t, self.num_raw_latent_tokens, self.dim_raw_latent)
@@ -279,19 +280,19 @@ class ActorSPR(nn.Module):
         spr_loss = zero
         if self.spr_loss_weight > 0.0:
             l1 = smooth_l1_loss(preds, targets.detach()) * weight
-            spr_loss = masked_mean(l1, target_masks[..., None], dim=(1, 2, 3)).sum()
+            spr_loss = batch_mean(l1, target_masks[..., None], dim=(1, 2, 3)).sum()
 
         kl_loss = zero
         if self.kl_loss_weight > 0.0 and unembed_fn is not None and kl_fn is not None:
             target_unembeds = _detach_tree(unembed_fn(targets.detach()))
             d_kl, c_kl = kl_fn(target_unembeds, unembed_fn(preds))
             step_kl = sum(kl for kl in (d_kl, c_kl) if kl is not None) * weight
-            kl_loss = masked_mean(step_kl, target_masks, dim=(1, 2)).sum()
+            kl_loss = batch_mean(step_kl, target_masks, dim=(1, 2)).sum()
 
         sigreg_loss = zero
         if self.sigreg_loss_weight > 0.0:
             sigreg_loss = sigreg(policy_embed[None], mask=mask[None], num_slices=256,
-                                 generator=generator)
+                                 generator=generator, mean=batch_mean)
 
         total = (spr_loss * self.spr_loss_weight + kl_loss * self.kl_loss_weight
                  + sigreg_loss * self.sigreg_loss_weight)

@@ -38,13 +38,15 @@ def apply_loss_normalizer(state: torch.Tensor, losses: torch.Tensor, update_ema:
 
 def sigreg(x: torch.Tensor, num_slices: int = 1024, domain: tuple[float, float] = (-5.0, 5.0),
            num_knots: int = 17, mask: torch.Tensor | None = None,
-           generator: torch.Generator | None = None) -> torch.Tensor:
+           generator: torch.Generator | None = None, mean=masked_mean) -> torch.Tensor:
     """LeJEPA signature regularization: the empirical characteristic
     function of x (k, ..., d) along `num_slices` random unit directions,
     matched to the standard normal's under a Gaussian window and integrated
     by the trapezoid rule over `num_knots` points of `domain`; the mean over
-    the k leading subspaces and the slices. `mask` (k, ...) keeps rows. The
-    complex exponential is computed as its cosine and sine, in float32."""
+    the k leading subspaces and the slices. `mask` (k, ...) keeps rows;
+    `mean(t, mask, dim)` takes the mean over them (loss code passes
+    `parallel.distributed.batch_mean`). The complex exponential is computed
+    as its cosine and sine, in float32."""
     dim = x.shape[-1]
     projs = l2norm(draw('slices', (num_slices, dim), generator=generator,
                         device=x.device).to(x.dtype))
@@ -54,11 +56,8 @@ def sigreg(x: torch.Tensor, num_slices: int = 1024, domain: tuple[float, float] 
     k = x.shape[0]
     x_t = (torch.einsum('knd,md->knm', x.reshape(k, -1, dim), projs)[..., None] * t).float()
     parts = torch.cos(x_t), torch.sin(x_t)   # (k, n, m, knots)
-    if mask is not None:
-        mask_flat = mask.reshape(k, -1)[:, :, None, None]
-        re, im = (masked_mean(p, mask_flat, dim=1) for p in parts)
-    else:
-        re, im = (p.mean(dim=1) for p in parts)   # (k, m, knots)
+    mask_flat = None if mask is None else mask.reshape(k, -1)[:, :, None, None]
+    re, im = (mean(p, mask_flat, dim=1) for p in parts)   # (k, m, knots)
     err = ((re - exp_f).square() + im.square()) * exp_f
     return torch.trapezoid(err, t, dim=-1).mean()
 
@@ -67,7 +66,9 @@ def decorrelation_loss(x: torch.Tensor, sample_frac: float = 0.25,
                        generator: torch.Generator | None = None) -> torch.Tensor:
     """Feature decorrelation of token rows x (..., d): a random
     `sample_frac` of the rows (at least 2), standardized per feature; the
-    mean square of the off-diagonal entries of their correlation matrix."""
+    mean square of the off-diagonal entries of their correlation matrix.
+    Not a sum over the rows: under data parallelism x is the global batch
+    (`parallel.distributed.batch_gather`)."""
     d = x.shape[-1]
     rows = x.reshape(-1, d)
     n = rows.shape[0]

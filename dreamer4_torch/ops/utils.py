@@ -44,7 +44,8 @@ def lens_to_mask(lens: torch.Tensor, total_len: int) -> torch.Tensor:
 def masked_mean(t: torch.Tensor, mask: torch.Tensor | None = None, dim=None) -> torch.Tensor:
     """Mean over `dim` (or all) counting only positions where `mask`
     (broadcast against t) is True, or weighting each by a float mask; the
-    weights' sum is taken as at least 1, so an all-False mask gives 0."""
+    weights' sum is taken as at least 1, so an all-False mask gives 0.
+    `parallel.distributed.batch_mean` is its mean over the global batch."""
     if mask is None:
         return t.mean() if dim is None else t.mean(dim=dim)
     maskf = mask.broadcast_to(t.shape).to(t.dtype)
@@ -53,21 +54,23 @@ def masked_mean(t: torch.Tensor, mask: torch.Tensor | None = None, dim=None) -> 
     return (t * maskf).sum(dim=dim) / maskf.sum(dim=dim).clamp_min(1.0)
 
 
-def z_score(t: torch.Tensor, mask: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
+def z_score(t: torch.Tensor, mask: torch.Tensor | None = None, eps: float = 1e-5,
+            mean=masked_mean) -> torch.Tensor:
     """Standardize over all positions, or over those `mask` weights (a bool
-    or float mask, as in `masked_mean`)."""
-    mean = masked_mean(t, mask)
-    var = masked_mean((t - mean).square(), mask)
-    return (t - mean) / var.clamp_min(eps).sqrt()
+    or float mask, as in `masked_mean`); `mean` takes the statistics (loss
+    code passes `parallel.distributed.batch_mean`)."""
+    mu = mean(t, mask)
+    var = mean((t - mu).square(), mask)
+    return (t - mu) / var.clamp_min(eps).sqrt()
 
 
-def cosine_distance(x: torch.Tensor, y: torch.Tensor,
-                    mask: torch.Tensor | None = None) -> torch.Tensor:
+def cosine_distance(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor | None = None,
+                    mean=masked_mean) -> torch.Tensor:
     """The mean of 1 - cos(x, y) over the rows of the last dim, counting
-    the positions `mask` keeps (as in `masked_mean`)."""
+    the positions `mask` keeps (as in `masked_mean`, or `mean`)."""
     num = (x * y).sum(dim=-1)
     den = torch.linalg.vector_norm(x, dim=-1) * torch.linalg.vector_norm(y, dim=-1)
-    return masked_mean(1.0 - num / den.clamp_min(1e-12), mask)
+    return mean(1.0 - num / den.clamp_min(1e-12), mask)
 
 
 def ramp_weight(times: torch.Tensor, slope: float = 0.9, intercept: float = 0.1) -> torch.Tensor:
@@ -75,17 +78,17 @@ def ramp_weight(times: torch.Tensor, slope: float = 0.9, intercept: float = 0.1)
     return slope * times + intercept
 
 
-def orthogonal_loss(x: torch.Tensor) -> torch.Tensor:
+def orthogonal_loss(x: torch.Tensor, mean=masked_mean) -> torch.Tensor:
     """Push the rows of x (over dim -2), centred and unit-normed, towards
-    orthogonality: the mean over leading dims of the summed squared
-    off-diagonal cosine similarities."""
+    orthogonality: the mean (`mean`) over leading dims of the summed
+    squared off-diagonal cosine similarities."""
     n = x.shape[-2]
     if n == 1:
         return torch.zeros((), device=x.device)
     x = l2norm(x - x.mean(dim=-2, keepdim=True))
     sim = x @ x.transpose(-1, -2)
     sim = sim.masked_fill(torch.eye(n, dtype=torch.bool, device=x.device), 0.0)
-    return sim.square().sum(dim=(-1, -2)).mean()
+    return mean(sim.square().sum(dim=(-1, -2)))
 
 
 def cast_params_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:

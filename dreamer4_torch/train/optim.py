@@ -11,6 +11,11 @@ the attention pools' raw `_Kernel` holders keep flax's layout already. So
 the Newton-Schulz iteration and the shape scale `sqrt(max(1, in / out))`
 see the same matrix as in the counterpart. `MultiSteps` accumulates
 gradients over micro-steps (`optax.MultiSteps`).
+
+A parameter split over a mesh (a DTensor, `parallel.mesh.shard_params`)
+is updated on this rank's shard, its optimizer state kept as shards: the
+clip reads the global norm over all shards, and Muon gathers the weight's
+update whole to orthogonalize it, then keeps the shard of the result.
 """
 from __future__ import annotations
 
@@ -18,6 +23,9 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from ..parallel.mesh import local, shard_of, whole, whole_of_shard
 
 NS_COEFFS = (3.4445, -4.7750, 2.0315)
 
@@ -59,6 +67,12 @@ def batched_orthogonalize(mats: list[torch.Tensor], steps: int = 5, eps: float =
             o = X[pos].T if oriented[i][1] else X[pos]
             out[i] = o.to(mats[i].dtype)
     return out
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of a whole gradient, over every shard of
+    a DTensor."""
+    return whole(g.float().square().sum())
 
 
 def muon_label(name: str, param: torch.Tensor) -> str:
@@ -129,12 +143,13 @@ class MuonAdamAtan2(torch.optim.Optimizer):
                  for g in self.param_groups for p in g['params']}
         max_norm = self.defaults['clip_grad_norm']
         if max_norm is not None:
-            norm = torch.stack([g.float().square().sum() for g in grads.values()]).sum().sqrt()
+            norm = torch.stack([_square_sum(g) for g in grads.values()]).sum().sqrt()
             scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-16), max=1.0)
-            grads = {p: (g * scale).to(g.dtype) for p, g in grads.items()}
+            grads = {p: (local(g) * scale).to(g.dtype) for p, g in grads.items()}
+        grads = {p: local(g) for p, g in grads.items()}
         wd = self.defaults['weight_decay']
         if wd > 0.0:
-            grads = {p: g + wd * p for p, g in grads.items()}
+            grads = {p: g + wd * local(p) for p, g in grads.items()}
         for group in self.param_groups:
             if group['kind'] == 'muon':
                 self._muon(group, grads)
@@ -147,10 +162,13 @@ class MuonAdamAtan2(torch.optim.Optimizer):
         for p in group['params']:
             state = self.state[p]
             if 'momentum' not in state:
-                state['momentum'] = torch.zeros_like(p)
+                state['momentum'] = torch.zeros_like(local(p))
             g = grads[p]
             m = state['momentum'].mul_(mom).add_(g)
-            use.append(m * mom + g)                     # Nesterov
+            u = m * mom + g                              # Nesterov
+            if isinstance(p, DTensor):                   # the whole update
+                u = whole_of_shard(u, p)
+            use.append(u)
         # the update in flax's orientation, then back to the torch layout
         flax = [u.T if t else u for u, t in zip(use, group['transposed'])]
         orthed = batched_orthogonalize(flax, group['ns_steps'], 1e-7)
@@ -158,7 +176,10 @@ class MuonAdamAtan2(torch.optim.Optimizer):
             fan_in, fan_out = (p.shape[1], p.shape[0]) if t else (p.shape[0], p.shape[1])
             scale = math.sqrt(max(1.0, fan_in / fan_out))
             update = -group['lr'] * scale * o
-            p.add_(update.T if t else update)
+            update = update.T if t else update
+            if isinstance(p, DTensor):                   # this rank's shard of it
+                update = shard_of(update, p)
+            local(p).add_(update)
 
     def _adam_atan2(self, group, grads):
         group['count'] += 1
@@ -169,12 +190,13 @@ class MuonAdamAtan2(torch.optim.Optimizer):
         for p in group['params']:
             state = self.state[p]
             if 'mu' not in state:
-                state['mu'] = torch.zeros_like(p)
-                state['nu'] = torch.zeros_like(p)
+                state['mu'] = torch.zeros_like(local(p))
+                state['nu'] = torch.zeros_like(local(p))
             g = grads[p]
             mu = state['mu'].mul_(b1).add_((1 - b1) * g)
             nu = state['nu'].mul_(b2).add_((1 - b2) * g.square())
-            p.add_(-group['lr'] * group['a'] * torch.atan2(mu / c1, group['b'] * (nu / c2).sqrt()))
+            local(p).add_(-group['lr'] * group['a']
+                           * torch.atan2(mu / c1, group['b'] * (nu / c2).sqrt()))
 
 
 class MultiSteps:

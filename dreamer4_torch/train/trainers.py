@@ -15,6 +15,21 @@ from a numpy `default_rng(seed)`, as in the counterpart, so both packages
 choose the same sequence of plain and shortcut steps from one seed; the
 training forward's own draws come from a `torch.Generator` seeded the same
 way.
+
+Data parallelism: each train step, trainer and update step takes a `mesh`
+(`parallel.mesh`), and each rank then passes its rows of the batch (or a
+batch of DTensors, `parallel.distributed.host_local_batch_to_global`). The
+forward and backward run inside `parallel.mesh.data_parallel`: every
+reduction over the batch in the losses is the global batch's (the
+`parallel.distributed.batch_*` helpers), so a loss normalizer's EMA moves
+alike on every rank, every draw is made at the global batch and cut to the
+rank's rows, and the gradients are averaged
+over `data` before the optimizer steps, so the step equals one process's on
+the global batch (the counterpart's GSPMD step). A model sharded over
+`model` (`parallel.mesh.shard_params`) computes with its weights gathered
+whole and updates its shards. The RL trainers dream or roll out on each
+rank from its own draws (the counterpart's per-host actor fleet) and take
+data-parallel updates; their weights stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +50,8 @@ from ..models.self_flow import SelfFlowHead, self_flow_loss
 from ..models.tokenizer import TokenizerLosses, VideoTokenizer, latent_consistency_loss
 from ..models.world_model import DynamicsWorldModel, WorldModelLosses
 from ..nn.lpips import init_lpips, lpips_loss
+from ..parallel.distributed import is_main_process, mean_over_data
+from ..parallel.mesh import data_parallel, local_batch, model_axis_size, whole
 from .checkpoint import load_train_state, save_model, save_train_state
 from .ema import init_ema, update_ema
 from .optim import MuonAdamAtan2, named_train_parameters, with_grad_accum
@@ -73,7 +90,7 @@ class TrainState(NamedTuple):
         parameter names."""
         if self.ema_params is None:
             return None
-        return {k: v for k, v in self.ema_params.items()
+        return {k: whole(v) for k, v in self.ema_params.items()
                 if not k.startswith(SELF_FLOW_HEAD + '.')}
 
 
@@ -97,7 +114,7 @@ def _apply_update(ts: TrainState, ema_decay: float) -> TrainState:
 
 
 def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float = 0.999,
-                              lpips_fn=None):
+                              lpips_fn=None, mesh=None):
     """-> train_step(ts, video, time_lens=None, generator=None,
     train_flow_decoder=False) returning (ts, loss, losses): the training
     forward on `video` (b, c, t, h, w) with `lpips_fn(recon, clean,
@@ -106,31 +123,36 @@ def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float
     and one EMA update. With BYOL and EMA weights, the teacher's latents
     are the EMA weights' encode of the clean video, without gradient.
     `train_flow_decoder` picks the decoder a model with a separate flow
-    decoder trains."""
+    decoder trains. With a `mesh`, data parallel (see the module
+    docstring)."""
 
     def train_step(ts: TrainState, video, time_lens=None,
                    generator: torch.Generator | None = None, train_flow_decoder: bool = False):
-        byol_targets = None
-        if model.has_byol and ts.ema_params is not None:
-            with torch.no_grad():
-                byol_targets = torch.func.functional_call(model, ts.model_ema(), (video,),
-                                                          dict(return_latents=True))
+        video, time_lens = local_batch((video, time_lens))
         optimizer.zero_grad(set_to_none=True)
-        loss, interm = model(video, time_lens=time_lens, return_intermediates=True,
-                             byol_target_latents=byol_targets, lpips_fn=lpips_fn,
-                             train_flow_decoder=train_flow_decoder, generator=generator)
-        if model.latent_consistency_loss_weight > 0.0:
-            loss = loss + model.latent_consistency_loss_weight * latent_consistency_loss(
-                model, interm.recon, interm.latents, time_lens=time_lens)
-        loss.backward()
+        with data_parallel(ts.modules(), mesh):
+            byol_targets = None
+            if model.has_byol and ts.ema_params is not None:
+                with torch.no_grad():
+                    byol_targets = torch.func.functional_call(model, ts.model_ema(), (video,),
+                                                              dict(return_latents=True))
+            loss, interm = model(video, time_lens=time_lens, return_intermediates=True,
+                                 byol_target_latents=byol_targets, lpips_fn=lpips_fn,
+                                 train_flow_decoder=train_flow_decoder, generator=generator)
+            if model.latent_consistency_loss_weight > 0.0:
+                loss = loss + model.latent_consistency_loss_weight * latent_consistency_loss(
+                    model, interm.recon, interm.latents, time_lens=time_lens)
+            loss.backward()
         ts = _apply_update(ts, ema_decay)
-        return ts, loss.detach(), TokenizerLosses(*(l.detach() for l in interm.losses))
+        return ts, mean_over_data(loss.detach(), mesh), TokenizerLosses(
+            *(mean_over_data(l.detach(), mesh) for l in interm.losses))
 
     return train_step
 
 
 def make_world_model_train_step(model: DynamicsWorldModel, optimizer: MuonAdamAtan2,
-                                ema_decay: float = 0.999, self_flow_cfg: dict | None = None):
+                                ema_decay: float = 0.999, self_flow_cfg: dict | None = None,
+                                mesh=None):
     """-> train_step(ts, batch, shortcut_train, generator=None) returning
     (ts, loss, losses): the training forward on `batch` (latents, rewards,
     terminals, discrete_actions, continuous_actions, proprio, lens, tasks),
@@ -139,10 +161,12 @@ def make_world_model_train_step(model: DynamicsWorldModel, optimizer: MuonAdamAt
     `self_flow_cfg`: dict(head=SelfFlowHead, weight, student_layer,
     teacher_layer) adds `weight` times the self-flow loss, whose teacher
     runs on the EMA weights, so it needs `ts.ema_params` and a `generator`:
-    its forwards take the draws that follow the training forward's."""
+    its forwards take the draws that follow the training forward's. With a
+    `mesh`, data parallel (see the module docstring)."""
 
     def train_step(ts: TrainState, batch: dict, shortcut_train: bool,
                    generator: torch.Generator | None = None):
+        batch = local_batch(batch)
         if self_flow_cfg is not None and (generator is None or ts.ema_params is None):
             raise ValueError('the self-flow loss needs a generator, so that the teacher '
                              'replays the student\'s draws, and EMA weights for the teacher')
@@ -150,16 +174,18 @@ def make_world_model_train_step(model: DynamicsWorldModel, optimizer: MuonAdamAt
                                             'continuous_actions', 'proprio', 'lens', 'tasks')}
         kwargs = dict(latents=batch['latents'], **kwargs, shortcut_train=shortcut_train)
         optimizer.zero_grad(set_to_none=True)
-        loss, losses, _ = model(**kwargs, return_intermediates=True, generator=generator)
-        if self_flow_cfg is not None:
-            sf = self_flow_loss(model, self_flow_cfg['head'], ts.model_ema(), kwargs, generator,
-                                student_layer=self_flow_cfg.get('student_layer', -3),
-                                teacher_layer=self_flow_cfg.get('teacher_layer', -1),
-                                lens=batch.get('lens'))
-            loss = loss + sf * self_flow_cfg.get('weight', 1.0)
-        loss.backward()
+        with data_parallel(ts.modules(), mesh):
+            loss, losses, _ = model(**kwargs, return_intermediates=True, generator=generator)
+            if self_flow_cfg is not None:
+                sf = self_flow_loss(model, self_flow_cfg['head'], ts.model_ema(), kwargs,
+                                    generator, student_layer=self_flow_cfg.get('student_layer', -3),
+                                    teacher_layer=self_flow_cfg.get('teacher_layer', -1),
+                                    lens=batch.get('lens'))
+                loss = loss + sf * self_flow_cfg.get('weight', 1.0)
+            loss.backward()
         ts = _apply_update(ts, ema_decay)
-        return ts, loss.detach(), WorldModelLosses(*(l.detach() for l in losses))
+        return ts, mean_over_data(loss.detach(), mesh), WorldModelLosses(
+            *(mean_over_data(l.detach(), mesh) for l in losses))
 
     return train_step
 
@@ -190,7 +216,7 @@ class _CheckpointableTrainer:
                        state_dict={**self.model.state_dict(), **self.ts.model_ema()},
                        extra=dict(step=step, ema=True))
         save_train_state(target, self.ts, extra=extra)
-        if tag_step:
+        if tag_step and is_main_process():
             latest, latest_tmp = path / 'latest', path / '.latest.tmp'
             if latest_tmp.is_symlink() or latest_tmp.exists():
                 latest_tmp.unlink()
@@ -214,6 +240,13 @@ class _CheckpointableTrainer:
             self.generator.set_state(
                 torch.tensor(extra.pop('_torch_generator'), dtype=torch.uint8))
         return extra
+
+
+def _data_rank(mesh) -> int:
+    """This rank's index on the mesh's `data` axis (0 without a mesh)."""
+    if mesh is None:
+        return 0
+    return mesh.get_local_rank('data') if mesh.ndim > 1 else mesh.get_local_rank()
 
 
 def _check_device(model, device) -> torch.device:
@@ -240,9 +273,10 @@ class TokenizerTrainer(_CheckpointableTrainer):
     def __init__(self, model: VideoTokenizer, *, learning_rate: float = 3e-4,
                  clip_grad_norm: float = 1.0, grad_accum: int = 1, with_ema: bool = True,
                  ema_decay: float = 0.999, seed: int = 0, use_lpips: bool = False,
-                 lpips_weights_path: str | None = None, device=None):
+                 lpips_weights_path: str | None = None, mesh=None, device=None):
         device = _check_device(model, device)
         self.model = model
+        self.mesh = mesh
         self.optimizer = with_grad_accum(
             MuonAdamAtan2(model, learning_rate=learning_rate, clip_grad_norm=clip_grad_norm),
             grad_accum)
@@ -253,7 +287,7 @@ class TokenizerTrainer(_CheckpointableTrainer):
             lpips_fn = lambda recon, clean, gen, lens: lpips_loss(
                 self.lpips, recon, clean, generator=gen, time_lens=lens)
         self._train_step = make_tokenizer_train_step(model, self.optimizer, ema_decay,
-                                                     lpips_fn=lpips_fn)
+                                                     lpips_fn=lpips_fn, mesh=mesh)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
@@ -291,11 +325,12 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
                  clip_grad_norm: float = 1.0, grad_accum: int = 1, with_ema: bool = True,
                  ema_decay: float = 0.999, seed: int = 0, use_self_flow: bool = False,
                  self_flow_weight: float = 1.0, self_flow_student_layer: int = -3,
-                 self_flow_teacher_layer: int = -1, device=None):
+                 self_flow_teacher_layer: int = -1, mesh=None, device=None):
         device = _check_device(model, device)
         if tokenizer is not None and tokenizer.device != device:
             raise ValueError(f'the tokenizer is on {tokenizer.device}, the trainer on {device}')
         self.model = model
+        self.mesh = mesh
         self.tokenizer = tokenizer
         self.aux_image_encoder_fn = aux_image_encoder_fn
         self.self_flow_head = SelfFlowHead(model.dim, device=device) if use_self_flow else None
@@ -311,7 +346,7 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
                           clip_grad_norm=clip_grad_norm), grad_accum)
         self.ts = ts._replace(optimizer=self.optimizer)
         self._train_step = make_world_model_train_step(model, self.optimizer, ema_decay,
-                                                       self_flow_cfg=self_flow_cfg)
+                                                       self_flow_cfg=self_flow_cfg, mesh=mesh)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
@@ -319,8 +354,9 @@ class BehaviorCloneTrainer(_CheckpointableTrainer):
         """batch: latents (b, t, n, d), or video (b, c, t, h, w) with a
         tokenizer or an aux image encoder, and optional rewards, terminals,
         discrete_actions, continuous_actions, proprio, lens, tasks, on the
-        trainer's device. -> (loss, losses)."""
-        batch = dict(batch)
+        trainer's device; with a mesh, the rank's rows (or DTensors).
+        -> (loss, losses)."""
+        batch = dict(local_batch(batch))
         if 'latents' not in batch:
             if (self.tokenizer is None and self.aux_image_encoder_fn is None) \
                     or 'video' not in batch:
@@ -402,27 +438,36 @@ def create_rl_state(model: DynamicsWorldModel, optimizer: torch.optim.Optimizer)
 
 def make_rl_update_step(model: DynamicsWorldModel, optimizer: torch.optim.Optimizer,
                         objective: str = 'ppo', only_learn_policy_value_heads: bool = True,
-                        **rl_loss_kwargs):
+                        mesh=None, **rl_loss_kwargs):
     """-> update_step(rl_state, experience) returning (rl_state, outputs):
     the RL losses, their gradients and one optimizer update. Pass
     `only_learn_policy_value_heads=False`, with an optimizer built with
     `trunk_lr`, for full-model RL: the loss then re-forwards the trunk with
-    gradients."""
+    gradients. With a `mesh` (whose `model` axis is 1: the RL weights stay
+    whole), data parallel over the ranks' experience (see the module
+    docstring): the returns' quantiles, the EMA return statistics and every
+    mean are the global batch's."""
+    if model_axis_size(mesh) > 1:
+        raise NotImplementedError('RL updates keep the weights whole on every rank: '
+                                  'pass a mesh whose model axis is 1')
+    trained = [p for group in optimizer.param_groups for p in group['params']]
 
     def update_step(rl_state: RLState, experience: Experience):
+        experience = local_batch(experience)
         optimizer.zero_grad(set_to_none=True)
-        out = rl_losses(model, experience, objective=objective,
-                        only_learn_policy_value_heads=only_learn_policy_value_heads,
-                        return_stats=rl_state.return_stats, **rl_loss_kwargs)
-        (out.policy_loss + out.value_loss).backward()
+        with data_parallel(model, mesh, trained=trained):
+            out = rl_losses(model, experience, objective=objective,
+                            only_learn_policy_value_heads=only_learn_policy_value_heads,
+                            return_stats=rl_state.return_stats, **rl_loss_kwargs)
+            (out.policy_loss + out.value_loss).backward()
         # a parameter the loss does not reach has a zero gradient in the
         # counterpart and still decays; AdamW would skip it at None
-        for group in optimizer.param_groups:
-            for p in group['params']:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        for p in trained:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         optimizer.step()
-        out = RLLossOutputs(out.policy_loss.detach(), out.value_loss.detach(), out.stats,
+        out = RLLossOutputs(mean_over_data(out.policy_loss.detach(), mesh),
+                            mean_over_data(out.value_loss.detach(), mesh), out.stats,
                             ReturnStats(*(x.detach() for x in out.return_stats)))
         return RLState(model, optimizer, out.return_stats, rl_state.step + 1), out
 
@@ -441,13 +486,15 @@ class DreamTrainer:
     pass through to `generate` (e.g. `terminal_logit_offset`,
     `min_dream_length`) and `rl_loss_kwargs` to `rl_losses` (e.g.
     `soft_continuation`). The dreams' draws come from a `torch.Generator`
-    seeded with `seed`."""
+    seeded with `seed`. With a `mesh`, each data rank dreams `batch_size`
+    rows of its own (the generator seeded with `seed` plus its index on
+    `data`), and the updates are data parallel over them."""
 
     def __init__(self, model: DynamicsWorldModel, *, time_steps: int = 16, num_steps: int = 4,
                  batch_size: int = 8, objective: str = 'ppo', policy_lr: float = 1e-4,
                  value_lr: float = 1e-4, update_epochs: int = 1, prompt_fn=None,
                  generate_kwargs: dict | None = None, rl_loss_kwargs: dict | None = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, mesh=None, device=None):
         device = _check_device(model, device)
         self.model = model
         self.time_steps = time_steps
@@ -459,9 +506,9 @@ class DreamTrainer:
         self.generate_kwargs = dict(generate_kwargs or {})
         self.optimizer = make_rl_optimizer(model, policy_lr, value_lr)
         self.rl_state = create_rl_state(model, self.optimizer)
-        self._update = make_rl_update_step(model, self.optimizer, objective,
+        self._update = make_rl_update_step(model, self.optimizer, objective, mesh=mesh,
                                            **(rl_loss_kwargs or {}))
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.generator = torch.Generator(device=device).manual_seed(seed + _data_rank(mesh))
 
     def dream(self) -> Experience:
         prompt = self.prompt_fn(self.generator) if self.prompt_fn is not None else {}
@@ -503,7 +550,11 @@ class SimTrainer:
     optimizer. As in the counterpart, the shortcut flag of a dynamics step
     and the minibatch permutations come from one numpy `default_rng(seed)`;
     the rollouts' draws come from a `torch.Generator` seeded with `seed`,
-    the training forward's from one seeded with `seed + 13`."""
+    the training forward's from one seeded with `seed + 13`. With a `mesh`,
+    each data rank steps its own `env` (its rollout generator seeded with
+    `seed` plus its index on `data`); the dynamics steps and RL updates are
+    data parallel over the ranks' experience, and every rank takes the same
+    shortcut draws and minibatch positions of its rows."""
 
     def __init__(self, model: DynamicsWorldModel, env, *, tokenizer: VideoTokenizer | None = None,
                  objective: str = 'ppo', policy_lr: float = 1e-4, value_lr: float = 1e-4,
@@ -511,7 +562,7 @@ class SimTrainer:
                  num_rollouts_per_step: int = 1, update_epochs: int = 2,
                  minibatch_size: int | None = None, train_dynamics: bool = True,
                  dynamics_lr: float = 3e-4, dynamics_epochs: int = 1,
-                 rl_loss_kwargs: dict | None = None, seed: int = 0, device=None):
+                 rl_loss_kwargs: dict | None = None, seed: int = 0, mesh=None, device=None):
         device = _check_device(model, device)
         self.model = model
         self.env = env
@@ -525,15 +576,15 @@ class SimTrainer:
         self.interactor = EnvInteractor(model, tokenizer=tokenizer, device=device)
         self._update = make_rl_update_step(model, self.optimizer, objective,
                                            only_learn_policy_value_heads=rl_trunk_lr is None,
-                                           **(rl_loss_kwargs or {}))
+                                           mesh=mesh, **(rl_loss_kwargs or {}))
         self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.generator = torch.Generator(device=device).manual_seed(seed + _data_rank(mesh))
         self.train_dynamics = train_dynamics
         self.dynamics_epochs = dynamics_epochs
         if train_dynamics:
             self.wm_optimizer = MuonAdamAtan2(model, learning_rate=dynamics_lr,
                                               clip_grad_norm=1.0)
-            self._wm_step = make_world_model_train_step(model, self.wm_optimizer)
+            self._wm_step = make_world_model_train_step(model, self.wm_optimizer, mesh=mesh)
             self.wm_generator = torch.Generator(device=device).manual_seed(seed + 13)
 
     def rollout(self) -> Experience:

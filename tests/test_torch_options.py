@@ -131,9 +131,10 @@ CLASSES = {
 NOT_PORTED_VALUES = {
     'world_model': {},
     'tokenizer': {},
-    'transformer': dict(time_ring_axis='time'),
+    'transformer': {},
 }
-# values the port refused before the trunk's subsystems were ported: they build
+# values the port refused before the trunk's subsystems and ring attention
+# were ported: they build
 PORTED_VALUES = {
     'world_model': dict(use_time_rnn=True,
                         mot_temporal=True, h_net_layer=1, h_net_depth=3,
@@ -141,7 +142,7 @@ PORTED_VALUES = {
     'tokenizer': dict(use_time_rnn=True, h_net_layer=1, h_net_depth=3,
                       h_net_compression_ratio=8, h_net_loss_weight=2.0),
     'transformer': dict(mot_temporal=True, h_net_layer=1, h_net_dynamic=True,
-                        h_net_heads=2, rnn_time=True),
+                        h_net_heads=2, rnn_time=True, time_ring_axis='time'),
 }
 
 
@@ -166,9 +167,9 @@ def test_constructors_take_every_jax_field_at_its_default(which, tmp_path):
 @pytest.mark.parametrize('which', list(CLASSES))
 def test_constructors_refuse_unported_values_and_unknown_names(which):
     """A field the port does not implement raises NotImplementedError
-    naming it when set off its default (only the trunk's ring attention is
-    left); the fields ported since build and keep their values; a name the
-    JAX class does not have raises TypeError."""
+    naming it when set off its default (none is left); the fields ported
+    since build and keep their values; a name the JAX class does not have
+    raises TypeError."""
     jcls, tcls, required = CLASSES[which]
     fields = jax_fields(jcls)
     for name, value in NOT_PORTED_VALUES[which].items():

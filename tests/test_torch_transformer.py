@@ -132,12 +132,20 @@ def test_cached_forward_with_history_processes_last_frame():
 @pytest.mark.parametrize('option', ['rnn_time', 'mot_temporal', 'h_net_layer',
                                     'time_ring_axis'])
 def test_unported_options_raise(option):
-    """Ring attention stays refused; the GRU time layer, MoT and the H-Net
-    (refused here before) build and run a forward
-    (tests/test_torch_subsystems.py holds them against JAX)."""
+    """The GRU time layer, MoT, the H-Net and ring attention (refused here
+    before) build and run a forward (tests/test_torch_subsystems.py and
+    tests/test_torch_parallel.py hold them against JAX). The ring looks up
+    its mesh only in an uncached forward: a cached one runs without a mesh,
+    an uncached one raises without it."""
     if option == 'time_ring_axis':
-        with pytest.raises(NotImplementedError):
-            AxialSpaceTimeTransformer(dim=32, depth=2, device='cpu', **{option: 1})
+        model = AxialSpaceTimeTransformer(dim=32, depth=2, time_block_every=2, device='cpu',
+                                          time_ring_axis='sp')
+        tokens = torch.randn(2, 5, 3, 32)
+        with torch.no_grad():
+            out, _ = model(tokens, max_time=5)
+            with pytest.raises(RuntimeError, match="'sp'"):
+                model(tokens)
+        assert out.shape == tokens.shape and bool(torch.isfinite(out).all())
         return
     model = AxialSpaceTimeTransformer(dim=32, depth=2, time_block_every=2, device='cpu',
                                       **{option: 1})
