@@ -290,7 +290,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
                step's. The card holds one rank: NCCL puts no two ranks on
                one device, so the distributed ring itself is held on the
                CPU over gloo (tests/test_torch_parallel.py).
- 19. small   — K4 and K5 (the small-attention forward and backward) against
+ 19. recipes — the port's ten recipes (`dreamer4_torch/examples`) through
+               their own functions, at their own widths, iterations and
+               steps cut: the scripted Snake collector in full (200
+               episodes, its apple gate), 5 iterations of the learned Snake
+               collector and a 16-episode collection, the sprites dataset
+               (16 episodes), tokenizer and dynamics (20 steps each, one
+               sample GIF), the reacher (20 + 20 steps, the forced dreams),
+               one iteration of each CartPole recipe on MockStateEnv (b16,
+               up to 150 steps: gymnasium is not on the card), the pixel
+               one through its six phases on mock 64 x 64 frames. Every
+               trainer step they take is checked: finite losses, the
+               weights it trains moved, the frozen ones (the heads in the
+               dream recipes' world-model updates, the trunk in heads-only
+               RL) bitwise still; no recipe launches a kernel (flash off,
+               as in JAX). Then the CartPole online model built with
+               `use_flash_attention` takes one `SimTrainer` step beside the
+               flash-off model from the same seed: rollout 0, dynamics K1 3
+               / K2 1 / K3 1 at seed 0 (a shortcut step; B = 176, N = M =
+               151, head dim 16, float32: the f32 K1), RL epochs 0, its
+               dynamics loss within 1e-4 relative of flash-off's. The
+               kernel phases hold K1-K3 at that shape (`cartpole_f32`),
+               timed beside flex's forward and backward.
+ 20. small   — K4 and K5 (the small-attention forward and backward) against
                their plain versions at the tokenizer's time layer and the
                world model's b8 x T32 space and time layers, in bf16 and
                float32, without the softclamp, at the all-options
@@ -724,6 +746,33 @@ TOK_SUB_LAUNCHES = {'toksub_train_step': (0, 0, 0, 2, 2), 'toksub_encode': (0, 0
                     'toksub_stream': (0, 0, 0, 0, 0)}
 
 
+# ------------------------------------------------------------------ recipes
+# the recipes phase: the port's ten recipes (`dreamer4_torch/examples`)
+# at their own widths, iterations and steps cut. gymnasium is not on the
+# card, so the CartPole recipes step MockStateEnv at CartPole's sizes
+RECIPES_DIR = CLI_WORK_DIR / 'recipes'
+RECIPES_CARTPOLE_ENV = dict(dim_state=4, num_actions=2, batch=16, max_steps=150)
+RECIPES_SNAKE_ITERATIONS = 5
+RECIPES_SPRITES = dict(episodes=16, tokenizer_steps=20, dynamics_steps=20)
+RECIPES_REACHER_STEPS = 20
+# examples/train_cartpole_with_dynamics_rl.py:108-125: 11 tokens per frame,
+# 4 heads of 16, one time layer; its dynamics step over b16 rollouts padded
+# to 151 frames: 16 x 11 rows, float32, so K1 on its f32 kernel
+CARTPOLE_ATTENTION = dict(B=RECIPES_CARTPOLE_ENV['batch'] * 11, Hq=4, H=4, N=151, M=151, D=16,
+                          causal=True, offset=0, kv_len=151, softclamp=50.0)
+# with `use_flash_attention` (checked on the CPU by counting the plain
+# versions): no launch in the rollout (one query per frame) or the
+# heads-only epochs; the dynamics step 1 / 1 / 1, a shortcut one (seed 0's
+# first draw) 3 / 1 / 1: the two half steps without gradient, then the
+# training forward
+CARTPOLE_FLASH_LAUNCHES = {'rollout': (0, 0, 0, 0, 0),
+                           'dynamics': {False: (1, 1, 1, 0, 0), True: (3, 1, 1, 0, 0)},
+                           'update': (0, 0, 0, 0, 0)}
+# the flash-on dynamics loss against the flash-off one from the same weights,
+# experience and draws: K1-K3 at float32 against the plain attention
+CARTPOLE_FLASH_LOSS_RTOL = 1e-4
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -945,6 +994,9 @@ def kernel_cases():
     # the special token's time attention, each with the LSE
     cases.append(('mot_main', bf16, dict(MOT_MAIN_ATTENTION, lse=True)))
     cases.append(('mot_special', bf16, dict(MOT_SPECIAL_ATTENTION, lse=True)))
+    # the CartPole recipe's dynamics step with flash on: float32,
+    # head dim 16, with the LSE
+    cases.append(('cartpole_f32', f32, dict(CARTPOLE_ATTENTION, lse=True)))
     for d in (16, 32, 128):
         for dt in (bf16, f32):
             cases.append((f'head_dim_{d}_lse', dt,
@@ -1151,6 +1203,7 @@ def bwd_kernel_cases():
     cases.append(('wmopt_rl_full', bf16, WMOPT_RL_FULL_ATTENTION))
     cases.append(('mot_main', bf16, MOT_MAIN_ATTENTION))
     cases.append(('mot_special', bf16, MOT_SPECIAL_ATTENTION))
+    cases.append(('cartpole_f32', f32, CARTPOLE_ATTENTION))
     cases.append(('gqa', bf16, dict(B=64, Hq=8, H=4, N=128, M=128, D=64, causal=True, offset=0,
                                     kv_len=128, softclamp=50.0)))
     for only_itself in (False, True):
@@ -1225,6 +1278,8 @@ def time_library_backward(q, k, v, do, offset, kv_len, cfg, refs, tol):
 
 
 # backward cases timed beside flex_attention's backward (with a float32 one)
+# the float32 cases of a model path, each in the kernels line
+F32_PATH_CASES = ('cartpole_f32',)
 BWD_LIBRARY_CASES = ('t1024', 'rl_full', 'sim', 'cont_train', 'cont_rl_full', 'recipe_train',
                      'recipe_sim', 'wmopt_rl_full', 'mot_main', 'mot_special')
 
@@ -1283,8 +1338,8 @@ def run_backward_kernel_phase():
                               bound_by=bound_by, bound_unit=unit, bounds_ms=terms,
                               library_ms=None)
         lib = ''
-        if name in BWD_LIBRARY_CASES or (name == 'space_special_only_itself=False'
-                                            and dtype == torch.float32):
+        if name in BWD_LIBRARY_CASES + F32_PATH_CASES or (
+                name == 'space_special_only_itself=False' and dtype == torch.float32):
             lib_ms, lib_err, lib_calls = time_library_backward(q, k, v, do, off, kvl, cfg,
                                                                (ref_dq, ref_dk, ref_dv), tol)
             for which in ('dq', 'dkv'):
@@ -3225,9 +3280,10 @@ def run_wm_options_phase(seed: int = 0) -> dict:
     check_moved('wmopt_dream_trainer', model, before, moving, moved=True)
     check_moved('wmopt_dream_trainer', model, before, set(labels) - moving, moved=False)
     del before
-    sec_warm = host_time_s(dream_trainer.step, reps=1)
-    log(f'wmopt_dream_trainer b{b} T{T} P{P} (heads-only ppo): {sec * 1e3:.1f} ms first, '
-        f'{sec_warm * 1e3:.1f} ms warm, {b * (T - P) / sec_warm:.1f} dreamed env-steps/s; '
+    # one step, timed: its dream follows the generate above on the same
+    # path, so it is warm
+    log(f'wmopt_dream_trainer b{b} T{T} P{P} (heads-only ppo): {sec * 1e3:.1f} ms, '
+        f'{b * (T - P) / sec:.1f} dreamed env-steps/s; '
         f'(K1..K5) {got}, K1 by variant {variants}; only the policy head, the value head and '
         f'the unembedding moved; peak memory {peak:.2f} GiB')
 
@@ -4407,6 +4463,321 @@ def run_parallel_phase(seed: int = 0) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ recipes
+
+class MockRenderingEnv:
+    """MockStateEnv that records a 64 x 64 RGB frame per observation, as the
+    pixel recipe's `RenderingCartPoleAdapter` does (the frames are noise
+    from a generator of their own)."""
+
+    def __init__(self, seed: int, record: bool):
+        from dreamer4_torch.envs.mocks import MockStateEnv
+
+        self.env = MockStateEnv(**RECIPES_CARTPOLE_ENV, seed=seed)
+        self.dim_state, self.num_actions = self.env.dim_state, self.env.num_actions
+        self.record = record
+        self.frame_rng = np.random.default_rng(seed + 1)
+        self.frame_log: list[np.ndarray] = []
+
+    def _snap(self):
+        if self.record:
+            self.frame_log.append(self.frame_rng.integers(
+                0, 256, (RECIPES_CARTPOLE_ENV['batch'], 64, 64, 3), dtype=np.uint8))
+
+    def reset(self, seed=None):
+        out = self.env.reset(seed=seed)
+        self.frame_log = []
+        self._snap()
+        return out
+
+    def step(self, actions):
+        out = self.env.step(actions)
+        self._snap()
+        return out
+
+    def take_frames(self) -> np.ndarray:
+        frames = np.stack(self.frame_log, axis=1)
+        self.frame_log = []
+        return frames
+
+
+@contextlib.contextmanager
+def watch_recipe_steps():
+    """While the recipes run, every step of the trainers they drive is
+    checked: its losses finite, the weights it trains moved (some of them)
+    and those it must not train bitwise still: a world-model update with
+    frozen heads (`examples.common.WorldModelUpdates`) the heads, a
+    heads-only dream step (`DreamTrainer.step`) or RL epoch
+    (`SimTrainer.update` without a trunk rate) everything but the heads.
+    Yields the list of (step, loss) it records."""
+    from dreamer4_torch.examples import common
+    from dreamer4_torch.train import trainers
+
+    record: list[tuple[str, float]] = []
+
+    def snapshot(model):
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def check(label, model, before, trained: set, losses: dict):
+        for name, loss in losses.items():
+            if not bool(torch.isfinite(loss)):
+                raise SystemExit(f'{label}: {name} {loss}')
+            record.append((f'{label} {name}', float(loss)))
+        moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+        if not moved & trained:
+            raise SystemExit(f'{label}: none of the weights it trains moved')
+        if moved - trained:
+            raise SystemExit(f'{label}: frozen weights moved: {sorted(moved - trained)[:5]}')
+
+    def all_names(model):
+        return {n for n, _ in model.named_parameters()}
+
+    def heads(model, full_model=False):
+        labels = trainers.rl_param_labels(model, full_model=full_model)
+        return {n for n, l in labels.items() if l != 'frozen'}
+
+    real = dict(wm=common.WorldModelUpdates.__call__, dream=trainers.DreamTrainer.step,
+                dyn=trainers.SimTrainer.train_dynamics_on, update=trainers.SimTrainer.update,
+                tok=trainers.TokenizerTrainer.train_on_batch,
+                bc=trainers.BehaviorCloneTrainer.train_on_batch)
+
+    def wm(self, sample_batch):
+        before = snapshot(self.model)
+        loss = real['wm'](self, sample_batch)
+        check('world-model update', self.model, before, set(self.optimizer.labels()),
+              {'loss': loss})
+        return loss
+
+    def dream(self):
+        before = snapshot(self.model)
+        exp, out = real['dream'](self)
+        check('dream step', self.model, before, heads(self.model),
+              {'policy loss': out.policy_loss, 'value loss': out.value_loss})
+        return exp, out
+
+    def dyn(self, exp):
+        before = snapshot(self.model)
+        loss = real['dyn'](self, exp)
+        check('dynamics step', self.model, before, all_names(self.model), {'loss': loss})
+        return loss
+
+    def update(self, exp):
+        before = snapshot(self.model)
+        outs = real['update'](self, exp)
+        full_model = any(g.get('name') == 'trunk' for g in self.optimizer.param_groups)
+        check('RL epochs', self.model, before, heads(self.model, full_model),
+              {f'{kind} loss {i}': getattr(o, f'{kind}_loss')
+               for i, o in enumerate(outs) for kind in ('policy', 'value')})
+        return outs
+
+    def tok(self, video, time_lens=None):
+        before = snapshot(self.model)
+        loss, losses = real['tok'](self, video, time_lens)
+        check('tokenizer step', self.model, before, all_names(self.model), {'loss': loss})
+        return loss, losses
+
+    def bc(self, batch):
+        before = snapshot(self.model)
+        loss, losses = real['bc'](self, batch)
+        check('behaviour-cloning step', self.model, before, all_names(self.model),
+              {'loss': loss})
+        return loss, losses
+
+    patches = [(common.WorldModelUpdates, '__call__', wm), (trainers.DreamTrainer, 'step', dream),
+               (trainers.SimTrainer, 'train_dynamics_on', dyn),
+               (trainers.SimTrainer, 'update', update),
+               (trainers.TokenizerTrainer, 'train_on_batch', tok),
+               (trainers.BehaviorCloneTrainer, 'train_on_batch', bc)]
+    for cls, name, fn in patches:
+        setattr(cls, name, fn)
+    try:
+        yield record
+    finally:
+        for (cls, name, _), key in zip(patches, real):
+            setattr(cls, name, real[key])
+
+
+def run_recipe(label: str, fn):
+    """One recipe under `watch_recipe_steps`, counted and timed: its
+    launches must be 0 (the recipes build flash and the small path off, as
+    the JAX ones do); -> (fn(), the steps it checked, seconds)."""
+    with watch_recipe_steps() as steps:
+        out, sec, launches, _ = counted(fn)
+    expect_launches(f'recipes {label}', launches, (0, 0, 0, 0, 0))
+    if not steps and label != 'snake_ppo':
+        raise SystemExit(f'recipes {label}: no trainer step ran')
+    log(f'recipes {label}: {sec:.1f} s, {len(steps)} steps checked (losses finite, trained '
+        f'weights moved, frozen ones still), launches (K1..K5) {launches}')
+    return out, steps, sec
+
+
+def run_cartpole_flash_step(seed: int) -> dict:
+    """The CartPole online model built with `use_flash_attention` and
+    without it, from the same seed: one `SimTrainer` step of each from the
+    same weights and draws, on the flash model's rollout: its launches by
+    part (as `CARTPOLE_FLASH_LAUNCHES`, every K1 on the f32 kernel) and the
+    dynamics loss within `CARTPOLE_FLASH_LOSS_RTOL` of flash-off's."""
+    from dreamer4_torch.envs.mocks import MockStateEnv
+    from dreamer4_torch.examples import train_cartpole_with_dynamics_rl as online
+
+    args = online.parse_args(['--seed', str(seed)])
+    device = torch.device('cuda', torch.cuda.current_device())
+    trainers, models = {}, {}
+    for flash in (True, False):
+        env = MockStateEnv(**RECIPES_CARTPOLE_ENV, seed=seed)
+        models[flash] = online.build_model(args, env, device, use_flash_attention=flash)
+        trainers[flash] = online.build_trainer(args, models[flash], env, device)
+    if not all(torch.equal(a, b) for a, b in zip(models[True].parameters(),
+                                                 models[False].parameters())):
+        raise SystemExit('recipes cartpole flash: the two models differ before the step')
+    exp, roll_s, roll_n, _ = counted(trainers[True].rollout)
+    b, t = exp.batch_size, exp.time_steps
+    if (b * models[True].tokens_per_frame, t) != (CARTPOLE_ATTENTION['B'], CARTPOLE_ATTENTION['N']):
+        raise SystemExit(f'recipes cartpole flash: b{b} x T{t} is not the cartpole_f32 case')
+    rng = np.random.default_rng()
+    rng.bit_generator.state = trainers[True].rng.bit_generator.state
+    shortcut = bool(rng.random() < models[True].prob_shortcut_train)
+    losses, parts = {}, {}
+    for flash in (True, False):
+        losses[flash], dyn_s, dyn_n, dyn_v = counted(
+            lambda: trainers[flash].train_dynamics_on(exp))
+        outs, upd_s, upd_n, _ = counted(lambda: trainers[flash].update(exp))
+        check_finite(f'recipes cartpole flash={flash}',
+                     {'dynamics loss': losses[flash],
+                      **{f'policy loss {i}': o.policy_loss for i, o in enumerate(outs)}})
+        if flash:
+            parts = {'rollout': roll_n, 'dynamics': dyn_n, 'update': upd_n}
+            want = dict(CARTPOLE_FLASH_LAUNCHES,
+                        dynamics=CARTPOLE_FLASH_LAUNCHES['dynamics'][shortcut])
+            for part in parts:
+                expect_launches(f'recipes cartpole flash {part}', parts[part], want[part])
+            if dyn_v != {'f32': dyn_n[0]}:
+                raise SystemExit(f'recipes cartpole flash: K1 ran as {dyn_v}, not on f32')
+            times = (roll_s, dyn_s, upd_s)
+        else:
+            times_off = (dyn_s, upd_s)
+    on, off = losses[True].item(), losses[False].item()
+    rel = abs(on - off) / abs(off)
+    if rel > CARTPOLE_FLASH_LOSS_RTOL:
+        raise SystemExit(f'recipes cartpole flash: dynamics loss {on} vs {off} flash off '
+                         f'(rel {rel:.2e} > {CARTPOLE_FLASH_LOSS_RTOL:.0e})')
+    log(f'recipes cartpole flash: b{b} T{t}, {"shortcut" if shortcut else "plain"} dynamics '
+        f'step, loss {on:.6f} flash on vs {off:.6f} off (rel {rel:.2e}, tol '
+        f'{CARTPOLE_FLASH_LOSS_RTOL:.0e}); rollout {times[0] * 1e3:.1f} ms, dynamics '
+        f'{times[1] * 1e3:.1f} ms on vs {times_off[0] * 1e3:.1f} ms off, RL epochs '
+        f'{times[2] * 1e3:.1f} ms vs {times_off[1] * 1e3:.1f} ms; (K1..K5) launches {parts} '
+        f'(every K1 on f32)')
+    return {f'recipes_cartpole_flash_{part}': n for part, n in parts.items()}
+
+
+def run_recipes_phase(seed: int = 0) -> dict:
+    """The port's recipes (`dreamer4_torch/examples`) through their own
+    functions at their own widths, iterations and steps cut: the scripted
+    Snake collector in full (200 episodes, its apple gate), 5 iterations of
+    the learned Snake collector and a 16-episode collection, the sprites
+    dataset (16 episodes), tokenizer (20 steps) and dynamics (20 steps, one
+    sample GIF), the reacher (20 + 20 steps and the forced dreams), one
+    iteration of each CartPole recipe on MockStateEnv (the pixel one through
+    all six phases, its frames from `MockRenderingEnv`, its evaluation on
+    64 x 64 MockEnv frames). Every trainer step is checked
+    (`watch_recipe_steps`); no recipe launches a kernel. Then the flash-on
+    CartPole step (`run_cartpole_flash_step`). Its files go to
+    `smoke_work/recipes`, removed at its end."""
+    from dreamer4_torch.envs.mocks import MockEnv, MockStateEnv
+    from dreamer4_torch.examples import dataset_moving_sprites as sprites_data
+    from dreamer4_torch.examples import train_cartpole_dream_rl as dream
+    from dreamer4_torch.examples import train_cartpole_offline_dream_rl as offline
+    from dreamer4_torch.examples import train_cartpole_pixels_dream_rl as pixels
+    from dreamer4_torch.examples import train_cartpole_with_dynamics_rl as online
+    from dreamer4_torch.examples import train_moving_sprites_dynamics as sprites_dyn
+    from dreamer4_torch.examples import train_moving_sprites_tokenizer as sprites_tok
+    from dreamer4_torch.examples import train_reacher_proprio_dynamics as reacher
+    from dreamer4_torch.examples import train_snake_ppo as snake_ppo
+    from dreamer4_torch.examples import train_snake_rl_collector as snake
+
+    t_phase = time.perf_counter()
+    device = torch.device('cuda', torch.cuda.current_device())
+    work = RECIPES_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = ['--device', 'cuda', '--seed', str(seed)]
+    cartpole_env = lambda: MockStateEnv(**RECIPES_CARTPOLE_ENV, seed=seed)
+    try:
+        (_, apples), _, _ = run_recipe('snake_ppo', lambda: snake_ppo.collect(
+            str(work / 'snake_scripted'), num_episodes=200))
+        log(f'recipes snake_ppo: 200 episodes, mean apples {np.mean(apples):.2f} (gate 2.5)')
+
+        args = snake.parse_args([*dev, '--max-iterations', str(RECIPES_SNAKE_ITERATIONS),
+                                 '--target-apples', 'inf', '--num-episodes', '16',
+                                 '--buffer', str(work / 'snake_rl')])
+
+        def snake_run():
+            model, gate = snake.train_collector(args, snake.make_env(args, seed), device)
+            return snake.collect(args, model, snake.make_env(args, seed + 10_000, record=True),
+                                 device), gate
+
+        (apples, gate), _, _ = run_recipe('snake_rl_collector', snake_run)
+        if gate is not None or len(apples) != 16:
+            raise SystemExit(f'recipes snake_rl_collector: gate {gate}, {len(apples)} episodes')
+
+        sprites_data.write_dataset(str(work / 'sprites'), num_episodes=RECIPES_SPRITES['episodes'])
+        common_flags = [*dev, '--data', str(work / 'sprites'), '--log-every', '10']
+        args = sprites_tok.parse_args([*common_flags, '--output', str(work / 'sprites_tok'),
+                                       '--num-steps', str(RECIPES_SPRITES['tokenizer_steps'])])
+        run_recipe('sprites_tokenizer', lambda: sprites_tok.train(args, device))
+        steps = RECIPES_SPRITES['dynamics_steps']
+        args = sprites_dyn.parse_args([*common_flags, '--output', str(work / 'sprites_dyn'),
+                                       '--tokenizer-checkpoint', str(work / 'sprites_tok'),
+                                       '--num-steps', str(steps),
+                                       '--sample-every', str(steps - 1)])
+        run_recipe('sprites_dynamics', lambda: sprites_dyn.train(args, device))
+        gif = work / f'sample_{steps - 1}.gif'
+        if not gif.exists():
+            raise SystemExit(f'recipes sprites_dynamics: no sample GIF {gif}')
+
+        args = reacher.parse_args([*dev, '--data', str(work / 'reacher'),
+                                   '--steps', str(RECIPES_REACHER_STEPS),
+                                   '--tokenizer-steps', str(RECIPES_REACHER_STEPS)])
+
+        def reacher_run():
+            ds, batches = reacher.load_data(args)
+            tokenizer = reacher.train_tokenizer(args, batches, device)
+            model = reacher.train_dynamics(args, tokenizer, batches, device)
+            return reacher.forced_dreams(model, tokenizer, ds, device)
+
+        run_recipe('reacher', reacher_run)
+
+        args = online.parse_args([*dev, '--max-iterations', '1'])
+        rc, _, _ = run_recipe('cartpole_online', lambda: online.train(args, cartpole_env(),
+                                                                     device))
+        args = dream.parse_args([*dev, '--max-iterations', '1', '--warmup-iters', '0',
+                                 '--diag-every', '1', '--log-dir', str(work / 'dream_log'),
+                                 '--save-dir', str(work / 'dream_save')])
+        rc += run_recipe('cartpole_dream', lambda: dream.train(args, cartpole_env(),
+                                                              device))[0]
+        args = offline.parse_args([*dev, '--expert-iterations', '1',
+                                   '--dataset-batches-expert', '1',
+                                   '--dataset-batches-random', '1', '--wm-steps', '2',
+                                   '--dream-updates', '1', '--eval-every', '1', '--window', '1'])
+        rc += run_recipe('cartpole_offline', lambda: offline.run(args, cartpole_env(),
+                                                                device))[0]
+        args = pixels.parse_args([*dev, '--workdir', str(work / 'pixels'),
+                                  '--expert-iterations', '1', '--batches-expert', '1',
+                                  '--batches-random', '1', '--tok-steps', '2', '--wm-steps', '2',
+                                  '--dream-updates', '1', '--eval-every', '1', '--window', '1'])
+        make_pixel_env = lambda s: MockEnv(image_size=(64, 64), num_actions=2,
+                                           batch=RECIPES_CARTPOLE_ENV['batch'], seed=s)
+        rc += run_recipe('cartpole_pixels', lambda: pixels.run(
+            args, device, lambda s, record: MockRenderingEnv(s, record), make_pixel_env))[0]
+        if rc != 4:   # one iteration solves none of them
+            raise SystemExit(f'recipes cartpole: exit codes sum to {rc}, not 4 (each 1)')
+        launches = run_cartpole_flash_step(seed)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f'# recipes phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4450,7 +4821,7 @@ def main() -> int:
                   run_wm_fused_phase, run_sim_phase, run_pixel_phase, run_cli_phase,
                   run_continuous_phase, run_recipe_phase, run_tok_options_phase,
                   run_wm_options_phase, run_tok_full_phase, run_wm_subsystems_phase,
-                  run_tok_subsystems_phase, run_parallel_phase):
+                  run_tok_subsystems_phase, run_parallel_phase, run_recipes_phase):
         t_phase = time.perf_counter()
         launches.update(phase())
         log(f'# {phase.__name__}: {time.perf_counter() - t_phase:.1f} s')
@@ -4473,6 +4844,12 @@ def main() -> int:
     k1_at_paths = {name: {x: kernel_results[(name, torch.bfloat16)][x]
                           for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
                    for name in K1_SM90_ONLY_CASES}
+    fields = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')
+    k1_at_f32 = {name: {x: kernel_results[(name, torch.float32)][x] for x in fields}
+                 for name in F32_PATH_CASES}
+    bwd_at_f32 = {which: {name: {x: bwd_results[(name, torch.float32)][which][x] for x in fields}
+                          for name in F32_PATH_CASES}
+                  for which in ('dq', 'dkv')}
     bwd_at = {which: {name: {x: bwd_results[(name, torch.bfloat16)][which][x]
                              for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
                       for name in BWD_LIBRARY_CASES if name != 't1024'}
@@ -4481,19 +4858,20 @@ def main() -> int:
                     source='dreamer4_torch/csrc/flash_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:86',
                     launches=totals[0], launches_by_path=by_path(0), **main_shape,
-                    at_other_shapes=k1_at, at_path_shapes=k1_at_paths),
+                    at_other_shapes=k1_at, at_path_shapes=k1_at_paths,
+                    at_f32_path_shapes=k1_at_f32),
                dict(name='K2 flash_attn_bwd_dq', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_bwd_dq.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:269',
                     launches=totals[1], launches_by_path=by_path(1), **train_shape['dq'],
                     library_covers='flex_attention backward: dq, dk and dv together',
-                    at_other_shapes=bwd_at['dq']),
+                    at_other_shapes=bwd_at['dq'], at_f32_path_shapes=bwd_at_f32['dq']),
                dict(name='K3 flash_attn_bwd_dkv', route='cuda',
                     source='dreamer4_torch/csrc/flash_attn_bwd_dkv.cu',
                     replaces='dreamer4_tpu/ops/flash_attention.py:309',
                     launches=totals[2], launches_by_path=by_path(2), **train_shape['dkv'],
                     library_covers='flex_attention backward: dq, dk and dv together',
-                    at_other_shapes=bwd_at['dkv']),
+                    at_other_shapes=bwd_at['dkv'], at_f32_path_shapes=bwd_at_f32['dkv']),
                dict(name='K4 small_attn_fwd', route='cuda',
                     source='dreamer4_torch/csrc/small_attn_fwd.cu',
                     replaces='dreamer4_tpu/ops/small_attention.py:77',

@@ -26,7 +26,9 @@ and FIRE and latent-gene evolution (`ops.fire`), and parallelism
 `torch.distributed` (NCCL on cards, gloo on the CPU), data-parallel
 training in every trainer (`mesh=`), weights sharded over `model` as
 DTensors, and ring attention over time (`time_ring_axis`). The port now
-covers every module of the JAX package. The flash-attention
+covers every module of the JAX package, and `examples` holds the
+counterparts of the ten recipes in `examples/` (`python -m
+dreamer4_torch.examples.<name>`). The flash-attention
 forward and backward (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd_dq.cu`,
 `csrc/flash_attn_bwd_dkv.cu`) and the small-attention forward and backward
 (`csrc/small_attn_fwd.cu`, `csrc/small_attn_bwd.cu`, behind

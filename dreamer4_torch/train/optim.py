@@ -20,6 +20,7 @@ update whole to orthogonalize it, then keeps the shard of the result.
 from __future__ import annotations
 
 import math
+from collections.abc import Collection
 
 import torch
 from torch import nn
@@ -111,16 +112,23 @@ class MuonAdamAtan2(torch.optim.Optimizer):
     of `model`: one module, or a dict of modules by the prefix of their
     parameters' names (see `named_train_parameters`). A parameter without
     a gradient counts as a zero gradient, as every parameter has one in
-    the counterpart."""
+    the counterpart.
+
+    `only`: the names of the parameters it trains; the others are in no
+    group, so they neither move (no decay, no Muon) nor count in the
+    clip's norm: the counterpart's `optax.multi_transform` with this
+    chain on those labels and `optax.set_to_zero()` on the rest."""
 
     def __init__(self, model: nn.Module | dict[str, nn.Module], learning_rate: float = 3e-4,
                  muon_learning_rate: float | None = None, weight_decay: float = 0.0,
                  clip_grad_norm: float | None = None, b1: float = 0.9, b2: float = 0.99,
-                 momentum: float = 0.95, ns_steps: int = 5, a: float = 1.27, b: float = 1.0):
+                 momentum: float = 0.95, ns_steps: int = 5, a: float = 1.27, b: float = 1.0,
+                 only: Collection[str] | None = None):
         transposed = transposed_from_flax(model)
         named = {'muon': [], 'adam': []}
         for name, p in named_train_parameters(model):
-            named[muon_label(name, p)].append((name, p))
+            if only is None or name in only:
+                named[muon_label(name, p)].append((name, p))
         muon_lr = muon_learning_rate if muon_learning_rate is not None else learning_rate * 10.0
         groups = [dict(params=[p for _, p in named['muon']], kind='muon', lr=muon_lr,
                        names=[n for n, _ in named['muon']],
