@@ -27,6 +27,7 @@ from ..ops.rotary import apply_rotations, apply_rotations_flat
 from ..ops.small_attention import small_attend_flat, small_attention_viable
 from ..parallel.ring_attention import process_group, ring_attention_global
 from ..ops.utils import l2norm, softclamp
+from ..tracing import span
 from .activations import get_activation
 from .dense import Dense
 from .init import lecun_normal_, normal_
@@ -133,7 +134,32 @@ class Attention(nn.Module):
         passes it for cached calls, whose masks are not static). `ring_axis`
         (a mesh axis name or a process group) runs causal ring attention
         over it instead of `mask` / `flash_spec`, with the kernels when
-        `ring_use_flash` holds (`ring_attend_centered`)."""
+        `ring_use_flash` holds (`ring_attend_centered`). The call is one
+        span, `dreamer4.attention.<path>` (`tracing`)."""
+        path = self._path(tokens, context, kv_cache, mask, flash_spec, allow_small, ring_axis)
+        with span('dreamer4.attention.' + path):
+            return self._attend(path, tokens, context, kv_cache, rotary, mask, residual_values,
+                                flash_spec, flash_offset, ring_axis, ring_use_flash)
+
+    def _path(self, tokens, context, kv_cache, mask, flash_spec, allow_small,
+              ring_axis) -> str:
+        """The path a call takes: 'ring' over a ring axis, 'flash' with a
+        flash spec, 'small' where K4/K5 take an uncached self-attention with
+        a static 2-D mask at a shape they fit, else 'plain'."""
+        if ring_axis is not None:
+            return 'ring'
+        if flash_spec is not None:
+            return 'flash'
+        if (self.use_fused_small and allow_small and kv_cache is None and context is None
+                and self.q_heads == self.heads and tokens.ndim == 3
+                and (mask is None or mask.ndim == 2)):
+            dtype = self.dtype if self.dtype is not None else tokens.dtype
+            if small_attention_viable(tokens.shape[-2], self.heads, self.dim_head, dtype):
+                return 'small'
+        return 'plain'
+
+    def _attend(self, path, tokens, context, kv_cache, rotary, mask, residual_values,
+                flash_spec, flash_offset, ring_axis, ring_use_flash) -> AttentionOut:
         if self.pre_rmsnorm:
             tokens = self.norm(tokens)
         normed_inputs = tokens
@@ -145,15 +171,7 @@ class Attention(nn.Module):
         else:
             context = tokens
 
-        use_small = (self.use_fused_small and allow_small and flash_spec is None
-                     and ring_axis is None and kv_cache is None and not has_context
-                     and self.q_heads == self.heads and tokens.ndim == 3
-                     and (mask is None or mask.ndim == 2))
-        if use_small:
-            dtype = self.dtype if self.dtype is not None else tokens.dtype
-            use_small = small_attention_viable(tokens.shape[-2], self.heads, self.dim_head,
-                                               dtype)
-        if use_small:
+        if path == 'small':
             return self._small_path(tokens, normed_inputs, mask, rotary, residual_values)
 
         q = self._split(self.to_q(tokens), self.q_heads)
@@ -185,12 +203,12 @@ class Attention(nn.Module):
             new_cache = kv_cache.append(k, v)
             k, v, kv_len = new_cache.k, new_cache.v, new_cache.length
 
-        if ring_axis is not None:
+        if path == 'ring':
             if kv_cache is not None or has_context:
                 raise ValueError('ring attention is uncached self-attention')
             out = ring_attend_centered(q, k, v, ring_axis, softclamp_value=self.softclamp_value,
                                        use_flash=ring_use_flash)
-        elif flash_spec is not None:
+        elif path == 'flash':
             out = flash_attend_centered(
                 q, k, v, int(flash_offset), int(kv_len),
                 softclamp_value=self.softclamp_value, causal=flash_spec.causal,

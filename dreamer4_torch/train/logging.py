@@ -5,9 +5,8 @@
   `tensorboard` package exists, sample-gif dumps via data/video_io (a copy
   of the counterpart's).
 - profile_block: context manager around `torch.profiler`, writing a Chrome
-  trace of host and device execution into `logdir`.
-- timeit: seconds per call of a function, anchored on
-  `torch.cuda.synchronize` (PyTorch returns before the device finishes).
+  trace of host and device execution into `logdir`, with the port's spans
+  (`dreamer4_torch.tracing`).
 """
 from __future__ import annotations
 
@@ -103,16 +102,3 @@ def profile_block(logdir: str | Path):
         yield prof
     prof.export_chrome_trace(str(logdir / 'trace.json'))
 
-
-def timeit(fn, *args, iters: int = 5) -> float:
-    """Seconds per call of `fn(*args)`, after one warm-up call; the clock
-    stops after `torch.cuda.synchronize()`, when every launched kernel has
-    finished (on a machine without a card, after the last call)."""
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-    fn(*args)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    sync()
-    return (time.perf_counter() - t0) / iters

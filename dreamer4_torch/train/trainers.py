@@ -52,6 +52,7 @@ from ..models.world_model import DynamicsWorldModel, WorldModelLosses
 from ..nn.lpips import init_lpips, lpips_loss
 from ..parallel.distributed import is_main_process, mean_over_data
 from ..parallel.mesh import data_parallel, local_batch, model_axis_size, whole
+from ..tracing import span
 from .checkpoint import load_train_state, save_model, save_train_state
 from .ema import init_ema, update_ema
 from .optim import MuonAdamAtan2, named_train_parameters, with_grad_accum
@@ -105,11 +106,13 @@ def _apply_update(ts: TrainState, ema_decay: float) -> TrainState:
     """The optimizer step after a backward, then the EMA and the step count
     when the optimizer applied an update (every step, or the last micro-step
     under `MultiSteps`; the counterpart's `_applied_update`)."""
-    ts.optimizer.step()
+    with span('dreamer4.optimizer'):
+        ts.optimizer.step()
     if getattr(ts.optimizer, 'mini_step', 0) != 0:
         return ts
     if ts.ema_params is not None:
-        update_ema(ts.ema_params, ts.named_parameters(), ema_decay)
+        with span('dreamer4.ema'):
+            update_ema(ts.ema_params, ts.named_parameters(), ema_decay)
     return ts._replace(step=ts.step + 1)
 
 
@@ -128,24 +131,29 @@ def make_tokenizer_train_step(model: VideoTokenizer, optimizer, ema_decay: float
 
     def train_step(ts: TrainState, video, time_lens=None,
                    generator: torch.Generator | None = None, train_flow_decoder: bool = False):
-        video, time_lens = local_batch((video, time_lens))
-        optimizer.zero_grad(set_to_none=True)
-        with data_parallel(ts.modules(), mesh):
-            byol_targets = None
-            if model.has_byol and ts.ema_params is not None:
-                with torch.no_grad():
-                    byol_targets = torch.func.functional_call(model, ts.model_ema(), (video,),
-                                                              dict(return_latents=True))
-            loss, interm = model(video, time_lens=time_lens, return_intermediates=True,
-                                 byol_target_latents=byol_targets, lpips_fn=lpips_fn,
-                                 train_flow_decoder=train_flow_decoder, generator=generator)
-            if model.latent_consistency_loss_weight > 0.0:
-                loss = loss + model.latent_consistency_loss_weight * latent_consistency_loss(
-                    model, interm.recon, interm.latents, time_lens=time_lens)
-            loss.backward()
-        ts = _apply_update(ts, ema_decay)
-        return ts, mean_over_data(loss.detach(), mesh), TokenizerLosses(
-            *(mean_over_data(l.detach(), mesh) for l in interm.losses))
+        with span('dreamer4.train_step'):
+            video, time_lens = local_batch((video, time_lens))
+            optimizer.zero_grad(set_to_none=True)
+            with data_parallel(ts.modules(), mesh):
+                with span('dreamer4.forward'):
+                    byol_targets = None
+                    if model.has_byol and ts.ema_params is not None:
+                        with torch.no_grad():
+                            byol_targets = torch.func.functional_call(
+                                model, ts.model_ema(), (video,), dict(return_latents=True))
+                    loss, interm = model(video, time_lens=time_lens, return_intermediates=True,
+                                         byol_target_latents=byol_targets, lpips_fn=lpips_fn,
+                                         train_flow_decoder=train_flow_decoder,
+                                         generator=generator)
+                    if model.latent_consistency_loss_weight > 0.0:
+                        loss = loss + model.latent_consistency_loss_weight * (
+                            latent_consistency_loss(model, interm.recon, interm.latents,
+                                                    time_lens=time_lens))
+                with span('dreamer4.backward'):
+                    loss.backward()
+            ts = _apply_update(ts, ema_decay)
+            return ts, mean_over_data(loss.detach(), mesh), TokenizerLosses(
+                *(mean_over_data(l.detach(), mesh) for l in interm.losses))
 
     return train_step
 
@@ -166,26 +174,31 @@ def make_world_model_train_step(model: DynamicsWorldModel, optimizer: MuonAdamAt
 
     def train_step(ts: TrainState, batch: dict, shortcut_train: bool,
                    generator: torch.Generator | None = None):
-        batch = local_batch(batch)
-        if self_flow_cfg is not None and (generator is None or ts.ema_params is None):
-            raise ValueError('the self-flow loss needs a generator, so that the teacher '
-                             'replays the student\'s draws, and EMA weights for the teacher')
-        kwargs = {k: batch.get(k) for k in ('rewards', 'terminals', 'discrete_actions',
-                                            'continuous_actions', 'proprio', 'lens', 'tasks')}
-        kwargs = dict(latents=batch['latents'], **kwargs, shortcut_train=shortcut_train)
-        optimizer.zero_grad(set_to_none=True)
-        with data_parallel(ts.modules(), mesh):
-            loss, losses, _ = model(**kwargs, return_intermediates=True, generator=generator)
-            if self_flow_cfg is not None:
-                sf = self_flow_loss(model, self_flow_cfg['head'], ts.model_ema(), kwargs,
-                                    generator, student_layer=self_flow_cfg.get('student_layer', -3),
-                                    teacher_layer=self_flow_cfg.get('teacher_layer', -1),
-                                    lens=batch.get('lens'))
-                loss = loss + sf * self_flow_cfg.get('weight', 1.0)
-            loss.backward()
-        ts = _apply_update(ts, ema_decay)
-        return ts, mean_over_data(loss.detach(), mesh), WorldModelLosses(
-            *(mean_over_data(l.detach(), mesh) for l in losses))
+        with span('dreamer4.train_step'):
+            batch = local_batch(batch)
+            if self_flow_cfg is not None and (generator is None or ts.ema_params is None):
+                raise ValueError('the self-flow loss needs a generator, so that the teacher '
+                                 'replays the student\'s draws, and EMA weights for the teacher')
+            kwargs = {k: batch.get(k) for k in ('rewards', 'terminals', 'discrete_actions',
+                                                'continuous_actions', 'proprio', 'lens', 'tasks')}
+            kwargs = dict(latents=batch['latents'], **kwargs, shortcut_train=shortcut_train)
+            optimizer.zero_grad(set_to_none=True)
+            with data_parallel(ts.modules(), mesh):
+                with span('dreamer4.forward'):
+                    loss, losses, _ = model(**kwargs, return_intermediates=True,
+                                            generator=generator)
+                    if self_flow_cfg is not None:
+                        sf = self_flow_loss(
+                            model, self_flow_cfg['head'], ts.model_ema(), kwargs, generator,
+                            student_layer=self_flow_cfg.get('student_layer', -3),
+                            teacher_layer=self_flow_cfg.get('teacher_layer', -1),
+                            lens=batch.get('lens'))
+                        loss = loss + sf * self_flow_cfg.get('weight', 1.0)
+                with span('dreamer4.backward'):
+                    loss.backward()
+            ts = _apply_update(ts, ema_decay)
+            return ts, mean_over_data(loss.detach(), mesh), WorldModelLosses(
+                *(mean_over_data(l.detach(), mesh) for l in losses))
 
     return train_step
 

@@ -9,11 +9,12 @@ compute, `use_fused_small`) with a `TokenizerTrainer` and b8 x T16 video,
 then the bench world model with `use_fused_small` at b8 x T32 with a
 `BehaviorCloneTrainer`. For each, with the small-attention kernels K4/K5
 and with the plain attention (every attention's `use_fused_small` off),
-it prints the wall time of the step's parts (forward, backward, optimizer,
-EMA; mean of 3 after a warm step) and, under torch.profiler, one whole
-step: wall time, device busy time and idle share, the CUDA kernels
-launched, each port kernel's launches and device time, and the leading
-CUDA kernels and host ops. Imports torch, numpy and the port only.
+it prints, under torch.profiler, one whole step after a warm one: wall
+time, device busy time and idle share, the CUDA kernels launched, each port
+kernel's launches and device time, each span's host, device and idle time (the
+step's parts and the attention calls by path), and the leading CUDA kernels
+and host ops (`scripts/profile_torch_train.py`'s report). Imports torch,
+numpy, the port and the benchmark's span reduction only.
 """
 from __future__ import annotations
 
@@ -30,18 +31,14 @@ from chip_smoke import (BENCH_MODEL, BENCH_TOKENIZER, TOK_VIDEO, WM_FUSED,  # no
 from dreamer4_torch import (BehaviorCloneTrainer, DynamicsWorldModel,  # noqa: E402
                             TokenizerTrainer, VideoTokenizer)
 from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E402
-from profile_torch_train import part_times_ms, profile_step  # noqa: E402
+from profile_torch_train import profile_step  # noqa: E402
 
 
-def run(model, trainer, forward, step, label):
+def run(model, step, label):
     for fused in (True, False):
         set_attention(model, 'Attention', 'use_fused_small', fused)
-        name = f'{label}, {"K4/K5" if fused else "plain attention"}'
         step()
-        parts = part_times_ms(forward, trainer)
-        print(f'{name}: ' + ', '.join(f'{k} {v:.1f} ms' for k, v in parts.items())
-              + f' (sum {sum(parts.values()):.1f} ms; wall, mean of 3)', flush=True)
-        profile_step(step, name)
+        profile_step(step, f'{label}, {"K4/K5" if fused else "plain attention"}')
 
 
 def main() -> int:
@@ -57,8 +54,7 @@ def main() -> int:
     b, t = TOK_VIDEO['batch_size'], TOK_VIDEO['time_steps']
     video = torch.rand((b, 3, t, 64, 64), generator=torch.Generator(device='cuda').manual_seed(1),
                        device='cuda')
-    run(tok, trainer, lambda: tok(video, generator=trainer.generator),
-        lambda: trainer.train_on_batch(video), f'tokenizer train step b{b} x T{t}')
+    run(tok, lambda: trainer.train_on_batch(video), f'tokenizer train step b{b} x T{t}')
     del tok, trainer, video
 
     model = DynamicsWorldModel(**BENCH_MODEL, use_fused_small=True, dtype=torch.bfloat16)
@@ -73,8 +69,7 @@ def main() -> int:
     def step():
         trainer.ts = step_fn(trainer.ts, batch, shortcut_train=False,
                              generator=trainer.generator)[0]
-    run(model, trainer, lambda: model(**batch, shortcut_train=False, generator=trainer.generator),
-        step, f'world model plain step b{b} x T{t}')
+    run(model, step, f'world model plain step b{b} x T{t}')
     return 0
 
 

@@ -5,15 +5,15 @@
 Builds the bench world model as chip_smoke.py's train phase does (dim 512,
 depth 8, float32 master weights, bf16 compute, flash attention on) with a
 `BehaviorCloneTrainer`, and the b1 x T1024 batch. Warms up with one plain
-and one shortcut step, then prints, for each variant:
-  - the wall time of each part of the step (forward, backward, optimizer,
-    EMA), each between two `torch.cuda.synchronize()`, mean of 3;
-  - under torch.profiler, one whole step: its wall time, the device's busy
-    time (the sum of the CUDA kernels' times) and idle share, the CUDA
-    kernels launched, the launches and device time of each kernel of the
-    port (K1-K5), and the CUDA kernels and host-side PyTorch ops that take
-    the most time.
-Imports torch, numpy and the port only.
+and one shortcut step, then prints, for each variant, under torch.profiler,
+one whole step: its wall time, the device's busy time (the sum of the CUDA
+kernels' times) and idle share, the CUDA kernels launched, the launches and
+device time of each kernel of the port (K1-K5), the host time, launches and
+device and idle time of each of the port's spans (the step's parts: forward,
+backward, optimizer, EMA, and the attention calls by path;
+`dreamer4_torch/tracing.py`, reduced by `benchmark/spans.py`), and the CUDA
+kernels and host-side PyTorch ops that take the most time.
+Imports torch, numpy, the port and the benchmark's span reduction only.
 """
 from __future__ import annotations
 
@@ -26,41 +26,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from benchmark.spans import busy_intervals, reduce  # noqa: E402
 from chip_smoke import (BENCH_MODEL, TRAIN, gpu_name_and_power_limit,  # noqa: E402
                         is_device_event, train_batch)
 from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel  # noqa: E402
-from dreamer4_torch.train.ema import update_ema  # noqa: E402
 from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E402
 
 # name stems of the port's CUDA kernels (dreamer4_torch/csrc)
 PORT_KERNELS = {'K1': 'flash_fwd_', 'K2': 'bwd_dq_', 'K3': 'bwd_dkv_', 'K4': 'small_fwd_',
                 'K5': 'small_bwd_'}
-
-
-def part_times_ms(forward, trainer, reps=3):
-    """Mean wall ms of forward (`forward()` returns the loss), backward,
-    optimizer step and EMA update."""
-    parts = {'forward': 0.0, 'backward': 0.0, 'optimizer': 0.0, 'ema': 0.0}
-    params = dict(trainer.model.named_parameters())
-    for _ in range(reps):
-        trainer.optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = forward()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        trainer.optimizer.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        update_ema(trainer.ts.ema_params, params)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            parts[name] += dt * 1e3 / reps
-    return parts
 
 
 def profile_step(step, label):
@@ -79,6 +53,15 @@ def profile_step(step, label):
         mine = [e for e in kernels if prefix in e.name]
         print(f'  {kid}: {len(mine)} launches, '
               f'{sum(e.time_range.elapsed_us() for e in mine) / 1e3:.3f} ms device')
+    events = prof.profiler.kineto_results.events()
+    spans = reduce(events, min(e.start_ns() for e in events), max(e.end_ns() for e in events),
+                   busy_intervals(events))
+    print('  spans: ms host, ms device, ms idle, launches, calls, name')
+    for name, sp in sorted(spans['by_name'].items()):
+        print(f'    {sp["host_s"] * 1e3:9.2f} {sp["device_s"] * 1e3:9.2f} '
+              f'{sp["idle_s"] * 1e3:9.2f} {sp["launches"]:7d} {sp["count"]:5d}  {name}')
+    if spans['between_steps_idle_s'] is not None:
+        print(f'    idle outside the train step: {spans["between_steps_idle_s"] * 1e3:.2f} ms')
     averages = prof.key_averages()
     device_rows = sorted((a for a in averages if is_device_event(a)),
                          key=lambda a: -a.self_device_time_total)[:12]
@@ -112,12 +95,7 @@ def main() -> int:
             trainer.ts = step_fn(trainer.ts, batch, shortcut_train=shortcut,
                                  generator=trainer.generator)[0]
         step()
-        parts = part_times_ms(lambda: model(**batch, shortcut_train=shortcut,
-                                            generator=trainer.generator), trainer)
-        variant = 'shortcut' if shortcut else 'plain'
-        print(f'{variant} step {label}: ' + ', '.join(f'{k} {v:.1f} ms' for k, v in parts.items())
-              + f' (sum {sum(parts.values()):.1f} ms; wall, mean of 3)', flush=True)
-        profile_step(step, f'{variant} step {label}')
+        profile_step(step, f'{"shortcut" if shortcut else "plain"} step {label}')
     return 0
 
 

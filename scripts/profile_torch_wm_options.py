@@ -7,12 +7,12 @@ world-model option: tasks and latent genes, actor and critic trunks, the
 pre-encoders, the aug token, LAPO, TEM, the latent AR loss; float32 master
 weights, bf16 compute) and, for the attribution, the same model without the
 critic trunk, without TEM, and the bench model without any option. For each
-it prints the wall time of the parts of a plain b1 x T1024 step (forward,
-backward, optimizer, EMA; mean of 3 after a warm step), and for the options
-model one step under torch.profiler: the device's busy time and idle share,
-the port's kernels, and the CUDA kernels and host ops that take the most
-time (`scripts/profile_torch_train.py`'s report).
-Imports torch, numpy and the port only.
+it prints one plain b1 x T1024 step under torch.profiler, after a warm one:
+the device's busy time and idle share, the port's kernels, each span's host,
+device and idle time (forward, backward, optimizer, EMA, the attention calls by
+path), and the CUDA kernels and host ops that take the most time
+(`scripts/profile_torch_train.py`'s report).
+Imports torch, numpy, the port and the benchmark's span reduction only.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from chip_smoke import (BENCH_MODEL, TRAIN, WMOPT_MODEL, gpu_name_and_power_limi
                         wmopt_batch)
 from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel  # noqa: E402
 from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E402
-from profile_torch_train import part_times_ms, profile_step  # noqa: E402
+from profile_torch_train import profile_step  # noqa: E402
 
 VARIANTS = {'options': WMOPT_MODEL,
             'options without the critic trunk': dict(WMOPT_MODEL, critic_depth=0),
@@ -58,13 +58,7 @@ def main() -> int:
             trainer.ts = step_fn(trainer.ts, batch, shortcut_train=False,
                                  generator=trainer.generator)[0]
         step()
-        parts = part_times_ms(lambda: model(**batch, shortcut_train=False,
-                                            generator=trainer.generator), trainer)
-        print(f'{name}: plain step {label}: '
-              + ', '.join(f'{k} {v:.1f} ms' for k, v in parts.items())
-              + f' (sum {sum(parts.values()):.1f} ms; wall, mean of 3)', flush=True)
-        if name == 'options':
-            profile_step(step, f'{name}: plain step {label}')
+        profile_step(step, f'{name}: plain step {label}')
         del model, trainer, step_fn, batch
         gc.collect()
         torch.cuda.empty_cache()

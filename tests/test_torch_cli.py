@@ -160,8 +160,8 @@ def test_port_cli_refuses_the_cpu_unless_asked(tmp_path, monkeypatch):
     assert not (tmp_path / 'tok').exists()
 
 
-def test_port_metric_logger_profile_block_and_timeit(tmp_path):
-    from dreamer4_torch.train.logging import MetricLogger, profile_block, timeit
+def test_port_metric_logger_and_profile_block(tmp_path):
+    from dreamer4_torch.train.logging import MetricLogger, profile_block
 
     logger = MetricLogger(tmp_path / 'logs', use_tensorboard=False)
     logger.log(0, loss=1.5, reward=0.2)
@@ -177,7 +177,6 @@ def test_port_metric_logger_profile_block_and_timeit(tmp_path):
         (x @ x).sum()
     assert any('matmul' in e.key or 'mm' in e.key for e in prof.key_averages())
     assert json.loads((tmp_path / 'trace' / 'trace.json').read_text())['traceEvents']
-    assert timeit(lambda a: a @ a, x, iters=2) > 0
 
 
 def test_port_device_names_the_current_card(monkeypatch):
