@@ -1668,6 +1668,115 @@ def wm_plain_step_loss(batch, seed):
     return loss_fn
 
 
+def optimizer_step_profile(opt) -> dict:
+    """One `step()` of `opt` under torch.profiler: its launches, the device
+    ms of its kernels and copies, and the host ms of its `Optimizer.step`
+    range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.name.startswith('Optimizer.step#')
+            and getattr(e, 'device_type', None) == torch.autograd.DeviceType.CPU]
+    by_kernel = {}
+    for e in events:
+        if is_device_event(e):
+            name = re.sub(r'\(.*', '', e.name.replace('(anonymous namespace)::', ''))[:60]
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return dict(launches=sum(is_launch_event(e) for e in events),
+                device_ms=sum(by_kernel.values()),
+                host_ms=host[0].time_range.elapsed_us() / 1e3 if host else None,
+                top_kernels_ms=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]))
+
+
+def optimizer_bound_ms(opt) -> float:
+    """The least time of one kernel step of `opt` at 3.35 TB/s and 989
+    TFLOP/s, its phases one after another: the clip reads every gradient
+    (4 bytes an element); Adam-atan2 reads p, g, mu, nu and writes p, mu, nu
+    (28); Muon's momentum reads g and m and writes m and the float32 update,
+    its normalization reads that and writes bf16, its apply reads the bf16
+    output and p and writes p (32); Newton-Schulz makes A = Y^T Y, A A and
+    Y B, 4 n m^2 + 2 m^3 per (n, m) matrix and iteration, in bf16."""
+    from dreamer4_torch.train.optim import muon_stacks
+
+    bytes_moved, flops = 0, 0
+    for g in opt.param_groups:
+        n = sum(p.numel() for p in g['params'])
+        bytes_moved += 4 * n + (28 if g['kind'] == 'adam' else 32) * n
+        if g['kind'] == 'muon':
+            layout = muon_stacks([tuple(p.shape) for p in g['params']], g['transposed'])
+            flops += sum(k * (4 * n * m * m + 2 * m ** 3) * g['ns_steps']
+                         for _, k, n, m in layout.stacks)
+    return (bytes_moved / 3.35e12 + flops / 989e12) * 1e3
+
+
+def run_optimizer_phase(seed: int = 0) -> dict:
+    """`MuonAdamAtan2` over the bench world model's and the bench
+    tokenizer's parameters: two steps of the multi-tensor kernels against
+    two of the plain loop on a copy, from the same seeded gradients (Adam's
+    parameters within 1e-6 relative, Muon's change within 2e-2 of its
+    largest entry, as `tests/test_torch_cuda.py` holds them), then one
+    profiled step of each: launches, device and host ms, beside the bound."""
+    from dreamer4_torch import DynamicsWorldModel, VideoTokenizer
+    from dreamer4_torch.ops import multi_tensor as mt
+    from dreamer4_torch.train.optim import MuonAdamAtan2
+
+    out = {}
+    for label, cls, cfg in (('wm', DynamicsWorldModel, BENCH_MODEL),
+                            ('tok', VideoTokenizer, BENCH_TOKENIZER)):
+        torch.manual_seed(seed)
+        model, twin = cls(**cfg), cls(**cfg)
+        twin.load_state_dict(model.state_dict())
+        kernels = MuonAdamAtan2(model, learning_rate=3e-4, clip_grad_norm=1.0)
+        plain = MuonAdamAtan2(twin, learning_rate=3e-4, clip_grad_norm=1.0)
+        plain._kernel_device = lambda: None
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        gen = torch.Generator(device='cuda').manual_seed(seed)
+
+        def set_grads():
+            for p, q in zip(model.parameters(), twin.parameters()):
+                p.grad = torch.randn(p.shape, generator=gen, device='cuda') * 0.01
+                q.grad = p.grad.clone()
+
+        launches = []
+        for _ in range(2):
+            set_grads()
+            before = mt.KERNEL_LAUNCHES
+            kernels.step()
+            launches.append(mt.KERNEL_LAUNCHES - before)
+            plain.step()
+        labels = kernels.labels()
+        adam_err, muon_err = 0.0, 0.0
+        for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+            if labels[name] == 'adam':
+                adam_err = max(adam_err, ((p - q).abs() / q.abs().clamp(min=1e-3)).max().item())
+            else:
+                change = q - start[name]
+                muon_err = max(muon_err, (p - q).abs().max().item() / change.abs().max().item())
+        if adam_err > 1e-6 or muon_err > 2e-2:
+            raise SystemExit(f'optimizer {label}: kernels off the plain loop (Adam {adam_err:.3g} '
+                             f'relative, Muon {muon_err:.3g} of the change)')
+        set_grads()
+        prof_k = optimizer_step_profile(kernels)
+        prof_p = optimizer_step_profile(plain)
+        set_grads()
+        kernel_ms = cuda_time_ms(kernels.step, iters=10, warmup=1)
+        out[label] = dict(params=sum(p.numel() for p in model.parameters()),
+                          mt_launches=launches, kernels=prof_k, plain=prof_p,
+                          events_ms=kernel_ms, bound_ms=optimizer_bound_ms(kernels),
+                          adam_err=adam_err, muon_err=muon_err)
+        log(f'# optimizer {label}: {json.dumps(out[label])}')
+        del model, twin, kernels, plain, start
+        gc.collect()
+        torch.cuda.empty_cache()
+    if max(r['kernels']['launches'] for r in out.values()) > 100:
+        raise SystemExit('optimizer: over 100 launches a kernel step')
+    return {}
+
+
 def run_train_phase(seed: int = 0) -> dict:
     """Trains the bench model at b1 x T1024 through `BehaviorCloneTrainer`;
     returns the (K1..K5) launches of each step it drove."""
@@ -4817,9 +4926,9 @@ def main() -> int:
     if t1024_calls is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {}
-    for phase in (run_model_phase, run_train_phase, run_dream_phase, run_tokenizer_phase,
-                  run_wm_fused_phase, run_sim_phase, run_pixel_phase, run_cli_phase,
-                  run_continuous_phase, run_recipe_phase, run_tok_options_phase,
+    for phase in (run_model_phase, run_optimizer_phase, run_train_phase, run_dream_phase,
+                  run_tokenizer_phase, run_wm_fused_phase, run_sim_phase, run_pixel_phase,
+                  run_cli_phase, run_continuous_phase, run_recipe_phase, run_tok_options_phase,
                   run_wm_options_phase, run_tok_full_phase, run_wm_subsystems_phase,
                   run_tok_subsystems_phase, run_parallel_phase, run_recipes_phase):
         t_phase = time.perf_counter()

@@ -19,15 +19,26 @@ rounding of each output, 2^-9 of it, plus ds and p rounded to bf16 at the
 TPU kernel's points, where the kernel and the plain version may round a
 value that differs in its last float32 bits to neighbouring bf16 values).
 K4 takes K1's tolerances and K5 those of K2/K3, for the same reasons.
+
+The optimizer's multi-tensor kernels (`csrc/multi_tensor_optim.cu`) against
+the float32 arithmetic they replace: the clip scale bitwise against the same
+sums in the kernels' order; Muon's momentum, its stacked update and
+p + coef * o bitwise; its bf16 Newton-Schulz input within one bf16 step;
+Adam-atan2 at 1e-6 relative; the whole `MuonAdamAtan2` step against its
+plain loop as `test_optimizer_kernels_match_the_plain_loop` states.
 """
+import copy
+
 import pytest
 import torch
 
 from dreamer4_torch.models.tokenizer import VideoTokenizer
 from dreamer4_torch.models.transformer import AxialSpaceTimeTransformer
 from dreamer4_torch.ops import flash_attention as fa
+from dreamer4_torch.ops import multi_tensor as mt
 from dreamer4_torch.ops import small_attention as sa
 from dreamer4_torch.ops.masks import build_attend_mask
+from dreamer4_torch.train import optim
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
@@ -864,3 +875,311 @@ def test_options_tokenizer_bf16_step_runs_the_small_kernels(gen):
                  'latent_sigreg'):
         value = getattr(parts, name)
         assert torch.isfinite(value) and value.item() != 0.0, name
+
+
+# ------------------------------------------------------ optimizer kernels
+
+# csrc/multi_tensor_optim.cu: threads of a block and warps of it
+OPT_THREADS, OPT_WARPS = 256, 8
+
+
+def block_sum_in_kernel_order(acc):
+    """The kernels' `block_sum` over the last dim (one block's 256 threads):
+    shuffles 16, 8, 4, 2, 1 lanes down within each warp, then the same over
+    the eight warps' sums (the other lanes hold zeros, which add exactly)."""
+    a = acc.view(*acc.shape[:-1], OPT_WARPS, 32)
+    for off in (16, 8, 4, 2, 1):
+        a = a[..., :off] + a[..., off:2 * off]
+    w = a[..., 0]
+    for off in (4, 2, 1):
+        w = w[..., :off] + w[..., off:2 * off]
+    return w[..., 0]
+
+
+def strided_sums(x, rows):
+    """Thread t's running sum of x's rows, in order: (..., rows, 256) -> (..., 256)."""
+    acc = torch.zeros(x.shape[:-2] + (OPT_THREADS,), device=x.device)
+    for r in range(rows):
+        acc = acc + x[..., r, :]
+    return acc
+
+
+def clip_scale_in_kernel_order(grads, numels, max_norm):
+    """The clip scale as the kernels compute it, in float32 and in their
+    order: per chunk, thread t sums the squares of elements t, t + 256, ...;
+    one block per chunk; then one block over the chunks' sums."""
+    chunk, _ = mt.config()
+    parts = []
+    for g, n in zip(grads, numels):
+        k = -(-n // chunk)
+        x = torch.zeros(k * chunk, device='cuda')
+        if g is not None:
+            x[:n] = g.flatten()
+        sq = (x * x).view(k, chunk // OPT_THREADS, OPT_THREADS)
+        parts.append(block_sum_in_kernel_order(strided_sums(sq, chunk // OPT_THREADS)))
+    partials = torch.cat(parts)
+    rows = -(-partials.numel() // OPT_THREADS)
+    x = torch.zeros(rows * OPT_THREADS, device='cuda')
+    x[:partials.numel()] = partials
+    total = block_sum_in_kernel_order(strided_sums(x.view(rows, OPT_THREADS), rows))
+    norm = torch.clamp(total.sqrt(), min=1e-16)
+    return torch.clamp(norm.reciprocal() * max_norm, max=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['ragged', 'long_table'])
+@pytest.mark.parametrize('max_norm', [0.5, 1e9])
+def test_clip_scale_is_the_float32_sum_in_kernel_order(gen, case, max_norm):
+    """Bitwise against the same float32 sums in the same order, and from run
+    to run; a missing gradient counts as zero. The ragged sizes sit on both
+    sides of a chunk's edge; the long table takes three partial launches."""
+    chunk, _ = mt.config()
+    if case == 'ragged':
+        numels = [1, 255, chunk - 1, chunk, chunk + 1, 3 * chunk + 7, 70000, 513]
+    else:
+        numels = torch.randint(1, 3000, (450,), generator=torch.Generator().manual_seed(0)).tolist()
+    grads = [torch.randn(n, generator=gen, device='cuda') * 0.1 for n in numels]
+    grads[2] = None
+    params = [torch.empty(n, device='cuda') for n in numels]
+    partials = torch.empty(mt.clip_partials_len(numels), device='cuda')
+    runs = []
+    for _ in range(2):
+        scale = torch.empty(1, device='cuda')
+        before = mt.KERNEL_LAUNCHES
+        mt.clip_scale(params, grads, max_norm, partials, scale)
+        assert mt.KERNEL_LAUNCHES - before == (2 if case == 'ragged' else 4)
+        runs.append(scale)
+    want = clip_scale_in_kernel_order(grads, numels, max_norm)
+    assert torch.equal(runs[0], want.view(1)) and torch.equal(runs[0], runs[1])
+    if max_norm > 1e8:
+        assert runs[0].item() == 1.0
+
+
+def muon_reference(p, g, m, scale, wd, mom):
+    """Muon's momentum and Nesterov update, the plain loop's arithmetic."""
+    g = torch.zeros_like(p) if g is None else g
+    g = g * scale + wd * p if wd > 0 else g * scale
+    m = m * mom + g
+    return m, m * mom + g
+
+
+@pytest.mark.cuda
+def test_muon_prepare_and_apply_match_their_formulas(gen):
+    """Momentum and the stacks' float32 updates bitwise (the same float32
+    operations); the bf16 Newton-Schulz input within one bf16 step of the
+    float32 normalized update cast (the kernel sums a matrix's norm in tiles,
+    which may round it to a neighbouring float32 value); p + coef * o
+    bitwise, through the tile transpose and without it."""
+    shapes = [(70, 33), (33, 70), (64, 64), (130, 64), (1, 5), (200, 129)]
+    flips = [True, False, True, True, False, True]
+    p = [torch.randn(s, generator=gen, device='cuda') for s in shapes]
+    g = [torch.randn(s, generator=gen, device='cuda') for s in shapes]
+    g[4] = None
+    m = [torch.randn(s, generator=gen, device='cuda') for s in shapes]
+    places = [torch.empty(s[::-1] if f else s, device='cuda') for s, f in zip(shapes, flips)]
+    inputs = [torch.empty_like(u, dtype=torch.bfloat16) for u in places]
+    scale = torch.full((1,), 0.37, device='cuda')
+    wd, mom, eps = 0.01, 0.95, 1e-7
+    want = [muon_reference(*a, scale, wd, mom) for a in zip(p, g, m)]
+    partials = torch.empty(mt.muon_partials_len(shapes), device='cuda')
+    before = mt.KERNEL_LAUNCHES
+    mt.muon_prepare(p, g, m, places, inputs, flips, scale, partials, weight_decay=wd,
+                    momentum=mom, eps=eps)
+    assert mt.KERNEL_LAUNCHES - before == 2
+    for (m_ref, u_ref), m_k, u_k, x_k, f in zip(want, m, places, inputs, flips):
+        u_ref = u_ref.T if f else u_ref
+        assert torch.equal(m_k, m_ref) and torch.equal(u_k, u_ref)
+        x_ref = u_ref / (u_ref.square().sum().sqrt() + eps)
+        assert ((x_k.float() - x_ref).abs() <= 2 ** -7 * x_ref.abs()).all()
+        assert (x_k == x_ref.bfloat16()).float().mean().item() >= 0.99
+
+    coefs = [-0.003 * (1 + i) for i in range(len(shapes))]
+    outs = [torch.randn(u.shape, generator=gen, device='cuda').bfloat16() for u in places]
+    want = [pp + c * (o.float().T if f else o.float()) for pp, c, o, f in zip(p, coefs, outs, flips)]
+    mt.muon_apply(p, outs, flips, coefs)
+    assert mt.KERNEL_LAUNCHES - before == 3
+    for pp, w in zip(p, want):
+        assert torch.equal(pp, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scaled', [True, False])
+def test_adam_atan2_kernel_matches_its_formula(gen, scaled):
+    """Three steps over ragged sizes and a missing gradient, decay on: 1e-6
+    relative (the kernel and torch's atan2 come from two builds of the
+    math library; everything else is the same float32 arithmetic)."""
+    chunk, _ = mt.config()
+    numels = [1, 7, chunk - 3, chunk + 5, 3 * chunk + 1, 4099]
+    p = [torch.randn(n, generator=gen, device='cuda') for n in numels]
+    mu = [torch.zeros(n, device='cuda') for n in numels]
+    nu = [torch.zeros(n, device='cuda') for n in numels]
+    ref = [[t.clone() for t in ts] for ts in (p, mu, nu)]
+    scale = torch.full((1,), 0.41, device='cuda') if scaled else None
+    b1, b2, wd, lr, a, b = 0.9, 0.99, 0.02, 3e-4, 1.27, 1.0
+    for count in (1, 2, 3):
+        g = [torch.randn(n, generator=gen, device='cuda') * 0.01 for n in numels]
+        g[1] = None
+        c1, c2 = optim.bias_correction(b1, count), optim.bias_correction(b2, count)
+        mt.adam_atan2(p, g, mu, nu, scale, weight_decay=wd, b1=b1, b2=b2, c1=c1, c2=c2, b=b,
+                      lr_a=lr * a)
+        c1t, c2t = (torch.tensor(c, device='cuda') for c in (c1, c2))
+        for i, gi in enumerate(g):
+            pr, mr, vr = ref[0][i], ref[1][i], ref[2][i]
+            gi = torch.zeros_like(pr) if gi is None else gi
+            gi = gi * scale if scaled else gi
+            gi = gi + wd * pr
+            mr.mul_(b1).add_((1 - b1) * gi)
+            vr.mul_(b2).add_((1 - b2) * gi.square())
+            pr.add_(-lr * a * torch.atan2(mr / c1t, b * (vr / c2t).sqrt()))
+    for got, want in zip(p + mu + nu, ref[0] + ref[1] + ref[2]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-12)
+
+
+class OptimToy(torch.nn.Module):
+    """Parameters of every kind the optimizer meets: Muon's transposed
+    `nn.Linear` weights (wide, tall, ragged), a raw flax-layout kernel,
+    Adam's biases, a 2-D Adam weight, a 3-D one and sizes off the chunk,
+    tile and vector edges."""
+
+    def __init__(self, layers: int):
+        super().__init__()
+        self.layers = torch.nn.ModuleList()
+        for _ in range(layers):
+            block = torch.nn.Module()
+            block.to_v = torch.nn.Linear(64, 96)
+            block.to_out = torch.nn.Linear(96, 64)
+            block.proj_in = torch.nn.Linear(64, 130)
+            block.proj_out = torch.nn.Linear(130, 64)
+            self.layers.append(block)
+        self.pool = torch.nn.Module()
+        self.pool.to_v = torch.nn.Module()
+        self.pool.to_v.kernel = torch.nn.Parameter(torch.randn(70, 33) * 0.1)
+        self.embed = torch.nn.Parameter(torch.randn(100, 171) * 0.1)
+        self.cube = torch.nn.Parameter(torch.randn(3, 50, 111) * 0.1)
+        self.long = torch.nn.Parameter(torch.randn(3 * 16384 + 7) * 0.1)
+        self.one = torch.nn.Parameter(torch.randn(1))
+
+
+def clone_toy(model):
+    twin = OptimToy(len(model.layers)).cuda()
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+OPTIM_CASES = {
+    'plain': dict(layers=2),
+    'decay_and_missing_grads': dict(layers=2, weight_decay=0.05, drop=True),
+    'only': dict(layers=2, only=True),
+    'long_tables': dict(layers=24),
+    'no_clip': dict(layers=2, clip=None),
+    'state_dict_round_trip': dict(layers=2, round_trip=True, weight_decay=0.01),
+    'multi_steps': dict(layers=2, every_k=2, round_trip=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(OPTIM_CASES))
+def test_optimizer_kernels_match_the_plain_loop(gen, monkeypatch, case):
+    """`MuonAdamAtan2` on the card against its plain loop on the same CUDA
+    tensors over three steps with fresh gradients. Adam's parameters: 1e-6
+    relative (the clip's sums and the bias corrections' divisions round
+    differently, each by under a float32 step). Both moments and Muon's
+    momentum: 1e-6 of the tensor's largest entry (an entry where the decayed
+    momentum and the new gradient nearly cancel keeps the absolute error of
+    its terms), plus, under weight decay, the decay times the parameter's
+    difference for each step. Muon's parameters: their change within 2e-2 of the plain
+    change's largest entry (a bf16 Newton-Schulz input may sit a bf16 step
+    from the plain one where the two norms round apart; five iterations
+    carry that to the output). Each step makes the expected launches and no
+    synchronize; after a `state_dict` round trip the kernels read the loaded
+    state."""
+    cfg = OPTIM_CASES[case]
+    torch.manual_seed(0)
+    model = OptimToy(cfg['layers']).cuda()
+    twin = clone_toy(model)
+    names = [n for n, _ in model.named_parameters()]
+    only = set(names[::2]) if cfg.get('only') else None
+    kw = dict(learning_rate=3e-4, clip_grad_norm=cfg.get('clip', 1.0),
+              weight_decay=cfg.get('weight_decay', 0.0), only=only)
+
+    def make(m):
+        opt = optim.MuonAdamAtan2(m, **kw)
+        return optim.MultiSteps(opt, cfg['every_k']) if 'every_k' in cfg else opt
+
+    kernels, plain = make(model), make(twin)
+    inner = lambda o: o.optimizer if isinstance(o, optim.MultiSteps) else o
+    inner(plain)._kernel_device = lambda: None
+    labels = inner(kernels).labels()
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    drift = dict.fromkeys(start, 0.0)       # the largest |p - q| after any step
+    micro = cfg.get('every_k', 1)
+    for step in range(3 * micro):
+        for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+            g = None if cfg.get('drop') and step % 2 == 0 and name.endswith('bias') else \
+                torch.randn(p.shape, generator=gen, device='cuda') * 0.02
+            p.grad, q.grad = g, None if g is None else g.clone()
+        before = mt.KERNEL_LAUNCHES
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            kernels.step()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        plain.step()
+        for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+            drift[name] = max(drift[name], (p - q).abs().max().item())
+        applied = (step + 1) % micro == 0
+        n_muon = sum(v == 'muon' for v in labels.values())
+        n_adam = len(labels) - n_muon
+        want = 0 if not applied else (
+            (-(-len(labels) // 200) + 1 if kw['clip_grad_norm'] else 0)
+            + -(-n_adam // 90) + -(-n_muon // 60) + -(-n_muon // 100) + -(-n_muon // 80))
+        assert mt.KERNEL_LAUNCHES - before == want, (mt.KERNEL_LAUNCHES - before, want)
+        if cfg.get('round_trip') and step == micro - 1:
+            # fresh tensors, as from a checkpoint: the kernels must read them
+            kernels.load_state_dict(copy.deepcopy(kernels.state_dict()))
+    torch.cuda.synchronize()
+    state_k, state_p = inner(kernels).state, inner(plain).state
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        kind = labels.get(name)
+        if kind is None:
+            assert torch.equal(p, start[name]) and torch.equal(q, start[name])
+            continue
+        # the decay carries the parameters' difference into the state: at
+        # most the decay times it in each of the three steps
+        carried = kw['weight_decay'] * 3 * drift[name]
+        for key in state_p[q]:
+            want = state_p[q][key]
+            torch.testing.assert_close(state_k[p][key], want, rtol=0,
+                                       atol=1e-6 * want.abs().max().item() + carried,
+                                       msg=lambda m: f'{name} {key} (carried {carried}): {m}')
+        if kind == 'adam':
+            torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-9, msg=lambda m: f'{name}: {m}')
+        else:
+            change_k, change_p = p - start[name], q - start[name]
+            err = (change_k - change_p).abs().max().item()
+            assert err <= 2e-2 * change_p.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_optimizer_refuses_what_the_kernels_do_not_take(gen):
+    """A state tensor of another shape than its parameter (as a mismatched
+    checkpoint would load), a gradient that is not contiguous, a CUDA
+    parameter that is not float32 and parameters on two devices raise;
+    nothing falls back to the loop."""
+    model = OptimToy(1).cuda()
+    opt = optim.MuonAdamAtan2(model)
+    opt.step()
+    opt.state[model.cube]['mu'] = torch.zeros(5, device='cuda')
+    with pytest.raises(ValueError, match='beside a parameter'):
+        opt.step()
+    opt.state[model.cube]['mu'] = torch.zeros_like(model.cube)
+    model.embed.grad = torch.randn(171, 100, generator=gen, device='cuda').T
+    with pytest.raises(ValueError, match='contiguous'):
+        opt.step()
+    model.embed.grad = None
+    model.one.data = model.one.data.double()
+    with pytest.raises(ValueError, match='float32'):
+        opt.step()
+    model.one.data = model.one.data.float().cpu()
+    with pytest.raises(ValueError, match='one CUDA device'):
+        opt.step()
