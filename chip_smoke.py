@@ -421,6 +421,11 @@ TRAIN = dict(batch_size=1, time_steps=1024)
 # step adds the two no-grad half-step passes, K1 without its LSE
 LAUNCHES_PER_STEP = {False: (2, 2, 2, 0, 0), True: (6, 2, 2, 0, 0)}
 TIME_LAYERS = (3, 7)   # (i + 1) % time_block_every == 0 at depth 8
+# the pool kernels' (forward, backward, norm) launches per world-model train
+# step: a pass of the depth-8 trunk runs 8 pools and normalizes 17 hiddens,
+# the grad pass adds a backward to each (two launches a pool); a shortcut
+# step adds the two no-grad passes
+POOL_LAUNCHES_PER_STEP = {False: (8, 16, 34), True: (24, 16, 68)}
 
 # RL in imagination on the bench model: `DreamTrainer` dreams the prompted
 # rollout (PROMPTED with the 96-frame prompt) and takes a heads-only PPO
@@ -498,12 +503,24 @@ TOK_TIME_LAYERS = ('encoder_transformer.attn_3', 'decoder.transformer.attn_3')
 # one K4 each; a train step one K4 and one K5 in each trunk
 TOK_LAUNCHES = {'tok_encode': (0, 0, 0, 1, 0), 'tok_decode': (0, 0, 0, 4, 0),
                 'tok_train_step': (0, 0, 0, 2, 2), 'tok_train_on_batch': (0, 0, 0, 2, 2)}
+# pool kernel (forward, backward, norm) launches: a pass of a depth-4 trunk
+# runs 4 pools over 9 hiddens; encode one encoder pass, decode four decoder
+# passes, a train step one pass of each trunk with its backward
+TOK_POOL_LAUNCHES = {'tok_encode': (4, 0, 9), 'tok_decode': (16, 0, 36),
+                     'tok_train_step': (8, 16, 36), 'tok_train_on_batch': (8, 16, 36)}
 
 # bench.py:165: the world model's b8 x T32 train step, with the small path:
 # 6 space layers (n = 27, n*h = 216) and 2 time layers (n = 32, 256) on
 # K4/K5; a shortcut step adds two no-grad passes of K4 only
 WM_FUSED = dict(batch_size=8, time_steps=32)
 WM_FUSED_LAUNCHES = {False: (0, 0, 0, 8, 8), True: (0, 0, 0, 24, 8)}
+# the loss's distances from float32 are root mean squares over this many
+# initializations (seed, seed + 1, ...), each with its own batch and draws.
+# The loss's bf16 error is mostly a bias set by the weights, so at one
+# initialization the plain attention's can lie near zero: at seed 0 it reads
+# 1.1e-4 to 1.8e-4 of a loss of 50.8 on four batches, at seeds 1-5 2.4e-4 to
+# 4.4e-3, while K4/K5 move the loss by 2e-4 to 4e-4 from it at every seed
+WM_FUSED_LOSS_INITS = 4
 
 # the cli phase: Snake recorded as examples/train_snake_ppo.py:51-55 does,
 # at 64 x 64 frames; the CLI commands at their default widths
@@ -852,7 +869,10 @@ def device_ms(fn, match: str | None = None, iters: int = 20,
       `traced_call_ms` matches them to their launches; None where no trace
       could be matched so.
     A trace that holds none of those kernels is taken again, up to three
-    times in all."""
+    times in all. Late in a long process the profiler has been seen to
+    lose every kernel of a trace three times in a row (K5 in the small
+    phase): with `match`, the time is then taken by CUDA events, calls back
+    to back, which counts the launch gaps too and so reads high."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -878,7 +898,9 @@ def device_ms(fn, match: str | None = None, iters: int = 20,
     if match is None:
         print('# no profiler trace of the call could be matched to its launches', flush=True)
         return None
-    raise SystemExit(f'the profiler saw no device time of {match}')
+    print(f'# the profiler lost every trace of {match}: CUDA events, calls back to back, '
+          'instead', flush=True)
+    return cuda_time_ms(fn, iters=iters)
 
 
 def traced_call_ms(events, iters: int) -> float | None:
@@ -1525,19 +1547,38 @@ def run_model_phase(seed: int = 0) -> dict:
 
 
 def zero_counts():
+    from dreamer4_torch.ops import attn_pool as ap
     from dreamer4_torch.ops import flash_attention as fa
     from dreamer4_torch.ops import small_attention as sa
     fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     fa.K1_LAUNCHES = dict.fromkeys(fa.K1_VARIANTS, 0)
     sa.FWD_LAUNCHES = sa.BWD_LAUNCHES = 0
+    ap.FWD_LAUNCHES = ap.BWD_LAUNCHES = ap.NORM_LAUNCHES = 0
 
 
-def read_counts() -> tuple[int, int, int, int, int]:
-    """(K1, K2, K3, K4, K5) launches since the last `zero_counts`."""
+class Launches(tuple):
+    """(K1, K2, K3, K4, K5) launches, compared and printed as that tuple;
+    `pool` the pool kernels' (forward, backward, norm) launches."""
+    pool = (0, 0, 0)
+
+
+def read_counts() -> Launches:
+    """(K1..K5) launches since the last `zero_counts`, with the pool
+    kernels' (`Launches.pool`)."""
+    from dreamer4_torch.ops import attn_pool as ap
     from dreamer4_torch.ops import flash_attention as fa
     from dreamer4_torch.ops import small_attention as sa
-    return (sum(fa.K1_LAUNCHES.values()), fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
-            sa.FWD_LAUNCHES, sa.BWD_LAUNCHES)
+    got = Launches((sum(fa.K1_LAUNCHES.values()), fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
+                    sa.FWD_LAUNCHES, sa.BWD_LAUNCHES))
+    got.pool = (ap.FWD_LAUNCHES, ap.BWD_LAUNCHES, ap.NORM_LAUNCHES)
+    return got
+
+
+def expect_pool_launches(label, got: Launches, want):
+    """The pool kernels' (forward, backward, norm) launches of a step."""
+    if got.pool != want:
+        raise SystemExit(f'{label} launched the pool kernels (forward, backward, norm) '
+                         f'{got.pool}, expected {want}')
 
 
 def read_k1_variants() -> dict[str, int]:
@@ -1777,6 +1818,131 @@ def run_optimizer_phase(seed: int = 0) -> dict:
     return {}
 
 
+# the pool kernels' shapes: `wm_train_long`'s tokens (b8 x T192 x 27) at the
+# last pool (L = 17) and a middle one (L = 9), 4 x 64 heads, bf16
+POOL_TOKENS = 8 * 192 * 27
+POOL_LAYERS = (17, 9)
+
+
+def pool_bytes(L: int, N: int, which: str) -> int:
+    """Bytes the pool kernels must move at least, each input read once and
+    each output written once (bf16, 4 x 64): the forward reads q, k, v and
+    the gate logits and writes the output and the float32 LSE; the backward
+    reads q, k, v, dout, the logits and the LSE and writes dq, dk, dv and
+    the logits' gradient."""
+    row, elem = 256, 2
+    kv = 2 * L * N * row * elem
+    small = N * 4 * (elem + 4)                       # logits and the LSE
+    if which == 'fwd':
+        return kv + 2 * N * row * elem + small
+    return 2 * kv + 3 * N * row * elem + small + N * 4 * elem
+
+
+def run_pool_phase(seed: int = 0) -> dict:
+    """Returns its timings by shape. The pool kernels (`csrc/attn_pool.cu`)
+    at `wm_train_long`'s shapes, L = 17 and 9: forward and backward against
+    the plain code (relative L2 of the output and every gradient, the bf16
+    kernels within 1.25x of the bf16 plain code's distance to the float32
+    plain result), then each timed by CUDA events back to back (the 0.4-1.5
+    GB a call leave nothing in L2) beside its bytes bound and the plain
+    code's time; `rms_normalize` at (N, 512) likewise, through its wrapper."""
+    from dreamer4_torch.nn import attention
+    from dreamer4_torch.ops import attn_pool as ap
+
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    N, out, plain = POOL_TOKENS, {}, attention.pool_attend_plain
+    dist = lambda a, b: ((a - b).norm() / b.norm()).item()
+
+    def hold(label, names, kernel, bf16_plain, ref):
+        errors = {name: (dist(a, r), dist(p, r))
+                  for name, a, p, r in zip(names, kernel, bf16_plain, ref)}
+        bad = [n for n, (e_k, e_p) in errors.items() if e_k > 1.25 * e_p]
+        if bad:
+            raise SystemExit(f'{label}: kernels further from float32 than the plain code: '
+                             f'{bad} {errors}')
+        return errors
+
+    for L in POOL_LAYERS:
+        rand = lambda *shape: torch.randn(*shape, generator=gen, device='cuda')
+        q, k, v = rand(N, 256), rand(L, N, 256), rand(L, N, 256)
+        gates, dout = rand(N, 4), rand(N, 256)
+        scale = (1.0 + 0.3 * rand(4, 64)) * 8.0
+        xs = [t.to(torch.bfloat16) for t in (q, k, v, gates, dout)]
+        row = dict(layers=L, tokens=N)
+        row['errors'] = hold(f'pool L{L}', ('out', 'dq', 'dk', 'dv', 'dscale', 'dgate'),
+                             pool_outputs(ap.pool_attend, xs, scale),
+                             pool_outputs(plain, xs, scale),
+                             pool_outputs(plain, [t.float() for t in xs], scale))
+        qb, kb, vb, gb, db = xs
+        fwd_out, lse, o = ap._pool_fwd_cuda(qb, kb, vb, scale, gb, 50.0, for_backward=True)
+        row['fwd_ms'] = cuda_time_ms(
+            lambda: ap._pool_fwd_cuda(qb, kb, vb, scale, gb, 50.0, for_backward=True), iters=10)
+        row['bwd_ms'] = cuda_time_ms(
+            lambda: ap._pool_bwd_cuda(qb, kb, vb, scale, gb, lse, o, db, 50.0), iters=10)
+        for which in ('fwd', 'bwd'):
+            row[f'{which}_bound_ms'] = pool_bytes(L, N, which) / H100_BYTES_PER_S * 1e3
+            row[f'{which}_pct_of_bound'] = 100 * row[f'{which}_bound_ms'] / row[f'{which}_ms']
+
+        def plain_step():
+            ins = [t.clone().requires_grad_() for t in (qb, kb, vb, gb)]
+            sc = scale.clone().requires_grad_()
+            torch.autograd.grad(plain(ins[0], ins[1], ins[2], sc, ins[3]), [*ins, sc], db)
+
+        row['plain_fwd_bwd_ms'] = cuda_time_ms(plain_step, iters=3, warmup=1)
+        out[f'L{L}'] = row
+        log(f'# pool L{L} N{N}: {json.dumps(row)}')
+        del q, k, v, xs, qb, kb, vb, fwd_out, lse, o
+        torch.cuda.empty_cache()
+
+    x = torch.randn(N, 512, generator=gen, device='cuda').to(torch.bfloat16)
+    dy = torch.randn(N, 512, generator=gen, device='cuda').to(torch.bfloat16)
+
+    def through(fn, x, dy):
+        x = x.clone().requires_grad_()
+        y = fn(x)
+        return [y.detach().float(), torch.autograd.grad(y, x, dy)[0].float()]
+
+    norm = dict(errors=hold('rms_normalize', ('y', 'dx'), through(ap.rms_normalize, x, dy),
+                            through(attention.rms_normalize_plain, x, dy),
+                            through(attention.rms_normalize_plain, x.float(), dy.float())))
+    with torch.no_grad():
+        norm['fwd_ms'] = cuda_time_ms(lambda: ap.rms_normalize(x), iters=20)
+        norm['plain_fwd_ms'] = cuda_time_ms(lambda: attention.rms_normalize_plain(x), iters=20)
+    norm['bwd_ms'] = cuda_time_ms(lambda: ap._rms_bwd_cuda(x, dy, 1e-6), iters=20)
+    norm['fwd_bound_ms'] = 2 * x.numel() * 2 / H100_BYTES_PER_S * 1e3
+    norm['bwd_bound_ms'] = 3 * x.numel() * 2 / H100_BYTES_PER_S * 1e3
+    out['rms'] = norm
+    log(f'# pool rms_normalize N{N} x 512: {json.dumps(norm)}')
+    return out
+
+
+def pool_outputs(fn, xs, scale):
+    """fn's output and its gradients in q, k, v, scale and the gate logits
+    for the output gradient xs[-1], all as float32: xs = (q, k, v, gate
+    logits, output gradient)."""
+    q, k, v, gates = [t.clone().requires_grad_() for t in xs[:4]]
+    scale = scale.clone().requires_grad_()
+    res = fn(q, k, v, scale, gates)
+    grads = torch.autograd.grad(res, (q, k, v, scale, gates), xs[4])
+    return [res.detach().float()] + [g.float() for g in grads]
+
+
+@contextlib.contextmanager
+def plain_pools():
+    """While open, the pools and `rms_normalize` run their plain code on the
+    card too (`nn.attention.pool_attend_plain`, `rms_normalize_plain` in
+    place of the kernel ops): the path before the kernels."""
+    from dreamer4_torch.nn import attention
+    from dreamer4_torch.ops import attn_pool as ap
+
+    saved = ap.pool_attend, ap.rms_normalize
+    ap.pool_attend, ap.rms_normalize = attention.pool_attend_plain, attention.rms_normalize_plain
+    try:
+        yield
+    finally:
+        ap.pool_attend, ap.rms_normalize = saved
+
+
 def run_train_phase(seed: int = 0) -> dict:
     """Trains the bench model at b1 x T1024 through `BehaviorCloneTrainer`;
     returns the (K1..K5) launches of each step it drove."""
@@ -1824,6 +1990,7 @@ def run_train_phase(seed: int = 0) -> dict:
             f'variant {variants} (expected all sm90)')
         if launches[name] != want:
             raise SystemExit(f'{name} launched (K1..K5) {launches[name]}, expected {want}')
+        expect_pool_launches(name, launches[name], POOL_LAUNCHES_PER_STEP[shortcut])
         if variants != {'sm90': want[0]}:
             raise SystemExit(f'{name}: K1 ran as {variants}, not all on the wgmma kernel')
         del before, ema_before
@@ -1839,6 +2006,8 @@ def run_train_phase(seed: int = 0) -> dict:
         f'(K1..K5) launches {launches["train_on_batch"]} (expected {want})')
     if launches['train_on_batch'] != want or not torch.isfinite(loss) or trainer.ts.step != 3:
         raise SystemExit('train_on_batch: wrong launches, loss or step')
+    expect_pool_launches('train_on_batch', launches['train_on_batch'],
+                         POOL_LAUNCHES_PER_STEP[shortcut])
 
     for shortcut in (False, True):
         def one_step():
@@ -2289,6 +2458,7 @@ def run_tokenizer_phase(seed: int = 0) -> dict:
         dec_s = host_time_s(lambda: tok.decode(latents, generator=gen), reps=3)
     for name in ('tok_encode', 'tok_decode'):
         expect_launches(name, launches[name], TOK_LAUNCHES[name])
+        expect_pool_launches(name, launches[name], TOK_POOL_LAUNCHES[name])
     log(f'encode b{b} T{t}: {enc_s * 1e3:.1f} ms, {frames / enc_s:.1f} frames/s; decode '
         f'(4 flow steps): {dec_s * 1e3:.1f} ms, {frames / dec_s:.1f} frames/s (means of 3 after '
         f'a first run); (K1..K5) launches encode {launches["tok_encode"]}, decode '
@@ -2327,6 +2497,7 @@ def run_tokenizer_phase(seed: int = 0) -> dict:
         raise SystemExit('tokenizer train_on_batch: loss not finite or step not counted')
     for name in ('tok_train_step', 'tok_train_on_batch'):
         expect_launches(name, launches[name], TOK_LAUNCHES[name])
+        expect_pool_launches(name, launches[name], TOK_POOL_LAUNCHES[name])
     log(f'tokenizer train step: loss {loss.item():.5f}, then {loss2.item():.5f}; {n_grad} '
         f'parameters with a gradient, all moved with their EMA; (K1..K5) launches '
         f'{launches["tok_train_step"]} and {launches["tok_train_on_batch"]}')
@@ -2345,27 +2516,42 @@ def run_tokenizer_phase(seed: int = 0) -> dict:
 # --------------------------------------------------------- wm, small path
 
 def run_wm_fused_phase(seed: int = 0) -> dict:
-    """The bench world model with `use_fused_small` at b8 x T32 through
-    `BehaviorCloneTrainer`: a plain and a shortcut step; returns their
-    (K1..K5) launches."""
+    """The bench world model with `use_fused_small` at b8 x T32: its bf16
+    loss and gradients through K4/K5 and through the plain attention held
+    against float32 (the loss over `WM_FUSED_LOSS_INITS` initializations,
+    the gradients at `seed`'s), then a plain and a shortcut step through
+    `BehaviorCloneTrainer`; returns their (K1..K5) launches."""
     from dreamer4_torch import BehaviorCloneTrainer, DynamicsWorldModel
     from dreamer4_torch.train.trainers import make_world_model_train_step
 
-    torch.manual_seed(seed)
     cfg = {**BENCH_MODEL, 'use_fused_small': True}
-    model = DynamicsWorldModel(**cfg, dtype=torch.bfloat16)
     b, t = WM_FUSED['batch_size'], WM_FUSED['time_steps']
-    g = torch.Generator(device=model.device).manual_seed(seed + 2)
-    batch = dict(latents=torch.randn((b, t, 16, 32), generator=g, device=model.device) * 0.5,
-                 rewards=torch.zeros((b, t), device=model.device),
-                 discrete_actions=torch.zeros((b, t, 1), dtype=torch.long, device=model.device))
-
-    ref = DynamicsWorldModel(**{**cfg, 'use_fused_small': False})
-    ref.load_state_dict(model.state_dict())
     names = [f'transformer.attn_{i}.{w}.weight' for i in (0, 3) for w in ('to_q', 'to_k', 'to_v')]
-    check_grad_distances('wm fused grads', compare_grads(
-        model, ref, wm_plain_step_loss(batch, seed + 3), names, 'Attention', 'use_fused_small'))
-    del ref
+
+    def init(init_seed):
+        """The model at `init_seed`, its float32 twin with the plain
+        attention, a batch and the loss with its draws."""
+        torch.manual_seed(init_seed)
+        model = DynamicsWorldModel(**cfg, dtype=torch.bfloat16)
+        g = torch.Generator(device=model.device).manual_seed(init_seed + 2)
+        batch = dict(latents=torch.randn((b, t, 16, 32), generator=g, device=model.device) * 0.5,
+                     rewards=torch.zeros((b, t), device=model.device),
+                     discrete_actions=torch.zeros((b, t, 1), dtype=torch.long,
+                                                  device=model.device))
+        ref = DynamicsWorldModel(**{**cfg, 'use_fused_small': False})
+        ref.load_state_dict(model.state_dict())
+        return model, ref, batch, wm_plain_step_loss(batch, init_seed + 3)
+
+    draws = []
+    for i in reversed(range(WM_FUSED_LOSS_INITS)):
+        model, ref, batch, loss_fn = init(seed + i)
+        distances = compare_grads(model, ref, loss_fn, names, 'Attention', 'use_fused_small')
+        draws.insert(0, distances['loss'])
+        del ref
+    log(f'wm fused grads loss by initialization (|bf16 kernels - f32|, |bf16 plain - f32|): '
+        f'{draws}')
+    distances['loss'] = tuple(float(np.sqrt(np.mean(np.square(d)))) for d in zip(*draws))
+    check_grad_distances('wm fused grads', distances)
 
     trainer = BehaviorCloneTrainer(model, learning_rate=3e-4, clip_grad_norm=1.0, with_ema=True,
                                    seed=seed)
@@ -2383,8 +2569,10 @@ def run_wm_fused_phase(seed: int = 0) -> dict:
         launches[name] = read_counts()
         n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before, name)
         expect_launches(name, launches[name], WM_FUSED_LAUNCHES[shortcut])
+        expect_pool_launches(name, launches[name], POOL_LAUNCHES_PER_STEP[shortcut])
         log(f'{name}: loss {loss.item():.5f}; {n_grad} parameters with a gradient, all moved '
-            f'with their EMA; (K1..K5) launches {launches[name]}')
+            f'with their EMA; (K1..K5) launches {launches[name]}, pool kernels '
+            f'{launches[name].pool}')
         del before, ema_before
 
         def one_step():
@@ -4926,11 +5114,14 @@ def main() -> int:
     if t1024_calls is None:
         raise SystemExit('no library yardstick for the backward at the train shape')
     launches = {}
-    for phase in (run_model_phase, run_optimizer_phase, run_train_phase, run_dream_phase,
-                  run_tokenizer_phase, run_wm_fused_phase, run_sim_phase, run_pixel_phase,
-                  run_cli_phase, run_continuous_phase, run_recipe_phase, run_tok_options_phase,
-                  run_wm_options_phase, run_tok_full_phase, run_wm_subsystems_phase,
-                  run_tok_subsystems_phase, run_parallel_phase, run_recipes_phase):
+    t_phase = time.perf_counter()
+    pool_results = run_pool_phase()
+    log(f'# run_pool_phase: {time.perf_counter() - t_phase:.1f} s')
+    for phase in (run_model_phase, run_optimizer_phase, run_train_phase, run_dream_phase, run_tokenizer_phase, run_wm_fused_phase, run_sim_phase,
+                  run_pixel_phase, run_cli_phase, run_continuous_phase, run_recipe_phase,
+                  run_tok_options_phase, run_wm_options_phase, run_tok_full_phase,
+                  run_wm_subsystems_phase, run_tok_subsystems_phase, run_parallel_phase,
+                  run_recipes_phase):
         t_phase = time.perf_counter()
         launches.update(phase())
         log(f'# {phase.__name__}: {time.perf_counter() - t_phase:.1f} s')
@@ -4993,6 +5184,15 @@ def main() -> int:
                     launches=totals[4], launches_by_path=by_path(4), **small_shape['bwd'],
                     library_covers='flex_attention backward: dq, dk and dv together',
                     at_path_shapes=small_at['bwd'])]
+    pool_by_path = {path: c.pool for path, c in launches.items()
+                    if any(getattr(c, 'pool', (0, 0, 0)))}
+    pool_totals = [sum(c[i] for c in pool_by_path.values()) for i in range(3)]
+    kernels.append(dict(name='pool attn_pool', route='cuda',
+                        source='dreamer4_torch/csrc/attn_pool.cu',
+                        replaces='none: the pools and rms_normalize, which XLA fuses',
+                        launches=sum(pool_totals),
+                        launches_by_kind=dict(zip(('fwd', 'bwd', 'norm'), pool_totals)),
+                        launches_by_path=pool_by_path, at_path_shapes=pool_results))
     missing = [k['name'] for k in kernels if k['launches'] == 0]
     if missing:
         raise SystemExit(f'kernels never launched on the main paths: {missing}')

@@ -325,7 +325,8 @@ class AxialSpaceTimeTransformer(nn.Module):
 
         # every pool reads the stack of the (unscaled) normalized hiddens so
         # far. Without grad they are written once each, in place, into ONE
-        # preallocated buffer whose prefix each pool reads. Under grad an
+        # preallocated buffer whose prefix each pool reads (on CUDA the
+        # normalization's kernel writes its slot directly). Under grad an
         # in-place write would bump the version of a prefix an earlier pool
         # saved for its backward, so each pool stacks the list instead (the
         # counterpart's functional `.at[].set` has no such conflict).
@@ -344,9 +345,10 @@ class AxialSpaceTimeTransformer(nn.Module):
             layer_hiddens.append(tok)
             if not self.use_attn_pool:
                 return
-            n = rms_normalize(tok).reshape(-1, d).to(stack_dtype)
             if in_place:
-                normed_stack[len(normed)].copy_(n)
+                n = rms_normalize(tok.reshape(-1, d), out=normed_stack[len(normed)])
+            else:
+                n = rms_normalize(tok).reshape(-1, d).to(stack_dtype)
             normed.append(n)
 
         def pool_inputs():

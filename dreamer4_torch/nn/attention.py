@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..ops import attn_pool
 from ..ops.attention import naive_attend
 from ..ops.flash_attention import flash_attend
 from ..ops.rotary import apply_rotations, apply_rotations_flat
@@ -350,11 +351,24 @@ class FeedForward(nn.Module):
         return self.proj_out(x)
 
 
-def rms_normalize(x, eps: float = 1e-6):
+def rms_normalize(x, eps: float = 1e-6, out: torch.Tensor | None = None):
     """RMSNorm without the learned scale: float32 statistic, stream-dtype
-    apply. The trunk computes it once per hidden for all pools."""
+    apply. The trunk computes it once per hidden for all pools. On CUDA one
+    kernel (`ops.attn_pool.rms_normalize`), on the CPU the plain code. `out`
+    (x's shape; no grad) receives the result, cast to its dtype, and is
+    returned: the trunk's slot of its stack of normalized hiddens."""
+    if not x.is_cuda:
+        return rms_normalize_plain(x, eps, out)
+    if out is None or out.dtype == x.dtype:
+        return attn_pool.rms_normalize(x, eps, out=out)
+    return out.copy_(attn_pool.rms_normalize(x, eps))
+
+
+def rms_normalize_plain(x, eps: float = 1e-6, out: torch.Tensor | None = None):
+    """`rms_normalize`'s plain code, which its kernel computes on CUDA."""
     inv = torch.rsqrt(x.float().square().mean(dim=-1, keepdim=True) + eps)
-    return x * inv.to(x.dtype)
+    y = x * inv.to(x.dtype)
+    return y if out is None else out.copy_(y)
 
 
 class _Kernel(nn.Module):
@@ -408,34 +422,54 @@ class _StreamingPoolAttention(nn.Module):
 
     def forward(self, x, normed_hiddens):
         # x: (B, d); normed_hiddens: (L, B, d) stack or a list of (B, d)
-        h, dh = self.heads, self.dim_head
+        dh = self.dim_head
         cdt = self.dtype if self.dtype is not None else x.dtype
 
         tn = self.norm(x)
-        q = self.to_q(tn).reshape(-1, h, dh)
+        q = self.to_q(tn)
 
         cscale = self.norm_context.scale.to(cdt)[:, None]
         w_k = cscale * self.to_k.kernel.to(cdt)
         w_v = cscale * self.to_v.kernel.to(cdt)
-        gamma_scale = ((self.k_norm.gamma + 1.0) * dh ** 0.5).to(cdt)
 
         n = (normed_hiddens if isinstance(normed_hiddens, torch.Tensor)
              else torch.stack(list(normed_hiddens)))
         n = n.to(torch.promote_types(n.dtype, cdt))
-        k = (n @ w_k.to(n.dtype)).reshape(*n.shape[:2], h, dh)           # (L, B, h, dh)
-        v = (n @ w_v.to(n.dtype)).reshape(*n.shape[:2], h, dh)
-        inv = torch.rsqrt(k.float().square().sum(dim=-1, keepdim=True) + 1e-12)
-        k = k * inv.to(k.dtype) * gamma_scale.to(k.dtype)
+        k = n @ w_k.to(n.dtype)                                           # (L, B, h*dh)
+        v = n @ w_v.to(n.dtype)
 
-        sim = torch.einsum('bhd,lbhd->bhl', q.float(), k.float()) * dh ** -0.5
-        if self.softclamp_value is not None:
-            sim = softclamp(sim, self.softclamp_value)
-        attn = torch.softmax(sim, dim=-1).to(v.dtype)
-        out = torch.einsum('bhl,lbhd->bhd', attn, v)
-
-        gates = torch.sigmoid(self.to_gates(tn))
-        out = (out * gates[..., None]).reshape(-1, h * dh)
+        scale = (self.k_norm.gamma + 1.0) * dh ** 0.5
+        gate_logits = self.to_gates(tn)
+        if q.is_cuda:
+            # the attention, the head norm and the gates in one kernel
+            # forward and one backward (`ops.attn_pool.pool_attend`), in the
+            # dtype the plain code's output would take
+            dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), gate_logits.dtype)
+            out = attn_pool.pool_attend(q.to(dt), k.to(dt), v.to(dt), scale, gate_logits.to(dt),
+                                        self.softclamp_value)
+        else:
+            out = pool_attend_plain(q, k, v, scale.to(cdt), gate_logits, self.softclamp_value)
         return self.to_out(out)
+
+
+def pool_attend_plain(q, k, v, scale, gate_logits, softclamp_value: float | None = 50.0):
+    """The pools' plain code after the projections, the function of
+    `ops.attn_pool.pool_attend`: q (B, h*dh), k and v (L, B, h*dh), the
+    head-norm scale (h, dh) and the gate logits (B, h); the key statistic
+    and the scores in float32, the rest in the inputs' dtype."""
+    L, B, _ = k.shape
+    h, dh = scale.shape
+    q = q.reshape(B, h, dh)
+    k, v = k.reshape(L, B, h, dh), v.reshape(L, B, h, dh)
+    inv = torch.rsqrt(k.float().square().sum(dim=-1, keepdim=True) + 1e-12)
+    k = k * inv.to(k.dtype) * scale.to(k.dtype)
+
+    sim = torch.einsum('bhd,lbhd->bhl', q.float(), k.float()) * dh ** -0.5
+    if softclamp_value is not None:
+        sim = softclamp(sim, softclamp_value)
+    attn = torch.softmax(sim, dim=-1).to(v.dtype)
+    out = torch.einsum('bhl,lbhd->bhd', attn, v)
+    return (out * torch.sigmoid(gate_logits)[..., None]).reshape(B, h * dh)
 
 
 class AttentionPool(nn.Module):
@@ -446,14 +480,17 @@ class AttentionPool(nn.Module):
         self.attn = _StreamingPoolAttention(dim, heads, dim_head, dtype=dtype, device=device)
 
     def forward(self, x, hiddens, normed_hiddens=None):
-        lead_shape = x.shape[:-1]
-        flat = lambda t: t.reshape(-1, t.shape[-1])
-        if normed_hiddens is None:
-            normed_hiddens = [rms_normalize(h) for h in hiddens]
-        if not isinstance(normed_hiddens, torch.Tensor):
-            normed_hiddens = [flat(h) for h in normed_hiddens]
-        out = self.attn(flat(x), normed_hiddens)
-        return out.reshape(*lead_shape, x.shape[-1])
+        """One span, `dreamer4.attention_pool` (`tracing`), from the first op
+        to the return; the backward runs outside it."""
+        with span('dreamer4.attention_pool'):
+            lead_shape = x.shape[:-1]
+            flat = lambda t: t.reshape(-1, t.shape[-1])
+            if normed_hiddens is None:
+                normed_hiddens = [rms_normalize(h) for h in hiddens]
+            if not isinstance(normed_hiddens, torch.Tensor):
+                normed_hiddens = [flat(h) for h in normed_hiddens]
+            out = self.attn(flat(x), normed_hiddens)
+            return out.reshape(*lead_shape, x.shape[-1])
 
 
 class LearnedQueriesAttentionPool(nn.Module):

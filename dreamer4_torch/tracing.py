@@ -31,6 +31,9 @@ readers of their host time:
   `nn.attention.Attention` from its first op to its return, named by the
   path it takes (K4/K5; K1-K3; ring attention; the plain attention). The
   backward of a call runs outside its span.
+- `dreamer4.attention_pool`: one call of `nn.attention.AttentionPool` (the
+  trunk's pools, `ops/attn_pool.py` on CUDA), from its first op to its
+  return; its backward runs outside it.
 """
 from __future__ import annotations
 

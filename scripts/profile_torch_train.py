@@ -8,9 +8,10 @@ depth 8, float32 master weights, bf16 compute, flash attention on) with a
 and one shortcut step, then prints, for each variant, under torch.profiler,
 one whole step: its wall time, the device's busy time (the sum of the CUDA
 kernels' times) and idle share, the CUDA kernels launched, the launches and
-device time of each kernel of the port (K1-K5), the host time, launches and
+device time of each kernel of the port (K1-K5, the pools' and
+`rms_normalize`'s), the host time, launches and
 device and idle time of each of the port's spans (the step's parts: forward,
-backward, optimizer, EMA, and the attention calls by path;
+backward, optimizer, EMA, the attention calls by path and the pools;
 `dreamer4_torch/tracing.py`, reduced by `benchmark/spans.py`), and the CUDA
 kernels and host-side PyTorch ops that take the most time.
 Imports torch, numpy, the port and the benchmark's span reduction only.
@@ -34,7 +35,8 @@ from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E
 
 # name stems of the port's CUDA kernels (dreamer4_torch/csrc)
 PORT_KERNELS = {'K1': 'flash_fwd_', 'K2': 'bwd_dq_', 'K3': 'bwd_dkv_', 'K4': 'small_fwd_',
-                'K5': 'small_bwd_'}
+                'K5': 'small_bwd_', 'pool': 'attn_pool_fwd', 'pool backward': 'attn_pool_bwd',
+                'pool scale gradient': 'attn_pool_dscale', 'rms_normalize': 'attn_pool_rms_'}
 
 
 def profile_step(step, label):

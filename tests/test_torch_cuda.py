@@ -5,8 +5,9 @@ version: K1 (`csrc/flash_attn_fwd.cu`) against `flash_attend_reference`, K2
 (`csrc/small_attn_fwd.cu`) against `small_attend_flat_reference` and K5
 (`csrc/small_attn_bwd.cu`) against `small_attend_flat_bwd_reference`. Every test here
 needs a CUDA device and skips without one: a hand-written kernel has no CPU
-or interpret mode. This file imports torch and the port only, so it runs on
-a machine without JAX:
+or interpret mode. This file imports torch, the port and `chip_smoke.py`
+(whose helpers the pool tests share) only, so it runs on a machine without
+JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -26,12 +27,23 @@ sums in the kernels' order; Muon's momentum, its stacked update and
 p + coef * o bitwise; its bf16 Newton-Schulz input within one bf16 step;
 Adam-atan2 at 1e-6 relative; the whole `MuonAdamAtan2` step against its
 plain loop as `test_optimizer_kernels_match_the_plain_loop` states.
+
+The attention pools' kernels (`csrc/attn_pool.cu`) against the pool's plain
+code, output and every gradient as relative L2 distances: float32 within
+1e-4 (orders of summation; the scale's gradient sums L N terms), bf16 no
+further from the float32 plain result than the bf16 plain code, up to 1.25x
+(the kernels round each output once from float32); `rms_normalize`'s alike
+(float32 1e-5). A whole `dreamer4-wm-512` step with the kernels against one
+without, within the benchmark's own `loss_gap` / `grad_gap`, and a cached
+dream with and without them, each against float32.
 """
 import copy
+from pathlib import Path
 
 import pytest
 import torch
 
+import chip_smoke
 from dreamer4_torch.models.tokenizer import VideoTokenizer
 from dreamer4_torch.models.transformer import AxialSpaceTimeTransformer
 from dreamer4_torch.ops import flash_attention as fa
@@ -1183,3 +1195,197 @@ def test_optimizer_refuses_what_the_kernels_do_not_take(gen):
     model.one.data = model.one.data.float().cpu()
     with pytest.raises(ValueError, match='one CUDA device'):
         opt.step()
+
+
+# ------------------------------------------------------- attention pools
+
+WM_512 = Path(__file__).resolve().parent.parent / 'benchmark'
+POOL_CASES = [(3, 41_472), (17, 41_472), (3, 1_001), (17, 1_001)]
+
+
+def pool_case(gen, L, N, dtype):
+    """Inputs at the pool's widths (4 x 64), rounded to `dtype` and handed
+    back in float32 too: the float32 plain result of the same values is the
+    reference."""
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device='cuda')
+    q, k, v = rand(N, 256), rand(L, N, 256), rand(L, N, 256)
+    gates, dout = rand(N, 4), rand(N, 256)
+    scale = (1.0 + 0.3 * rand(4, 64)) * 8.0
+    xs = [t.to(dtype) for t in (q, k, v, gates, dout)]
+    return xs, [t.float() for t in xs], scale
+
+
+POOL_NAMES = ('out', 'dq', 'dk', 'dv', 'dscale', 'dgate')
+
+
+def rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('L, N', POOL_CASES)
+def test_pool_kernels_match_the_plain_path(gen, dtype, L, N):
+    """The pool's forward and backward kernels against the plain code
+    (`nn.attention.pool_attend_plain`), at
+    L = 3 and 17 and N = 41,472 (`wm_train_long`'s tokens) and 1,001 (no
+    multiple of a block): float32 within 1e-4 relative L2 for the output
+    and every gradient (orders of summation; the scale's gradient sums
+    L N terms); bf16 no further from the float32 plain result than the bf16
+    plain code is, up to 1.25x."""
+    from dreamer4_torch.nn.attention import pool_attend_plain as plain_pool
+    from dreamer4_torch.ops import attn_pool as ap
+
+    pool_outputs = chip_smoke.pool_outputs
+    xs, xs32, scale = pool_case(gen, L, N, dtype)
+    before = (ap.FWD_LAUNCHES, ap.BWD_LAUNCHES)
+    kernel = pool_outputs(ap.pool_attend, xs, scale)
+    assert (ap.FWD_LAUNCHES, ap.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    ref = pool_outputs(plain_pool, xs32, scale)
+    if dtype == torch.float32:
+        for name, a, b in zip(POOL_NAMES, kernel, ref):
+            assert rel_l2(a, b) <= 1e-4, name
+    else:
+        plain = pool_outputs(plain_pool, xs, scale)
+        for name, a, p, b in zip(POOL_NAMES, kernel, plain, ref):
+            assert rel_l2(a, b) <= 1.25 * rel_l2(p, b), (name, rel_l2(a, b), rel_l2(p, b))
+
+
+@pytest.mark.cuda
+def test_pool_kernels_are_bitwise_reproducible(gen):
+    """The scale's gradient is summed in a fixed order (block partials,
+    then one pass), so two backward passes agree bit for bit."""
+    from dreamer4_torch.ops import attn_pool as ap
+
+    xs, _, scale = pool_case(gen, 17, 41_472, torch.bfloat16)
+    first = chip_smoke.pool_outputs(ap.pool_attend, xs, scale)
+    second = chip_smoke.pool_outputs(ap.pool_attend, xs, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows', [41_472, 1_001])
+def test_rms_kernel_matches_the_plain_path(gen, dtype, rows):
+    """`rms_normalize`'s kernels at the trunk's width 512 against its plain
+    code: float32 within 1e-5 relative L2, forward and backward; bf16 no
+    further from the float32 plain result than the bf16 plain code, up to
+    1.25x. With `out`, the kernel writes the same bits into the slot; the
+    caller routes both dtypes to the kernel."""
+    from dreamer4_torch.nn import attention
+    from dreamer4_torch.ops import attn_pool as ap
+
+    x = (torch.randn(rows, 512, generator=gen, device='cuda') * 3).to(dtype)
+    dy = torch.randn(rows, 512, generator=gen, device='cuda').to(dtype)
+
+    def through(fn, x, dy):
+        x = x.clone().requires_grad_()
+        y = fn(x)
+        return [y.detach().float(), torch.autograd.grad(y, x, dy)[0].float()]
+
+    before = ap.NORM_LAUNCHES
+    kernel = through(ap.rms_normalize, x, dy)
+    assert ap.NORM_LAUNCHES == before + 2
+    slot = torch.empty_like(x)
+    with torch.no_grad():
+        assert ap.rms_normalize(x, out=slot) is slot
+        assert torch.equal(slot.float(), kernel[0])
+        assert torch.equal(attention.rms_normalize(x).float(), kernel[0])
+    ref = through(attention.rms_normalize_plain, x.float(), dy.float())
+    if dtype == torch.float32:
+        for a, b in zip(kernel, ref):
+            assert rel_l2(a, b) <= 1e-5
+    else:
+        plain = through(attention.rms_normalize_plain, x, dy)
+        for name, a, p, b in zip(('y', 'dx'), kernel, plain, ref):
+            assert rel_l2(a, b) <= 1.25 * rel_l2(p, b), (name, rel_l2(a, b), rel_l2(p, b))
+
+
+def wm_512():
+    """The benchmark's world-model configuration (`dreamer4-wm-512`) and
+    the limits `wm_train_long` holds a train step to."""
+    import json
+    config = json.loads((WM_512 / 'configs' / 'dreamer4-wm-512.json').read_text())
+    limits = json.loads((WM_512 / 'workloads' / 'wm_train_long.json').read_text())['limits']
+    return config['kwargs'], limits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shortcut', [False, True])
+def test_world_model_step_with_the_pool_kernels_matches_one_without(gen, shortcut):
+    """A whole `dreamer4-wm-512` training forward and backward (b2 x T192,
+    bf16 over float32 weights) with the pool and normalization kernels
+    against the same step on the plain code, same weights, batch and draws:
+    the loss within the benchmark's `loss_gap` and every parameter's
+    gradient norm within its `grad_gap` (|difference| over the larger of
+    the plain norm and the median plain norm)."""
+    from dreamer4_torch.models.world_model import DynamicsWorldModel
+    from dreamer4_torch.ops import attn_pool as ap
+
+    kw, limits = wm_512()
+    torch.manual_seed(0)
+    model = DynamicsWorldModel(**kw, dtype=torch.bfloat16, device='cuda')
+    b, t = 2, 192
+    batch = dict(latents=torch.tanh(torch.randn(b, t, kw['num_latent_tokens'], kw['dim_latent'],
+                                                generator=gen, device='cuda')),
+                 discrete_actions=torch.randint(0, 4, (b, t, 1), generator=gen, device='cuda'),
+                 rewards=torch.randn(b, t, generator=gen, device='cuda'))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        torch.manual_seed(1)
+        draws = torch.Generator(device='cuda').manual_seed(2)
+        loss = model(**batch, shortcut_train=shortcut, generator=draws, update_loss_ema=False)
+        loss.backward()
+        return loss.item(), {n: p.grad.float().norm().item()
+                             for n, p in model.named_parameters() if p.grad is not None}
+
+    counts = (ap.FWD_LAUNCHES, ap.BWD_LAUNCHES, ap.NORM_LAUNCHES)
+    kernel_loss, kernel_norms = step()
+    moved = [a - b for a, b in zip((ap.FWD_LAUNCHES, ap.BWD_LAUNCHES, ap.NORM_LAUNCHES), counts)]
+    assert moved[0] >= kw['depth'] and moved[1] == 2 * kw['depth'] and moved[2] > 0, moved
+    with chip_smoke.plain_pools():
+        plain_loss, plain_norms = step()
+    assert abs(kernel_loss - plain_loss) <= limits['loss_gap'] * abs(plain_loss)
+    assert kernel_norms.keys() == plain_norms.keys()
+    median = torch.tensor(list(plain_norms.values())).median().item()
+    gaps = {n: abs(kernel_norms[n] - p) / max(p, median) for n, p in plain_norms.items()}
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= limits['grad_gap'], (worst, gaps[worst])
+
+
+@pytest.mark.cuda
+def test_cached_dream_with_the_pool_kernels_matches_one_without(gen):
+    """A prompted cached dream (b2, 4 prompt frames, 4 dreamed, 4 denoising
+    steps) of the `dreamer4-wm-512` model in bf16 weights, with the pool and
+    normalization kernels and without, same draws: each dream's latents
+    against the float32 model's, the kernels' no further than 2x the plain
+    code's distance (the bf16 prompt pass's factor in `chip_smoke.py`)."""
+    from dreamer4_torch import DynamicsWorldModel, generate
+    from dreamer4_torch.ops import attn_pool as ap
+    from dreamer4_torch.ops.utils import cast_params_for_inference
+
+    kw, _ = wm_512()
+    torch.manual_seed(0)
+    model = DynamicsWorldModel(**kw, dtype=torch.bfloat16, device='cuda').eval()
+    ref = DynamicsWorldModel(**kw, device='cuda').eval()
+    ref.load_state_dict(model.state_dict())
+    cast_params_for_inference(model, torch.bfloat16)
+    prompt = dict(prompt_latents=torch.rand((2, 4, kw['num_latent_tokens'], kw['dim_latent']),
+                                            generator=gen, device='cuda') * 2 - 1,
+                  prompt_discrete_actions=torch.randint(0, 4, (2, 4, 1), generator=gen,
+                                                        device='cuda'))
+
+    def dream(m):
+        draws = torch.Generator(device='cuda').manual_seed(3)
+        with torch.no_grad():
+            return generate(m, draws, batch_size=2, time_steps=8, num_steps=4,
+                            **prompt).latents[:, 4:].float()
+
+    counts = (ap.FWD_LAUNCHES, ap.NORM_LAUNCHES)
+    kernel = dream(model)
+    assert ap.FWD_LAUNCHES > counts[0] and ap.NORM_LAUNCHES > counts[1]
+    with chip_smoke.plain_pools():
+        plain, want = dream(model), dream(ref)
+    assert rel_l2(kernel, want) <= 2.0 * rel_l2(plain, want), (rel_l2(kernel, want),
+                                                             rel_l2(plain, want))

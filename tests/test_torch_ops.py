@@ -196,20 +196,21 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, 'CSRC_DIR', csrc)
     monkeypatch.setattr(cuda_build, 'nvcc_version', lambda: 'nvcc, a fixed version')
     names = cuda_build.kernel_names()
-    assert names == ['flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd',
+    assert names == ['attn_pool', 'flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd',
                      'multi_tensor_optim', 'small_attn_bwd', 'small_attn_fwd']
-    attention = [name for name in names if name != 'multi_tensor_optim']
+    standalone = ['attn_pool', 'multi_tensor_optim']
+    attention = [name for name in names if name not in standalone]
     for name in attention:
         # the small kernels' header includes both flash headers (the bf16
         # fragments, the mbarriers of their bulk-async ring)
         headers = (['small_attn_common.cuh'] if name.startswith('small') else []) + [
             'flash_attn_common.cuh', 'flash_attn_sm90.cuh']
         assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu', *headers]
-    assert [p.name for p in cuda_build.source_files('multi_tensor_optim')] == [
-        'multi_tensor_optim.cu']
+    for name in standalone:
+        assert [p.name for p in cuda_build.source_files(name)] == [f'{name}.cu']
     before = {name: cuda_build.library_path(name) for name in names}
     assert before == {name: cuda_build.library_path(name) for name in names}
     header = csrc / 'flash_attn_common.cuh'
     header.write_text(header.read_text() + '\n// edited\n')
     assert all(cuda_build.library_path(name) != before[name] for name in attention)
-    assert cuda_build.library_path('multi_tensor_optim') == before['multi_tensor_optim']
+    assert all(cuda_build.library_path(name) == before[name] for name in standalone)
