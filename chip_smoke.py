@@ -426,6 +426,15 @@ TIME_LAYERS = (3, 7)   # (i + 1) % time_block_every == 0 at depth 8
 # the grad pass adds a backward to each (two launches a pool); a shortcut
 # step adds the two no-grad passes
 POOL_LAUNCHES_PER_STEP = {False: (8, 16, 34), True: (24, 16, 68)}
+# the GLU feedforward kernels' (pack, forward, backward, unpack) launches per
+# world-model train step: a pass of the depth-8 trunk runs 9 feedforwards
+# (one a layer and the special tokens' final one), a pack and a forward
+# each; the grad pass adds a backward and an unpack to each; a shortcut step
+# adds the two no-grad passes
+GLU_LAUNCHES_PER_STEP = {False: (9, 9, 9, 9), True: (27, 27, 9, 9)}
+# a rollout's: one no-grad trunk pass per denoising step and one more to
+# cache each frame (16 x 5 passes), the prompted one's prompt pass on top
+GLU_LAUNCHES_PER_ROLLOUT = {'headline': (720, 720, 0, 0), 'prompted': (4329, 4329, 0, 0)}
 
 # RL in imagination on the bench model: `DreamTrainer` dreams the prompted
 # rollout (PROMPTED with the 96-frame prompt) and takes a heads-only PPO
@@ -508,6 +517,11 @@ TOK_LAUNCHES = {'tok_encode': (0, 0, 0, 1, 0), 'tok_decode': (0, 0, 0, 4, 0),
 # passes, a train step one pass of each trunk with its backward
 TOK_POOL_LAUNCHES = {'tok_encode': (4, 0, 9), 'tok_decode': (16, 0, 36),
                      'tok_train_step': (8, 16, 36), 'tok_train_on_batch': (8, 16, 36)}
+# GLU feedforward (pack, forward, backward, unpack) launches: the encoder
+# runs 5 feedforwards a pass (4 layers and the special tokens' final one),
+# the decoder 4; a train step one pass of each with its backward
+TOK_GLU_LAUNCHES = {'tok_encode': (5, 5, 0, 0), 'tok_decode': (16, 16, 0, 0),
+                    'tok_train_step': (9, 9, 9, 9), 'tok_train_on_batch': (9, 9, 9, 9)}
 
 # bench.py:165: the world model's b8 x T32 train step, with the small path:
 # 6 space layers (n = 27, n*h = 216) and 2 time layers (n = 32, 256) on
@@ -1521,6 +1535,7 @@ def run_model_phase(seed: int = 0) -> dict:
         if launches[name] != want:
             raise SystemExit(f'{name} rollout launched (K1..K5) {launches[name]} times, '
                              f'expected {want}')
+        expect_glu_launches(name, launches[name], GLU_LAUNCHES_PER_ROLLOUT[name])
         if variants != ({'sm90': want[0]} if want[0] else {}):
             raise SystemExit(f'{name} rollout: K1 ran as {variants}, not all on the wgmma '
                              'kernel')
@@ -1549,28 +1564,36 @@ def run_model_phase(seed: int = 0) -> dict:
 def zero_counts():
     from dreamer4_torch.ops import attn_pool as ap
     from dreamer4_torch.ops import flash_attention as fa
+    from dreamer4_torch.ops import glu_ff
     from dreamer4_torch.ops import small_attention as sa
     fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     fa.K1_LAUNCHES = dict.fromkeys(fa.K1_VARIANTS, 0)
     sa.FWD_LAUNCHES = sa.BWD_LAUNCHES = 0
     ap.FWD_LAUNCHES = ap.BWD_LAUNCHES = ap.NORM_LAUNCHES = 0
+    glu_ff.PACK_LAUNCHES = glu_ff.FWD_LAUNCHES = glu_ff.BWD_LAUNCHES = 0
+    glu_ff.UNPACK_LAUNCHES = 0
 
 
 class Launches(tuple):
     """(K1, K2, K3, K4, K5) launches, compared and printed as that tuple;
-    `pool` the pool kernels' (forward, backward, norm) launches."""
+    `pool` the pool kernels' (forward, backward, norm) launches, `glu` the
+    GLU feedforward kernels' (pack, forward, backward, unpack)."""
     pool = (0, 0, 0)
+    glu = (0, 0, 0, 0)
 
 
 def read_counts() -> Launches:
     """(K1..K5) launches since the last `zero_counts`, with the pool
-    kernels' (`Launches.pool`)."""
+    kernels' (`Launches.pool`) and the GLU kernels' (`Launches.glu`)."""
     from dreamer4_torch.ops import attn_pool as ap
     from dreamer4_torch.ops import flash_attention as fa
+    from dreamer4_torch.ops import glu_ff
     from dreamer4_torch.ops import small_attention as sa
     got = Launches((sum(fa.K1_LAUNCHES.values()), fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
                     sa.FWD_LAUNCHES, sa.BWD_LAUNCHES))
     got.pool = (ap.FWD_LAUNCHES, ap.BWD_LAUNCHES, ap.NORM_LAUNCHES)
+    got.glu = (glu_ff.PACK_LAUNCHES, glu_ff.FWD_LAUNCHES, glu_ff.BWD_LAUNCHES,
+               glu_ff.UNPACK_LAUNCHES)
     return got
 
 
@@ -1579,6 +1602,14 @@ def expect_pool_launches(label, got: Launches, want):
     if got.pool != want:
         raise SystemExit(f'{label} launched the pool kernels (forward, backward, norm) '
                          f'{got.pool}, expected {want}')
+
+
+def expect_glu_launches(label, got: Launches, want):
+    """The GLU feedforward kernels' (pack, forward, backward, unpack)
+    launches of a step."""
+    if got.glu != want:
+        raise SystemExit(f'{label} launched the GLU kernels (pack, forward, backward, unpack) '
+                         f'{got.glu}, expected {want}')
 
 
 def read_k1_variants() -> dict[str, int]:
@@ -1943,6 +1974,131 @@ def plain_pools():
         ap.pool_attend, ap.rms_normalize = saved
 
 
+# the GLU feedforward kernels' shape: a `wm_train_long` trunk call (b8 x T192
+# x 27 tokens) at dim 512, f = 1365, P = 1368, bf16
+GLU_ROWS = POOL_TOKENS
+GLU_DIM = 512
+PRE_HOPPER_GEMMS = ('cutlass_75', 'cutlass_80', 'sm75', 'sm80')
+
+
+def glu_bytes(M: int, P: int, which: str, elem: int = 2) -> int:
+    """Bytes the GLU kernels must move at least: the forward reads h (M,
+    2P) and writes a (M, P); the backward reads dA (M, P) and h and writes
+    dh (M, 2P)."""
+    return M * P * elem * (3 if which == 'fwd' else 5)
+
+
+def run_glu_phase(seed: int = 0) -> dict:
+    """Returns the GLU kernels' timings. A bf16 `FeedForward` at
+    `wm_train_long`'s trunk shape (M = 41,472, d = 512) on the kernels
+    against its plain code (`plain_feedforward`): output and gradients held
+    against the float32 plain result (the kernels within 1.25x of the bf16
+    plain code's distance), the GLU kernels timed by CUDA events beside
+    their bytes bound and the plain GLU's time (the `silu` and `mul` on the
+    hidden's halves, and their backward), the whole feedforward forward and
+    backward timed both ways, and the GEMM kernels of one kernel-path call
+    listed by name (none of cuBLAS's pre-Hopper ones expected)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dreamer4_torch.nn.attention import FeedForward
+    from dreamer4_torch.ops import glu_ff
+
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    M, dim = GLU_ROWS, GLU_DIM
+    torch.manual_seed(seed)
+    ff = FeedForward(dim, dtype=torch.bfloat16, device='cuda')
+    with torch.no_grad():
+        for p in (ff.proj_in.bias, ff.proj_out.bias):
+            p.copy_(0.5 * torch.randn(p.shape, generator=gen, device='cuda'))
+    ref = FeedForward(dim, device='cuda')
+    ref.load_state_dict(ff.state_dict())
+    ps = [ff.proj_in.weight, ff.proj_in.bias, ff.proj_out.weight, ff.proj_out.bias]
+    x = torch.randn(M, dim, generator=gen, device='cuda').to(torch.bfloat16)
+    dy = torch.randn(M, dim, generator=gen, device='cuda').to(torch.bfloat16)
+
+    def plain(m, t):
+        with plain_feedforward():
+            return m(t)
+
+    def through(m, run, t):
+        t = t.clone().requires_grad_()
+        y = run(m, t)
+        mps = [m.proj_in.weight, m.proj_in.bias, m.proj_out.weight, m.proj_out.bias]
+        return [y.detach().float()] + [g.float() for g in
+                                        torch.autograd.grad(y, [t, *mps], dy.to(y.dtype))]
+
+    dist = lambda a, b: ((a - b).norm() / b.norm()).item()
+    names = ('y', 'dx', 'dW_in', 'db_in', 'dW_out', 'db_out')
+    want = through(ref, plain, x.float())
+    errors = {n: (dist(k, r), dist(p, r)) for n, k, p, r in
+              zip(names, through(ff, lambda m, t: m(t), x), through(ff, plain, x), want)}
+    del want
+    bad = [n for n, (e_k, e_p) in errors.items() if e_k > 1.25 * e_p]
+    if bad:
+        raise SystemExit(f'glu: kernels further from float32 than the plain code: {bad} {errors}')
+
+    f = ff.proj_out.weight.shape[1]
+    P = glu_ff.padded_width(f)
+    w_in_p, b_in_p, _, _ = glu_ff._pack(*ps, torch.bfloat16, f, P)
+    h = torch.addmm(b_in_p, ff.norm(x), w_in_p.t())
+    da = torch.randn(M, P, generator=gen, device='cuda').to(torch.bfloat16)
+    row = dict(rows=M, dim=dim, f=f, P=P, errors=errors)
+    row['fwd_ms'] = cuda_time_ms(lambda: glu_ff._glu_fwd(h, f, 'silu'), iters=20)
+    row['bwd_ms'] = cuda_time_ms(lambda: glu_ff._glu_bwd(da, h, f, 'silu'), iters=20)
+    for which in ('fwd', 'bwd'):
+        row[f'{which}_bound_ms'] = glu_bytes(M, P, which) / H100_BYTES_PER_S * 1e3
+        row[f'{which}_pct_of_bound'] = 100 * row[f'{which}_bound_ms'] / row[f'{which}_ms']
+
+    # the plain GLU on the unpadded hidden (M, 2f), as `FeedForward._plain`
+    # runs it: forward, and the backward of one retained graph
+    hp = torch.cat([h[:, :f], h[:, P:P + f]], dim=1).requires_grad_()
+    dap = da[:, :f].contiguous()
+
+    def plain_glu():
+        v, g = hp.chunk(2, dim=-1)
+        return v * ff.act(g)
+    with torch.no_grad():
+        row['plain_fwd_ms'] = cuda_time_ms(plain_glu, iters=20)
+    out = plain_glu()
+    row['plain_bwd_ms'] = cuda_time_ms(
+        lambda: torch.autograd.grad(out, hp, dap, retain_graph=True), iters=20)
+    del out, hp, dap, da, h
+
+    def ff_step(run):
+        t = x.clone().requires_grad_()
+        torch.autograd.grad(run(ff, t), [t, *ps], dy)
+    row['ff_fwd_bwd_ms'] = cuda_time_ms(lambda: ff_step(lambda m, t: m(t)), iters=10)
+    row['plain_ff_fwd_bwd_ms'] = cuda_time_ms(lambda: ff_step(plain), iters=10)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ff_step(lambda m, t: m(t))
+        torch.cuda.synchronize()
+    gemms = sorted({e.name for e in prof.events() if is_device_event(e)
+                    and any(w in e.name for w in ('gemm', 'nvjet', 'cutlass', 'xmma'))})
+    row['gemm_kernels'] = gemms
+    row['pre_hopper_gemms'] = [g for g in gemms if any(w in g for w in PRE_HOPPER_GEMMS)]
+    log(f'# glu M{M} x {dim} (f {f}, P {P}): {json.dumps(row)}')
+    if row['pre_hopper_gemms']:
+        raise SystemExit(f'glu: the feedforward still runs pre-Hopper GEMMs: '
+                         f'{row["pre_hopper_gemms"]}')
+    return row
+
+
+@contextlib.contextmanager
+def plain_feedforward():
+    """While open, every `FeedForward` runs its plain code on the card too
+    (`FeedForward._plain` in place of `_kernels`): the path before the GLU
+    kernels."""
+    from dreamer4_torch.nn.attention import FeedForward
+
+    saved = FeedForward._kernels
+    FeedForward._kernels = FeedForward._plain
+    try:
+        yield
+    finally:
+        FeedForward._kernels = saved
+
+
 def run_train_phase(seed: int = 0) -> dict:
     """Trains the bench model at b1 x T1024 through `BehaviorCloneTrainer`;
     returns the (K1..K5) launches of each step it drove."""
@@ -1991,6 +2147,7 @@ def run_train_phase(seed: int = 0) -> dict:
         if launches[name] != want:
             raise SystemExit(f'{name} launched (K1..K5) {launches[name]}, expected {want}')
         expect_pool_launches(name, launches[name], POOL_LAUNCHES_PER_STEP[shortcut])
+        expect_glu_launches(name, launches[name], GLU_LAUNCHES_PER_STEP[shortcut])
         if variants != {'sm90': want[0]}:
             raise SystemExit(f'{name}: K1 ran as {variants}, not all on the wgmma kernel')
         del before, ema_before
@@ -2008,6 +2165,8 @@ def run_train_phase(seed: int = 0) -> dict:
         raise SystemExit('train_on_batch: wrong launches, loss or step')
     expect_pool_launches('train_on_batch', launches['train_on_batch'],
                          POOL_LAUNCHES_PER_STEP[shortcut])
+    expect_glu_launches('train_on_batch', launches['train_on_batch'],
+                        GLU_LAUNCHES_PER_STEP[shortcut])
 
     for shortcut in (False, True):
         def one_step():
@@ -2459,6 +2618,7 @@ def run_tokenizer_phase(seed: int = 0) -> dict:
     for name in ('tok_encode', 'tok_decode'):
         expect_launches(name, launches[name], TOK_LAUNCHES[name])
         expect_pool_launches(name, launches[name], TOK_POOL_LAUNCHES[name])
+        expect_glu_launches(name, launches[name], TOK_GLU_LAUNCHES[name])
     log(f'encode b{b} T{t}: {enc_s * 1e3:.1f} ms, {frames / enc_s:.1f} frames/s; decode '
         f'(4 flow steps): {dec_s * 1e3:.1f} ms, {frames / dec_s:.1f} frames/s (means of 3 after '
         f'a first run); (K1..K5) launches encode {launches["tok_encode"]}, decode '
@@ -2498,6 +2658,7 @@ def run_tokenizer_phase(seed: int = 0) -> dict:
     for name in ('tok_train_step', 'tok_train_on_batch'):
         expect_launches(name, launches[name], TOK_LAUNCHES[name])
         expect_pool_launches(name, launches[name], TOK_POOL_LAUNCHES[name])
+        expect_glu_launches(name, launches[name], TOK_GLU_LAUNCHES[name])
     log(f'tokenizer train step: loss {loss.item():.5f}, then {loss2.item():.5f}; {n_grad} '
         f'parameters with a gradient, all moved with their EMA; (K1..K5) launches '
         f'{launches["tok_train_step"]} and {launches["tok_train_on_batch"]}')
@@ -2570,9 +2731,10 @@ def run_wm_fused_phase(seed: int = 0) -> dict:
         n_grad = check_step(model, ts_before, trainer.ts, loss, losses, before, ema_before, name)
         expect_launches(name, launches[name], WM_FUSED_LAUNCHES[shortcut])
         expect_pool_launches(name, launches[name], POOL_LAUNCHES_PER_STEP[shortcut])
+        expect_glu_launches(name, launches[name], GLU_LAUNCHES_PER_STEP[shortcut])
         log(f'{name}: loss {loss.item():.5f}; {n_grad} parameters with a gradient, all moved '
             f'with their EMA; (K1..K5) launches {launches[name]}, pool kernels '
-            f'{launches[name].pool}')
+            f'{launches[name].pool}, GLU kernels {launches[name].glu}')
         del before, ema_before
 
         def one_step():
@@ -5117,6 +5279,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     pool_results = run_pool_phase()
     log(f'# run_pool_phase: {time.perf_counter() - t_phase:.1f} s')
+    t_phase = time.perf_counter()
+    glu_results = run_glu_phase()
+    log(f'# run_glu_phase: {time.perf_counter() - t_phase:.1f} s')
     for phase in (run_model_phase, run_optimizer_phase, run_train_phase, run_dream_phase, run_tokenizer_phase, run_wm_fused_phase, run_sim_phase,
                   run_pixel_phase, run_cli_phase, run_continuous_phase, run_recipe_phase,
                   run_tok_options_phase, run_wm_options_phase, run_tok_full_phase,
@@ -5193,6 +5358,14 @@ def main() -> int:
                         launches=sum(pool_totals),
                         launches_by_kind=dict(zip(('fwd', 'bwd', 'norm'), pool_totals)),
                         launches_by_path=pool_by_path, at_path_shapes=pool_results))
+    glu_by_path = {path: c.glu for path, c in launches.items()
+                   if any(getattr(c, 'glu', (0, 0, 0, 0)))}
+    glu_totals = [sum(c[i] for c in glu_by_path.values()) for i in range(4)]
+    kernels.append(dict(name='glu glu_ff', route='cuda', source='dreamer4_torch/csrc/glu_ff.cu',
+                        replaces='none: the feedforward\'s GLU, which XLA fuses',
+                        launches=sum(glu_totals),
+                        launches_by_kind=dict(zip(('pack', 'fwd', 'bwd', 'unpack'), glu_totals)),
+                        launches_by_path=glu_by_path, at_path_shapes=glu_results))
     missing = [k['name'] for k in kernels if k['launches'] == 0]
     if missing:
         raise SystemExit(f'kernels never launched on the main paths: {missing}')

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..ops import attn_pool
+from ..ops import attn_pool, glu_ff
 from ..ops.attention import naive_attend
 from ..ops.flash_attention import flash_attend
 from ..ops.rotary import apply_rotations, apply_rotations_flat
@@ -323,12 +323,16 @@ def ring_attend_centered(q, k, v, ring_axis, *, softclamp_value, use_flash: bool
 
 
 class FeedForward(nn.Module):
-    """Pre-RMSNorm (GLU) feedforward."""
+    """Pre-RMSNorm (GLU) feedforward. On CUDA a GLU runs as
+    `ops.glu_ff.glu_feedforward` (its hidden in 16-byte rows, the GLU one
+    kernel each way; silu or gelu in float32 or bf16, anything else raises);
+    on the CPU, and without a GLU, the plain code."""
 
     def __init__(self, dim: int, expansion_factor: float = 4.0, activation: str = 'silu',
                  use_glu: bool | None = None, pre_rmsnorm: bool = True, dtype=None,
                  device=None):
         super().__init__()
+        self.activation = activation
         self.act = get_activation(activation)
         self.use_glu = use_glu if use_glu is not None else activation in ('silu', 'gelu')
         dim_inner = int(dim * expansion_factor * (2 / 3 if self.use_glu else 1))
@@ -340,8 +344,20 @@ class FeedForward(nn.Module):
         self.proj_out = Dense(dim_inner, dim, dtype=dtype, device=device)
 
     def forward(self, x):
-        if self.pre_rmsnorm:
-            x = self.norm(x)
+        with span('dreamer4.feedforward'):
+            if self.pre_rmsnorm:
+                x = self.norm(x)
+            if self.use_glu and x.is_cuda:
+                return self._kernels(x)
+            return self._plain(x)
+
+    def _kernels(self, x):
+        p_in, p_out = self.proj_in, self.proj_out
+        dt = p_in.compute_dtype or torch.promote_types(x.dtype, p_in.weight.dtype)
+        return glu_ff.glu_feedforward(x, p_in.weight, p_in.bias, p_out.weight, p_out.bias,
+                                      self.activation, dt)
+
+    def _plain(self, x):
         x = self.proj_in(x)
         if self.use_glu:
             x, gates = x.chunk(2, dim=-1)

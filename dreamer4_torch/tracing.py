@@ -34,6 +34,9 @@ readers of their host time:
 - `dreamer4.attention_pool`: one call of `nn.attention.AttentionPool` (the
   trunk's pools, `ops/attn_pool.py` on CUDA), from its first op to its
   return; its backward runs outside it.
+- `dreamer4.feedforward`: one call of `nn.attention.FeedForward` (its norm,
+  projections and GLU; `ops/glu_ff.py` on CUDA), from its first op to its
+  return; its backward runs outside it.
 """
 from __future__ import annotations
 

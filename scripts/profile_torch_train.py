@@ -8,8 +8,8 @@ depth 8, float32 master weights, bf16 compute, flash attention on) with a
 and one shortcut step, then prints, for each variant, under torch.profiler,
 one whole step: its wall time, the device's busy time (the sum of the CUDA
 kernels' times) and idle share, the CUDA kernels launched, the launches and
-device time of each kernel of the port (K1-K5, the pools' and
-`rms_normalize`'s), the host time, launches and
+device time of each kernel of the port (K1-K5, the pools',
+`rms_normalize`'s and the GLU feedforward's), the host time, launches and
 device and idle time of each of the port's spans (the step's parts: forward,
 backward, optimizer, EMA, the attention calls by path and the pools;
 `dreamer4_torch/tracing.py`, reduced by `benchmark/spans.py`), and the CUDA
@@ -36,7 +36,9 @@ from dreamer4_torch.train.trainers import make_world_model_train_step  # noqa: E
 # name stems of the port's CUDA kernels (dreamer4_torch/csrc)
 PORT_KERNELS = {'K1': 'flash_fwd_', 'K2': 'bwd_dq_', 'K3': 'bwd_dkv_', 'K4': 'small_fwd_',
                 'K5': 'small_bwd_', 'pool': 'attn_pool_fwd', 'pool backward': 'attn_pool_bwd',
-                'pool scale gradient': 'attn_pool_dscale', 'rms_normalize': 'attn_pool_rms_'}
+                'pool scale gradient': 'attn_pool_dscale', 'rms_normalize': 'attn_pool_rms_',
+                'glu pack': 'glu_ff_pack', 'glu': 'glu_ff_fwd', 'glu backward': 'glu_ff_bwd',
+                'glu unpack': 'glu_ff_unpack'}
 
 
 def profile_step(step, label):

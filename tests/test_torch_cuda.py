@@ -36,6 +36,13 @@ further from the float32 plain result than the bf16 plain code, up to 1.25x
 (float32 1e-5). A whole `dreamer4-wm-512` step with the kernels against one
 without, within the benchmark's own `loss_gap` / `grad_gap`, and a cached
 dream with and without them, each against float32.
+
+The GLU feedforward's kernels (`csrc/glu_ff.cu`) through `FeedForward` on
+the card against its plain code: output and the five gradients as relative
+L2 distances, float32 within 1e-5 (orders of summation), bf16 no further
+from the float32 plain result than the bf16 plain code, up to 1.25x; every
+kernel output allocated full of NaN, so an unwritten pad shows; a GLU over
+another activation or another compute dtype raises.
 """
 import copy
 from pathlib import Path
@@ -1389,3 +1396,140 @@ def test_cached_dream_with_the_pool_kernels_matches_one_without(gen):
         plain, want = dream(model), dream(ref)
     assert rel_l2(kernel, want) <= 2.0 * rel_l2(plain, want), (rel_l2(kernel, want),
                                                              rel_l2(plain, want))
+
+
+# ------------------------------------------------------ GLU feedforward
+
+GLU_CASES = [(41_472, 512, 'silu'), (41_472, 512, 'gelu'), (1_001, 384, 'silu'),
+             (1_001, 512, 'gelu')]
+
+
+def glu_feedforwards(gen, dim, activation, dtype):
+    """A `FeedForward` computing in `dtype` over float32 parameters (random
+    biases) and a float32 copy of it: the reference."""
+    from dreamer4_torch.nn.attention import FeedForward
+
+    torch.manual_seed(0)
+    ff = FeedForward(dim, activation=activation, dtype=dtype, device='cuda')
+    with torch.no_grad():
+        for p in (ff.proj_in.bias, ff.proj_out.bias):
+            p.copy_(0.5 * torch.randn(p.shape, generator=gen, device='cuda'))
+    ref = FeedForward(dim, activation=activation, device='cuda')
+    ref.load_state_dict(ff.state_dict())
+    return ff, ref
+
+
+def plain_call(ff, x):
+    """The feedforward's plain code, also on the card."""
+    with chip_smoke.plain_feedforward():
+        return ff(x)
+
+
+def glu_outputs(ff, run, x, dy):
+    """run(ff, x)'s output and the gradients of x and of the feedforward's
+    four projection parameters for the output gradient dy, as float32."""
+    ps = [ff.proj_in.weight, ff.proj_in.bias, ff.proj_out.weight, ff.proj_out.bias]
+    x = x.clone().requires_grad_()
+    y = run(ff, x)
+    grads = torch.autograd.grad(y, [x, *ps], dy.to(y.dtype))
+    return [y.detach().float()] + [g.float() for g in grads]
+
+
+GLU_NAMES = ('y', 'dx', 'dW_in', 'db_in', 'dW_out', 'db_out')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('M, dim, activation', GLU_CASES)
+def test_glu_ff_kernels_match_the_plain_code(gen, dtype, M, dim, activation):
+    """`FeedForward` on the card (the kernels, `ops/glu_ff.py`) against its
+    plain code (`chip_smoke.plain_feedforward`) at M = 41,472, d = 512
+    (`wm_train_long`'s trunk call), and at an odd M with an aligned width
+    (384: f = 1024, no pads): output and the five gradients as relative L2
+    distances. float32 within 1e-5 (orders of summation, the padded products
+    block their sums otherwise); bf16 no further from the float32 plain
+    result than the bf16 plain code, up to 1.25x (the same bf16 products;
+    the GLU is rounded once, from float32). Each counter moves once a call."""
+    from dreamer4_torch.ops import glu_ff
+
+    ff, ref = glu_feedforwards(gen, dim, activation, dtype)
+    x = torch.randn(M, dim, generator=gen, device='cuda').to(dtype)
+    dy = torch.randn(M, dim, generator=gen, device='cuda')
+    counters = lambda: (glu_ff.PACK_LAUNCHES, glu_ff.FWD_LAUNCHES, glu_ff.BWD_LAUNCHES,
+                        glu_ff.UNPACK_LAUNCHES)
+    before = counters()
+    kernel = glu_outputs(ff, lambda m, t: m(t), x, dy)
+    assert counters() == tuple(b + 1 for b in before)
+    want = glu_outputs(ref, plain_call, x.float(), dy)
+    if dtype == torch.float32:
+        for name, a, b in zip(GLU_NAMES, kernel, want):
+            assert rel_l2(a, b) <= 1e-5, (name, rel_l2(a, b))
+    else:
+        plain = glu_outputs(ff, plain_call, x, dy)
+        for name, a, p, b in zip(GLU_NAMES, kernel, plain, want):
+            assert rel_l2(a, b) <= 1.25 * rel_l2(p, b), (name, rel_l2(a, b), rel_l2(p, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('activation', ['silu', 'gelu'])
+def test_glu_ff_kernels_write_every_pad_as_zero(gen, monkeypatch, dtype, activation):
+    """Every output of the four kernels is allocated full of NaN: the pack's
+    copies are bitwise `pack_reference`'s (every pad zero), the GLU's
+    forward and backward write exact zeros in every pad column and match
+    their references (float32 activation: 1e-6 relative in float32, one bf16
+    rounding apart in bf16), the unpacked gradients are bitwise
+    `unpack_reference`'s. M = 41,472, d = 512, f = 1365, P = 1368."""
+    from dreamer4_torch.ops import glu_ff
+
+    def nan_empty(shape, dtype, device):
+        return torch.full(shape, float('nan'), dtype=dtype, device=device)
+
+    monkeypatch.setattr(glu_ff, '_empty', nan_empty)
+    ff, _ = glu_feedforwards(gen, 512, activation, dtype)
+    ps = [ff.proj_in.weight, ff.proj_in.bias, ff.proj_out.weight, ff.proj_out.bias]
+    M, f, P = 41_472, 1365, 1368
+    packed = glu_ff._pack(*ps, dtype, f, P)
+    for a, b in zip(packed, glu_ff.pack_reference(*ps, dtype, f, P)):
+        assert torch.equal(a, b)
+
+    x = torch.randn(M, 512, generator=gen, device='cuda').to(dtype)
+    h = torch.addmm(packed[1], x, packed[0].t())
+    assert bool((h[:, f:P] == 0).all()) and bool((h[:, P + f:] == 0).all())
+    a = glu_ff._glu_fwd(h, f, activation)
+    da = torch.randn(M, P, generator=gen, device='cuda').to(dtype)
+    dh = glu_ff._glu_bwd(da, h, f, activation)
+    assert bool((a[:, f:] == 0).all())
+    assert bool((dh[:, f:P] == 0).all()) and bool((dh[:, P + f:] == 0).all())
+    for got, want in ((a, glu_ff.glu_fwd_reference(h, f, activation)),
+                      (dh, glu_ff.glu_bwd_reference(da, h, f, activation))):
+        assert bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * want.abs().max().item())
+        else:
+            # one bf16 step of the larger of the two, where they round apart
+            step = torch.maximum(got.float().abs(), want.float().abs()) * 2.0 ** -7
+            assert bool(((got.float() - want.float()).abs() <= step).all())
+
+    grads = (torch.randn(2 * P, 512, generator=gen, device='cuda').to(dtype),
+             torch.randn(2 * P, generator=gen, device='cuda'),
+             torch.randn(512, P, generator=gen, device='cuda').to(dtype),
+             torch.randn(512, generator=gen, device='cuda'))
+    for got, want in zip(glu_ff._unpack(*grads, f, torch.float32),
+                         glu_ff.unpack_reference(*grads, f, torch.float32)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_glu_ff_raises_on_what_its_kernels_do_not_take(gen):
+    """A GLU over another activation, or a compute dtype other than float32
+    and bf16, raises on the card: no configuration of the port builds one."""
+    from dreamer4_torch.nn.attention import FeedForward
+
+    x = torch.randn(4, 64, generator=gen, device='cuda')
+    with pytest.raises(ValueError, match='activations'):
+        FeedForward(64, activation='relu', use_glu=True, device='cuda')(x)
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        FeedForward(64, dtype=torch.float16, device='cuda')(x)
+    # a feedforward without a GLU keeps its plain code on the card
+    FeedForward(64, activation='relu_squared', device='cuda')(x)

@@ -197,8 +197,8 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, 'nvcc_version', lambda: 'nvcc, a fixed version')
     names = cuda_build.kernel_names()
     assert names == ['attn_pool', 'flash_attn_bwd_dkv', 'flash_attn_bwd_dq', 'flash_attn_fwd',
-                     'multi_tensor_optim', 'small_attn_bwd', 'small_attn_fwd']
-    standalone = ['attn_pool', 'multi_tensor_optim']
+                     'glu_ff', 'multi_tensor_optim', 'small_attn_bwd', 'small_attn_fwd']
+    standalone = ['attn_pool', 'glu_ff', 'multi_tensor_optim']
     attention = [name for name in names if name not in standalone]
     for name in attention:
         # the small kernels' header includes both flash headers (the bf16

@@ -76,8 +76,8 @@ def test_no_span_opens_without_a_profiler(monkeypatch):
 def test_train_step_holds_its_parts_in_order(kind, grad_accum):
     """One `dreamer4.train_step` per call; inside it forward, backward,
     optimizer and, on a step that applied an update, EMA, in that order
-    and apart; the attention calls (the plain path on the CPU) inside the
-    forward. Under `MultiSteps` the optimizer's span is on every call."""
+    and apart; the attention calls (the plain path on the CPU) and the
+    feedforward calls inside the forward. Under `MultiSteps` the optimizer's span is on every call."""
     steps = 4
     trainer, calls = trainer_and_batches(kind, grad_accum, steps)
     trainer.train_on_batch(*calls[0])
@@ -100,6 +100,9 @@ def test_train_step_holds_its_parts_in_order(kind, grad_accum):
         assert attention
         assert all(forward[0] <= s[0] and s[1] <= forward[1] for s in attention)
         attention_names |= {s[2] for s in attention}
+        feedforward = [s for s in inside if s[2] == 'dreamer4.feedforward']
+        assert feedforward
+        assert all(forward[0] <= s[0] and s[1] <= forward[1] for s in feedforward)
     assert attention_names == {'dreamer4.attention.plain'}
     assert all(any(lo <= s[0] and s[1] <= hi for lo, hi, _ in step_spans) for s in spans)
 
